@@ -46,6 +46,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: opt-in real-device smoke lane (TPU_SMOKE=1)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (PyTorch port's kernels)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
