@@ -22,6 +22,7 @@ from ..ops.features import _BRIEF_PAIRS, _PATCH_RADIUS
 
 launches = 0
 _WORDS = 8
+_pairs_by_device: dict = {}  # device -> [256, 2, 2] int32 copy of _BRIEF_PAIRS
 
 
 def brief_bitplanes_plain(smooth: torch.Tensor) -> torch.Tensor:
@@ -55,7 +56,10 @@ def brief_bitplanes(smooth: torch.Tensor) -> torch.Tensor:
     if not smooth.is_contiguous():
         raise ValueError("brief: input must be contiguous")
     B, H, W = smooth.shape
-    pairs = torch.as_tensor(_BRIEF_PAIRS, device=smooth.device).contiguous()
+    pairs = _pairs_by_device.get(smooth.device)
+    if pairs is None:
+        pairs = torch.as_tensor(_BRIEF_PAIRS, device=smooth.device).contiguous()
+        _pairs_by_device[smooth.device] = pairs
     out = torch.empty((B, _WORDS, H, W), dtype=torch.int32, device=smooth.device)
     lib = _build.library()
     err = lib.brief_bitplanes_launch(

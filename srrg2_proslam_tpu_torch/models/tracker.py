@@ -15,6 +15,7 @@ Other models and estimators raise NotImplementedError.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -43,8 +44,9 @@ class MergerConfig:
 class TrackerConfig:
     """Same fields and defaults as the JAX package's TrackerConfig.
 
-    ``gn_pallas`` takes the GN burst kernel (on CUDA tensors); ``gn_unroll``
-    has no effect (there is no compiled loop to unroll).
+    ``gn_pallas`` and ``gn_unroll`` are kept for that parity and have no
+    effect: a CUDA tensor always takes the GN burst kernel (K2), a CPU
+    tensor its plain version, and there is no compiled loop to unroll.
     """
 
     matcher: ProjectiveMatcherConfig = field(default_factory=ProjectiveMatcherConfig)
@@ -138,6 +140,14 @@ def _check_supported(config: TrackerConfig, model: str) -> None:
         raise NotImplementedError("the motion-prior factor is not ported yet")
 
 
+@lru_cache(maxsize=16)
+def _robot_sensor(T_robot_sensor: tuple, device: torch.device):
+    """(T_robot_sensor, its inverse) as 4x4 tensors, made once per device."""
+    T_rs = torch.tensor(T_robot_sensor, dtype=torch.float32,
+                        device=device).reshape(4, 4)
+    return T_rs, se3.inverse(T_rs)
+
+
 def associate(arena: LandmarkArena, X, meas_points, meas_desc, meas_valid,
               cam: Camera, config: TrackerConfig, r: int, weights_all, idw):
     """One re-association round: project the arena with X and match.
@@ -169,17 +179,13 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
     into the sensor frame.
     """
     _check_supported(config, model)
-    from ..kernels.gn import gn_burst_stereo, gn_burst_stereo_plain
-
-    # gn_pallas: the GN burst kernel on CUDA tensors (its wrapper computes
-    # the plain burst on CPU tensors)
-    burst = gn_burst_stereo if config.gn_pallas else gn_burst_stereo_plain
+    # the GN burst kernel on CUDA tensors; its wrapper computes the plain
+    # burst on CPU tensors
+    from ..kernels.gn import gn_burst_stereo
 
     arena = state.arena
     dev = meas_points.device
-    T_rs = torch.tensor(config.T_robot_sensor, dtype=torch.float32,
-                        device=dev).reshape(4, 4)
-    T_sr = se3.inverse(T_rs)
+    T_rs, T_sr = _robot_sensor(tuple(config.T_robot_sensor), dev)
     # constant-velocity prediction
     T_pred = state.T_lm_robot @ se3.exp(state.velocity)
     X_pred = se3.inverse(T_pred @ T_rs)
@@ -200,7 +206,7 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
         matches, stage, pts_moving, weights = associate(
             arena, X, meas_points, meas_desc, meas_valid, cam, config, r,
             weights_all, idw)
-        X, stats = burst(
+        X, stats = gn_burst_stereo(
             X.contiguous(), pts_moving, gn_meas, weights, matches.mask, cam,
             iterations=config.gn_iterations, damping=config.damping,
             min_inliers=config.min_num_inliers, epsilon=config.gn_epsilon,

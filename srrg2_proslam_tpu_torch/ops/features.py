@@ -52,7 +52,8 @@ class FeatureExtractorConfig:
 
     ``use_pallas_fast`` forces the FAST kernel's wrapper on the CPU too;
     ``approx_top_k`` selects exact top-k in the port (what JAX computes on
-    the CPU); ``dense_brief`` takes the bitplane kernel on CUDA tensors.
+    the CPU).  ``dense_brief`` is kept for parity and has no effect: a CUDA
+    batch always takes the bitplane kernel (K1), a CPU batch the gather path.
     """
 
     detector_threshold: float = 15.0
@@ -250,15 +251,15 @@ def extract_features_batch(images: torch.Tensor,
                            config: FeatureExtractorConfig) -> Features:
     """Batched frontend for [B, H, W] images -> Features with leading B.
 
-    On a CUDA batch with ``dense_brief`` the descriptors come from the
-    bitplane kernel (8 packed words per pixel, gathered at the keypoints);
-    otherwise from the per-keypoint gather path.  Both give the same bits
-    for BORDER-clipped keypoints.
+    On a CUDA batch the descriptors come from the bitplane kernel (8 packed
+    words per pixel, gathered at the keypoints); on a CPU batch from the
+    per-keypoint gather path.  Both give the same bits for BORDER-clipped
+    keypoints.
     """
     if config.oriented:
         raise NotImplementedError("oriented BRIEF is not ported yet")
     uv, response, valid = detect_keypoints_batch(images, config)
-    if not (config.dense_brief and images.is_cuda):
+    if not images.is_cuda:
         desc = torch.stack([
             compute_descriptors(images[b], uv[b], valid[b], config)
             for b in range(images.shape[0])

@@ -125,7 +125,7 @@ def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
         feasible = base_valid & (geo <= config.radius_stages[s])
         m = match_cost_matrix(cost, feasible, config.descriptor_stages[s],
                               config.lowe_ratio)
-        return m, torch.tensor(s, dtype=torch.int32, device=device)
+        return m, torch.full((), s, dtype=torch.int32, device=device)
 
     per_stage = []
     for s in range(n_stages):

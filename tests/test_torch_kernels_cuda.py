@@ -95,6 +95,22 @@ def test_gn_kernel_matches_plain(rng, n, eps, outliers, n_valid, w_range):
     np.testing.assert_allclose(float(s_k.chi_total), float(s_p.chi_total), rtol=1e-2, atol=1e-2)
 
 
+def test_kernel_switches_keep_kernels_on_cuda(rng):
+    """dense_brief=False and gn_pallas=False still take K1 and K2 on the card."""
+    from srrg2_proslam_tpu_torch.models import frontend, tracker
+    from srrg2_proslam_tpu_torch.ops.features import FeatureExtractorConfig
+
+    cam = Camera(fx=100.0, fy=100.0, cx=80.0, cy=48.0, rows=96, cols=160, baseline_px=10.0)
+    left, right = (torch.from_numpy(rng.randint(0, 256, (96, 160)).astype(np.float32)).cuda()
+                   for _ in range(2))
+    reset_launch_counts()
+    meas = frontend.adapt_stereo(left, right, frontend.StereoAdaptorConfig(
+        extractor=FeatureExtractorConfig(dense_brief=False)))
+    tracker.track_step(tracker.initial_state(64, "cuda"), meas.points, meas.desc, meas.valid,
+                       cam, tracker.TrackerConfig(gn_pallas=False), "stereo")
+    assert launch_counts() == {"fast": 1, "brief": 1, "gn_burst": 3}
+
+
 def test_launch_counters_and_input_checks(rng):
     reset_launch_counts()
     img = torch.zeros(1, 40, 50, device="cuda")
