@@ -32,7 +32,7 @@ from collections import Counter, defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-KERNEL_NAMES = {"fast": "fast_scores_kernel", "brief": "brief_bitplanes_kernel",
+KERNEL_NAMES = {"fast": "fast_scores_kernel", "brief": "brief_descriptors_kernel",
                 "gn_burst": "gn_burst_stereo_kernel"}
 
 

@@ -2,7 +2,8 @@
 
 | kernel | wrapper                        | replaces (JAX package)                    |
 |--------|--------------------------------|-------------------------------------------|
-| K1     | brief.brief_bitplanes          | ops/brief_pallas.py::brief_bitplanes      |
+| K1     | brief.brief_descriptors        | ops/brief_pallas.py::brief_bitplanes      |
+|        |                                | (with its consumer descriptors_from_planes) |
 | K2     | gn.gn_burst_stereo             | ops/gn_pallas.py::gn_burst_stereo         |
 | K3     | fast.fast_scores_kernel        | ops/fast_pallas.py::fast_scores_pallas    |
 

@@ -28,7 +28,7 @@ _F = ctypes.c_float
 # entry point -> argument types (pointers, then sizes/scalars, then stream)
 _SIGNATURES = {
     "fast_scores_launch": [_P, _P, _I, _I, _I, _F, _P],
-    "brief_bitplanes_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "brief_descriptors_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gn_burst_stereo_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
                                _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }
@@ -50,22 +50,30 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiling it first if needed."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
+    global _lib
+    if _lib is None:
+        _lib = build()
+    return _lib
+
+
+def build(extra_flags: tuple = ()) -> ctypes.CDLL:
+    """Compile ``csrc/*.cu`` with ``NVCC_FLAGS`` + ``extra_flags`` (unless a
+    library of the same sources and flags is already built) and load it."""
+    global build_seconds, build_log
+    flags = NVCC_FLAGS + list(extra_flags)
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     so = BUILD_DIR / f"libproslam_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp.so"
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)],
             capture_output=True, text=True)
         build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -77,7 +85,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 

@@ -5,11 +5,12 @@ version is ops/gn.py::gn_iterate over stereo_projective_system.  The kernel
 solves with a prescaled LDL^T instead of the TPU kernel's f32 cofactor
 Schur solve, which overflows for large H.
 
-On the card the burst is bound by latency, not arithmetic (~150 flops per
-correspondence and iteration at C ~ 1152): one CTA keeps the pose in shared
-memory and runs every iteration's block reduction, solve and exp-compose,
-where the plain version issues dozens of small launches per iteration and
-reads the stop flag back to the host.
+On the card the burst is bound by latency, not arithmetic (~270 flops per
+active correspondence and iteration): one CTA loads the masked-in
+correspondences once into registers and runs every iteration's block
+reduction, solve and exp-compose with one barrier each, where the plain
+version issues dozens of small launches per iteration and reads the stop
+flag back to the host.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ def gn_burst_stereo(X0, pts_moving, meas_uvu, weights, mask, cam: Camera,
     for name, (t, _, _) in shapes.items():
         if t.device != X0.device or not t.is_contiguous():
             raise ValueError(f"gn_burst: {name} must be contiguous on {X0.device}")
+    # X [16] and chi_total as float32, then num_inliers and num_terms as int32
     out = torch.empty(19, dtype=torch.float32, device=X0.device)
     lib = _build.library()
     err = lib.gn_burst_stereo_launch(
@@ -67,6 +69,6 @@ def gn_burst_stereo(X0, pts_moving, meas_uvu, weights, mask, cam: Camera,
         torch.cuda.current_stream(X0.device).cuda_stream)
     _build.check(err, "gn_burst_stereo_launch")
     launches += 1
-    stats = GNStats(chi_total=out[16], num_inliers=out[17].to(torch.int32),
-                    num_terms=out[18].to(torch.int32))
+    counts = out[17:].view(torch.int32)
+    stats = GNStats(chi_total=out[16], num_inliers=counts[0], num_terms=counts[1])
     return out[:16].view(4, 4), stats

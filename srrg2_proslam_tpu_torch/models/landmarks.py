@@ -35,7 +35,7 @@ class LandmarkArena(NamedTuple):
         return LandmarkArena(*(t.to(device) for t in self))
 
 
-def empty_arena(capacity: int, device=None) -> LandmarkArena:
+def empty_arena(capacity: int, device=torch.device("cuda")) -> LandmarkArena:
     return LandmarkArena(
         pos=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
         cov=torch.zeros((capacity, 3, 3), dtype=torch.float32, device=device),

@@ -100,7 +100,7 @@ class TrackStats(NamedTuple):
     host_packet: torch.Tensor
 
 
-def initial_state(capacity: int, device=None) -> TrackerState:
+def initial_state(capacity: int, device=torch.device("cuda")) -> TrackerState:
     return TrackerState(
         arena=lm.empty_arena(capacity, device),
         T_lm_robot=se3.identity(device),
@@ -119,7 +119,7 @@ def state_to_numpy(state: TrackerState) -> dict:
     return {k: arrays[k].detach().cpu().numpy() for k in _STATE_KEYS}
 
 
-def state_from_numpy(d: dict, device=None) -> TrackerState:
+def state_from_numpy(d: dict, device=torch.device("cuda")) -> TrackerState:
     """Inverse of :func:`state_to_numpy` (same keys as the JAX state's leaves)."""
     t = {k: torch.as_tensor(np.asarray(d[k]), device=device) for k in _STATE_KEYS}
     arena = LandmarkArena(

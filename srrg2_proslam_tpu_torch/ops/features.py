@@ -7,9 +7,9 @@ fit on the FAST score for sub-pixel keypoints.  Descriptors are BRIEF-256
 on a box-smoothed image.
 
 On a CUDA batch the FAST score comes from the hand-written kernel K3
-(kernels/fast.py) and the descriptors from the dense bitplane kernel K1
+(kernels/fast.py) and the descriptors from the per-keypoint kernel K1
 (kernels/brief.py); on the CPU the same functions as the JAX package's
-CPU path run (``fast_scores`` and the gather path of
+CPU path run (``fast_scores`` and the per-keypoint gather of
 ``compute_descriptors``), so the two packages agree bit for bit there.
 """
 from __future__ import annotations
@@ -53,7 +53,7 @@ class FeatureExtractorConfig:
     ``use_pallas_fast`` forces the FAST kernel's wrapper on the CPU too;
     ``approx_top_k`` selects exact top-k in the port (what JAX computes on
     the CPU).  ``dense_brief`` is kept for parity and has no effect: a CUDA
-    batch always takes the bitplane kernel (K1), a CPU batch the gather path.
+    batch always takes the K1 kernel, a CPU batch its per-keypoint gather.
     """
 
     detector_threshold: float = 15.0
@@ -226,50 +226,21 @@ def _keypoint_rows_cols(uv: torch.Tensor, H: int, W: int):
     return y, x
 
 
-def compute_descriptors(image: torch.Tensor, uv: torch.Tensor,
-                        valid: torch.Tensor,
-                        config: FeatureExtractorConfig) -> torch.Tensor:
-    """Upright BRIEF-256 at integer keypoint locations (gather path).
-
-    image [H, W], uv [N, 2], valid [N] -> signed int8 [N, 256]; invalid
-    keypoints get all -1.
-    """
-    if config.oriented:
-        raise NotImplementedError("oriented BRIEF is not ported yet")
-    H, W = image.shape
-    smooth = _boxfilter(image, config.smoothing_window)
-    y, x = _keypoint_rows_cols(uv, H, W)
-    pairs = torch.as_tensor(_BRIEF_PAIRS, device=image.device).long()
-    p_off, q_off = pairs[:, 0], pairs[:, 1]
-    a = smooth[y[:, None] + p_off[None, :, 0], x[:, None] + p_off[None, :, 1]]
-    b = smooth[y[:, None] + q_off[None, :, 0], x[:, None] + q_off[None, :, 1]]
-    signed = torch.where(a < b, 1, -1).to(torch.int8)
-    return torch.where(valid[:, None], signed, -1).to(torch.int8)
-
-
 def extract_features_batch(images: torch.Tensor,
                            config: FeatureExtractorConfig) -> Features:
     """Batched frontend for [B, H, W] images -> Features with leading B.
 
-    On a CUDA batch the descriptors come from the bitplane kernel (8 packed
-    words per pixel, gathered at the keypoints); on a CPU batch from the
-    per-keypoint gather path.  Both give the same bits for BORDER-clipped
-    keypoints.
+    Descriptors are upright BRIEF-256 at the BORDER-clipped integer keypoint
+    locations of the box-smoothed images (kernels/brief.py: the K1 kernel on
+    a CUDA batch, its per-keypoint gather on a CPU batch); invalid keypoints
+    get all -1.
     """
     if config.oriented:
         raise NotImplementedError("oriented BRIEF is not ported yet")
-    uv, response, valid = detect_keypoints_batch(images, config)
-    if not images.is_cuda:
-        desc = torch.stack([
-            compute_descriptors(images[b], uv[b], valid[b], config)
-            for b in range(images.shape[0])
-        ])
-        return Features(uv=uv, response=response, desc=desc, valid=valid)
-    from ..kernels.brief import brief_bitplanes, descriptors_from_planes
+    from ..kernels.brief import brief_descriptors
 
+    uv, response, valid = detect_keypoints_batch(images, config)
     smooth = _boxfilter(images, config.smoothing_window)
-    planes = brief_bitplanes(smooth)                       # [B, 8, H, W]
     y, x = _keypoint_rows_cols(uv, images.shape[1], images.shape[2])
-    desc = descriptors_from_planes(planes, y, x)
-    desc = torch.where(valid[..., None], desc, -1).to(torch.int8)
+    desc = brief_descriptors(smooth, y, x, valid)
     return Features(uv=uv, response=response, desc=desc, valid=valid)

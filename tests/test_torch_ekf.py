@@ -61,7 +61,7 @@ def test_initial_covariance_matches_jax(rng):
 @pytest.mark.parametrize("max_insertions", [512, 30])
 def test_scripted_insert_update_insert(rng, max_insertions):
     M = 96
-    ta, ja = tlm.empty_arena(M), jlm.empty_arena(M)
+    ta, ja = tlm.empty_arena(M, "cpu"), jlm.empty_arena(M)
     _arena_equal(ta, ja)
     # 1. first insertion: 70 candidates, ~60% wanted
     pos, cov, desc = _candidates(rng, 70)
@@ -107,7 +107,7 @@ def test_scripted_insert_update_insert(rng, max_insertions):
 
 
 def test_unknown_model_is_not_ported():
-    a = tlm.empty_arena(4)
+    a = tlm.empty_arena(4, "cpu")
     with pytest.raises(NotImplementedError):
         tekf.ekf_update_batch(a.pos, a.cov, torch.zeros(4, 3), a.valid, torch.eye(4),
                               CAM, "projective_depth", tekf.LandmarkEKFConfig())

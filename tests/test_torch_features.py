@@ -3,12 +3,16 @@
 * FAST: port ``fast_scores`` equals JAX ``fast_scores`` everywhere (both
   wrap around the edge); K3's plain version, JAX ``fast_scores_pallas``
   (interpret mode) and ``fast_scores`` agree on the interior (8-px margin).
-* BRIEF: K1's plain version equals JAX ``brief_bitplanes`` (interpret mode)
-  bit for bit inside BORDER, and its words unpack to the gather path's
-  descriptors.
+* BRIEF: the dense plain bitplanes equal JAX ``brief_bitplanes`` (interpret
+  mode) bit for bit inside BORDER, and their words unpack to the gather
+  path's descriptors; K1's per-keypoint plain version equals both JAX forms
+  (bitplanes gathered at the keypoints, ``compute_descriptors``), with
+  invalid rows, keypoints at the BORDER clip, and frame 0 of a KITTI pair.
 * NMS, box filter, detection, descriptors and the batched frontend are
   bit-exact on integer-valued (0..255) images.
 """
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -21,8 +25,11 @@ from srrg2_proslam_tpu.ops.brief_pallas import (  # noqa: E402
     brief_bitplanes as j_brief, descriptors_from_planes as j_from_planes)
 from srrg2_proslam_tpu.ops.fast_pallas import fast_scores_pallas  # noqa: E402
 
+from srrg2_proslam_tpu_torch.io import datasets  # noqa: E402
 from srrg2_proslam_tpu_torch.kernels import brief as KB, fast as KF  # noqa: E402
 from srrg2_proslam_tpu_torch.ops import features as TF  # noqa: E402
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "test_data")
 
 
 def _image(rng, shape):
@@ -81,7 +88,7 @@ def test_brief_plain_matches_pallas_bitplanes(rng):
     image = rng.uniform(0, 255, (H, W)).astype(np.float32)
     smooth = np.array(JF._boxfilter(jnp.asarray(image), 5))
     ref = np.asarray(j_brief(jnp.asarray(smooth), interpret=True))
-    got = KB.brief_bitplanes(torch.from_numpy(smooth)[None])[0].numpy()
+    got = KB.brief_bitplanes_plain(torch.from_numpy(smooth)[None])[0].numpy()
     assert got.dtype == np.int32 and got.shape == (8, H, W)
     b = JF.BORDER
     np.testing.assert_array_equal(got[:, b:H - b, b:W - b], ref[:, b:H - b, b:W - b])
@@ -98,6 +105,61 @@ def test_brief_plain_matches_pallas_bitplanes(rng):
     gather = np.asarray(JF.compute_descriptors(jnp.asarray(image), jnp.asarray(uv),
                                                jnp.ones(n, bool), cfg))
     np.testing.assert_array_equal(unpacked, gather)
+
+
+def test_brief_descriptors_plain_match_jax(rng):
+    """The 96x160 case above, B = 2, through the K1 wrapper on CPU tensors."""
+    B, H, W, n = 2, 96, 160, 40
+    images = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    smooth = np.array(JF._boxfilter(jnp.asarray(images), 5))
+    b = JF.BORDER
+    y = rng.randint(b, H - b, (B, n))
+    x = rng.randint(b, W - b, (B, n))
+    y[:, :4] = [b, b, H - b - 1, H - b - 1]        # the corners of the BORDER clip
+    x[:, :4] = [b, W - b - 1, b, W - b - 1]
+    valid = rng.uniform(size=(B, n)) < 0.75
+    valid[:, :2] = [False, True]
+    got = KB.brief_descriptors(torch.from_numpy(smooth), torch.from_numpy(y).long(),
+                               torch.from_numpy(x).long(), torch.from_numpy(valid)).numpy()
+    assert got.dtype == np.int8 and got.shape == (B, n, 256)
+    assert np.all(got[~valid] == -1) and np.all(np.abs(got) == 1)
+    assert 0.3 < (got[valid] == 1).mean() < 0.7
+    planes = j_brief(jnp.asarray(smooth), interpret=True)
+    cfg = JF.FeatureExtractorConfig(dense_brief=False)
+    for i in range(B):
+        dense = np.asarray(j_from_planes(planes[i], jnp.asarray(y[i]), jnp.asarray(x[i])))
+        np.testing.assert_array_equal(got[i], np.where(valid[i][:, None], dense, -1))
+        uv = np.stack([x[i], y[i]], 1).astype(np.float32)
+        gather = JF.compute_descriptors(jnp.asarray(images[i]), jnp.asarray(uv),
+                                        jnp.asarray(valid[i]), cfg)
+        np.testing.assert_array_equal(got[i], np.asarray(gather))
+
+
+def test_brief_descriptors_plain_match_jax_on_kitti_keypoints():
+    """Frame 0's real keypoints of the bundled KITTI pair, B = 2."""
+    frame = next(iter(datasets.iter_bundled_kitti(DATA, "city")))
+    images = torch.from_numpy(np.stack([frame.left, frame.right]))
+    cfg = TF.FeatureExtractorConfig()
+    uv, _, valid = TF.detect_keypoints_batch(images, cfg)
+    smooth = TF._boxfilter(images, cfg.smoothing_window)
+    y, x = TF._keypoint_rows_cols(uv, images.shape[1], images.shape[2])
+    got = KB.brief_descriptors(smooth, y, x, valid).numpy()
+    assert int(valid.sum()) > 1500
+    j_cfg = JF.FeatureExtractorConfig(dense_brief=False)
+    for i in range(2):
+        ref = JF.compute_descriptors(jnp.asarray(images[i].numpy()), jnp.asarray(uv[i].numpy()),
+                                     jnp.asarray(valid[i].numpy()), j_cfg)
+        np.testing.assert_array_equal(got[i], np.asarray(ref))
+
+
+def test_brief_descriptors_input_checks():
+    smooth = torch.zeros(2, 40, 50)
+    y = torch.full((2, 3), 20, dtype=torch.int64)
+    ok = torch.ones(2, 3, dtype=torch.bool)
+    for args in [(smooth.double(), y, y, ok), (smooth, y.int(), y, ok),
+                 (smooth, y, y[:, :2], ok), (smooth[:1], y, y, ok), (smooth, y, y, ok.int())]:
+        with pytest.raises(ValueError):
+            KB.brief_descriptors(*args)
 
 
 @pytest.mark.parametrize("kind,nms", [("noise", True), ("blobs", True), ("blobs", False)])

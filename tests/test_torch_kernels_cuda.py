@@ -8,8 +8,9 @@ elsewhere.  Run on a GPU machine with:
 (``--noconftest``: the suite's conftest imports jax, which a machine that
 only runs the port need not have.)
 
-Bounds: FAST scores and BRIEF bitplanes bit-exact over the whole image
-(min/max/subtraction and comparisons are exact); the GN burst X within
+Bounds: FAST scores bit-exact over the whole image and BRIEF descriptors
+bit-exact at every keypoint (min/max/subtraction and comparisons are
+exact); the GN burst X within
 atol 5e-4 of the plain burst with num_terms exact and inliers within 1
 (the reduction order differs), as tests/test_gn_pallas.py bounds the TPU
 kernel.
@@ -20,7 +21,7 @@ import torch
 
 from srrg2_proslam_tpu_torch.kernels import brief, fast, gn, launch_counts, reset_launch_counts
 from srrg2_proslam_tpu_torch.ops import se3
-from srrg2_proslam_tpu_torch.ops.features import _boxfilter
+from srrg2_proslam_tpu_torch.ops.features import BORDER, _boxfilter
 from srrg2_proslam_tpu_torch.ops.pinhole import Camera
 
 pytestmark = [
@@ -50,15 +51,33 @@ def test_fast_kernel_matches_plain(rng, shape):
         assert int((ref > 0).sum()) > 0
 
 
-@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 45), (2, 96, 160)])
-def test_brief_kernel_matches_plain(rng, shape):
+@pytest.mark.parametrize("shape,n", [((2, 376, 1241), 1152), ((1, 37, 45), 50),
+                                     ((2, 96, 160), 300), ((1, 96, 160), 7)])
+def test_brief_kernel_matches_plain(rng, shape, n):
+    B, H, W = shape
     img = torch.from_numpy(rng.randint(0, 256, shape).astype(np.float32)).cuda()
     smooth = _boxfilter(img, 5).contiguous()
-    got = brief.brief_bitplanes(smooth)
-    ref = brief.brief_bitplanes_plain(smooth)
+    b = BORDER
+    # half anywhere in the image (samples fall outside: zeros), half clipped
+    # as the frontend clips, with the clip's corners in the first rows
+    y = rng.randint(0, H, (B, n))
+    x = rng.randint(0, W, (B, n))
+    y[:, n // 2:] = np.clip(y[:, n // 2:], b, max(b, H - b - 1))
+    x[:, n // 2:] = np.clip(x[:, n // 2:], b, max(b, W - b - 1))
+    y[:, :2], x[:, :2] = [b, H - b - 1], [b, W - b - 1]
+    valid = rng.uniform(size=(B, n)) < 0.8
+    valid[:, 0] = False
+    y, x, valid = (torch.from_numpy(a).cuda() for a in (y.astype(np.int64), x.astype(np.int64), valid))
+    before = brief.launches
+    got = brief.brief_descriptors(smooth, y, x, valid)
+    assert brief.launches == before + 1
+    ref = brief.brief_descriptors_plain(smooth, y, x, valid)
+    dense = brief.descriptors_from_planes(brief.brief_bitplanes_plain(smooth), y, x)
     torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and got.shape == (shape[0], 8) + shape[1:]
+    assert got.dtype == torch.int8 and got.shape == (B, n, 256)
     assert torch.equal(got, ref)
+    assert torch.equal(got, torch.where(valid[..., None], dense, -1).to(torch.int8))
+    assert bool((got[~valid] == -1).all())
 
 
 def _gn_problem(rng, n, outliers, n_valid, w_range):
@@ -81,6 +100,10 @@ def _gn_problem(rng, n, outliers, n_valid, w_range):
     (300, 1e-5, 30, 300, (0.5, 2.0)),
     (300, 0.0, 0, 4, (0.5, 2.0)),
     (1152, 0.0, 40, 1000, (5e3, 2e4)),
+    (1000, 0.0, 20, 997, (0.5, 2.0)),      # C not a multiple of the CTA's threads
+    (300, 0.0, 0, 0, (0.5, 2.0)),          # no active term
+    (300, 1e-2, 0, 300, (0.5, 2.0)),       # epsilon stops the burst early
+    (3000, 0.0, 100, 3000, (0.5, 2.0)),    # more active rows than registers hold
 ])
 def test_gn_kernel_matches_plain(rng, n, eps, outliers, n_valid, w_range):
     args = _gn_problem(rng, n, outliers, n_valid, w_range)
@@ -89,6 +112,8 @@ def test_gn_kernel_matches_plain(rng, n, eps, outliers, n_valid, w_range):
     X_k, s_k = gn.gn_burst_stereo(X0, *args, CAM, **kw)
     X_p, s_p = gn.gn_burst_stereo_plain(X0, *args, CAM, **kw)
     torch.cuda.synchronize()
+    assert s_k.num_inliers.dtype == s_k.num_terms.dtype == torch.int32
+    assert torch.equal(X_k[3], X0[3])
     assert float((X_k - X_p).abs().max()) <= 5e-4
     assert int(s_k.num_terms) == int(s_p.num_terms)
     assert abs(int(s_k.num_inliers) - int(s_p.num_inliers)) <= 1
@@ -114,11 +139,17 @@ def test_kernel_switches_keep_kernels_on_cuda(rng):
 def test_launch_counters_and_input_checks(rng):
     reset_launch_counts()
     img = torch.zeros(1, 40, 50, device="cuda")
+    y = torch.full((1, 3), 20, dtype=torch.int64, device="cuda")
+    ok = torch.ones(1, 3, dtype=torch.bool, device="cuda")
     fast.fast_scores_kernel(img, 15.0)
-    brief.brief_bitplanes(img)
+    brief.brief_descriptors(img, y, y, ok)
     assert launch_counts() == {"fast": 1, "brief": 1, "gn_burst": 0}
     with pytest.raises(ValueError):
         fast.fast_scores_kernel(img.transpose(1, 2), 15.0)
     with pytest.raises(ValueError):
-        brief.brief_bitplanes(img.double())
+        brief.brief_descriptors(img.double(), y, y, ok)
+    with pytest.raises(ValueError):
+        brief.brief_descriptors(img, y.cpu(), y, ok)
+    with pytest.raises(ValueError):
+        brief.brief_descriptors(img.transpose(1, 2).contiguous().transpose(1, 2), y, y, ok)
     assert launch_counts() == {"fast": 1, "brief": 1, "gn_burst": 0}

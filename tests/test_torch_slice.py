@@ -25,7 +25,7 @@ from srrg2_proslam_tpu.models import frontend as jfe, tracker as jtr  # noqa: E4
 from srrg2_proslam_tpu.ops import se3 as jse3  # noqa: E402
 
 from srrg2_proslam_tpu_torch.io import datasets  # noqa: E402
-from srrg2_proslam_tpu_torch.models import frontend, tracker  # noqa: E402
+from srrg2_proslam_tpu_torch.models import frontend, landmarks, tracker  # noqa: E402
 from srrg2_proslam_tpu_torch.ops import se3  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "test_data")
@@ -75,7 +75,7 @@ def jax_run(frames):
 @pytest.fixture(scope="module")
 def port_run(frames):
     cam = datasets.kitti_camera(*frames[0].left.shape)
-    state = tracker.initial_state(capacity=CAPACITY)
+    state = tracker.initial_state(capacity=CAPACITY, device="cpu")
     out = {"meas": [], "counts": [], "poses": []}
     for fr in frames:
         meas = frontend.adapt_stereo(torch.from_numpy(fr.left), torch.from_numpy(fr.right),
@@ -132,7 +132,7 @@ OPTIONS = dict(stereo_inverse_depth_weighting=True, gn_pallas=False,
 def test_carried_state_step(frames, jax_run, k, options):
     """Step both packages once from JAX's state after frame k."""
     d = jax_run["states"][k]
-    state = tracker.state_from_numpy(d).to("cpu")
+    state = tracker.state_from_numpy(d, "cpu")
     back = tracker.state_to_numpy(state)
     for key, val in d.items():
         np.testing.assert_array_equal(back[key], val, err_msg=key)
@@ -170,7 +170,7 @@ def test_carried_state_step(frames, jax_run, k, options):
 
 def test_unsupported_options_raise():
     cam = datasets.kitti_camera()
-    state = tracker.initial_state(8)
+    state = tracker.initial_state(8, "cpu")
     pts, desc, valid = torch.zeros(4, 4), torch.zeros(4, 256, dtype=torch.int8), torch.zeros(4, dtype=torch.bool)
     for cfg, model in [(tracker.TrackerConfig(), "rgbd"),
                        (tracker.TrackerConfig(landmark_estimator="smoother"), "stereo"),
@@ -180,3 +180,19 @@ def test_unsupported_options_raise():
     with pytest.raises(NotImplementedError):
         frontend.adapt_stereo(torch.zeros(40, 60), torch.zeros(40, 60),
                               frontend.StereoAdaptorConfig(subpixel_refinement=True))
+
+
+def test_entry_points_default_to_the_card():
+    """With no device given the state lives on the card; without one it raises."""
+    d = tracker.state_to_numpy(tracker.initial_state(8, "cpu"))
+
+    def leaves(x):
+        return [t for v in x for t in (leaves(v) if isinstance(v, tuple) else [v])]
+
+    for make in (lambda: tracker.initial_state(8), lambda: landmarks.empty_arena(8),
+                 lambda: tracker.state_from_numpy(d)):
+        if torch.cuda.is_available():
+            assert all(t.is_cuda for t in leaves(make()))
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
