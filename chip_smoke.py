@@ -12,7 +12,8 @@ Phases, any failure exits non-zero:
      main path gives it (FAST on frame 0's KITTI pair [2, 376, 1241], BRIEF
      at that pair's 2 x 1152 keypoints, the GN burst on frame 1's round-0
      correspondences); time each as device time per call (torch.profiler),
-     and compute its bound from these inputs;
+     and compute its bound from these inputs; FAST also on uniform noise
+     of the same shape, with the share of pixels its compass test passes;
   4. run the 5 bundled KITTI frames through adapt_stereo -> track_step on
      the card: the reference's pose gate must pass, the per-frame counts
      and final pose must agree with the port's CPU run (plain versions),
@@ -46,12 +47,19 @@ def fail(msg: str):
 # H100 SXM peaks (datasheet): HBM3 bytes/s, f32 ops/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# FAST-9/16 per pixel, with one set of ring differences (arcmin(c - ring) =
-# -arcmax(ring - c)): 16 subtractions; for the arc minima and maxima each,
-# 2 x 16 min/max for the 16 cyclic 3-windows, 2 x 16 for the 9-arcs built
-# from three windows, and 15 for the best arc; 4 for the final max and the
-# threshold
-FAST_OPS_PER_PIXEL = 16 + 2 * (32 + 32 + 15) + 4
+# sm_90 issue rates, lanes per SM and clock (the SM count and clock are read
+# from the card): FADD/FFMA on the FMA pipe, FMNMX and FSETP on the ALU
+# pipe, one warp instruction per scheduler and clock (4 x 32) in all
+FMA_LANES_PER_SM_CLK = 128
+ALU_LANES_PER_SM_CLK = 64
+DISPATCH_LANES_PER_SM_CLK = 128
+# K3's operations (csrc/fast.cu): every pixel 4 min/max of opposite compass
+# samples, 4 subtractions and 4 comparisons; every set polarity of a
+# candidate 57 min/max for its best arc (42 for the 16 arcs by van Herk
+# blocks, 15 for the best), 1 subtraction, and 1 min/max or comparison where
+# the polarities meet the threshold
+FAST_PIXEL_FMA, FAST_PIXEL_ALU = 4, 8
+FAST_POLARITY_FMA, FAST_POLARITY_ALU = 1, 58
 # GN burst per active correspondence and iteration (csrc/gn_burst.cu
 # accumulate; an FMA counts 2): transform 18, projection 11, residual 3,
 # Jacobian 36, robust weight 10, H 147, b 42, stats 5
@@ -80,8 +88,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def device_ms(fn, reps: int = 20, kernel: str = None) -> float:
     """Device time per call under torch.profiler over ``reps`` calls, after
     warm-up: the mean duration of the launches of ``kernel`` (the profiler
-    may drop one of them), or, with no kernel named, the summed durations of
-    all device ops over ``reps``."""
+    may drop one of them, or, rarely, all: then the window is taken again),
+    or, with no kernel named, the summed durations of all device ops over
+    ``reps``."""
     import torch
     from torch.autograd import DeviceType
 
@@ -89,14 +98,17 @@ def device_ms(fn, reps: int = 20, kernel: str = None) -> float:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and (kernel is None or kernel in e.name)]
-    if not events:
-        fail(f"profiler saw no device time for {kernel or 'a plain version'}")
+    for _ in range(3):   # a window can come back without device events: take another
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and (kernel is None or kernel in e.name)]
+        if events:
+            break
+    else:
+        fail(f"profiler saw no device time for {kernel or 'a plain version'} in 3 windows")
     calls = reps if kernel is None else len(events)
     return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
 
@@ -107,6 +119,51 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clocks_per_s(device) -> float:
+    """SM count x the card's maximum SM clock (Hz): SM-clocks per second."""
+    import torch
+
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * props.clock_rate * 1e3   # clock_rate in kHz
+
+
+def fast_candidates(images, threshold: float):
+    """K3's compass test in plain torch: (bright, dark) bool maps, two
+    adjacent compass differences ring - centre > t (bright) or < -t (dark),
+    zeros outside the image."""
+    import torch.nn.functional as F
+
+    H, W = images.shape[-2:]
+    p = F.pad(images, (3, 3, 3, 3))
+    d = [p[..., 3 + dy:3 + dy + H, 3 + dx:3 + dx + W] - images
+         for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+    t = threshold
+    bright = ((d[0] > t) | (d[2] > t)) & ((d[1] > t) | (d[3] > t))
+    dark = ((d[0] < -t) | (d[2] < -t)) & ((d[1] < -t) | (d[3] < -t))
+    return bright, dark
+
+
+def fast_bound(images, threshold: float) -> dict:
+    """K3's bound on these images: bytes (each pixel read once and written
+    once) against the operations this input needs, each pipe at its own
+    rate (and all at the issue rate); with the counts behind it."""
+    bright, dark = fast_candidates(images, threshold)
+    pixels = images.numel()
+    candidates = int((bright | dark).sum())
+    polarities = int(bright.sum()) + int(dark.sum())
+    fma = FAST_PIXEL_FMA * pixels + FAST_POLARITY_FMA * polarities
+    alu = FAST_PIXEL_ALU * pixels + FAST_POLARITY_ALU * polarities
+    clocks = max(fma / FMA_LANES_PER_SM_CLK, alu / ALU_LANES_PER_SM_CLK,
+                 (fma + alu) / DISPATCH_LANES_PER_SM_CLK)
+    t_ops = clocks / sm_clocks_per_s(images.device) * 1e3
+    t_bytes = 2 * pixels * 4 / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops, "pixels": pixels,
+            "candidates": candidates, "polarities": polarities,
+            "candidate_share": candidates / pixels}
 
 
 def main_path_inputs(frames_gpu, cam, adapt_cfg, track_cfg):
@@ -216,21 +273,39 @@ def main():
     images = inp["images"]
     report = {}
 
-    k = fast_scores_kernel(images, thr)
-    p = fast_scores_plain(images, thr)
-    torch.cuda.synchronize()
-    err = float((k - p).abs().max())
-    print(f"K3 fast  {tuple(images.shape)}: max_abs_err {err} "
-          f"(corners {int((p > 0).sum())}; tolerance 0, bit-exact)", flush=True)
-    if err != 0.0:
-        fail("FAST kernel disagrees with its plain version")
+    # K3 on frame 0's pair, and on uniform noise of the same shape (nearly
+    # every pixel a candidate)
+    noise = torch.randint(0, 256, images.shape, generator=torch.Generator().manual_seed(0),
+                          dtype=torch.int32).to(dev, torch.float32)
+    errs = []
+    for tag, img in (("KITTI frame 0", images), ("uniform noise", noise)):
+        k = fast_scores_kernel(img, thr)
+        p = fast_scores_plain(img, thr)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        print(f"K3 fast  {tuple(img.shape)} {tag}: max_abs_err {err} "
+              f"(corners {int((p > 0).sum())}; tolerance 0, bit-exact)", flush=True)
+        if not torch.equal(k, p):
+            fail(f"FAST kernel disagrees with its plain version on {tag}")
+        errs.append(err)
+    kb, nb = fast_bound(images, thr), fast_bound(noise, thr)
     report["fast"] = {
-        "max_abs_err": err,
+        "max_abs_err": errs[0],
         "ms": device_ms(lambda: fast_scores_kernel(images, thr), kernel="fast_scores_kernel"),
         "plain_ms": device_ms(lambda: fast_scores_plain(images, thr)),
         "event_ms": cuda_ms(lambda: fast_scores_kernel(images, thr)),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(2 * images.numel() * 4, images.numel() * FAST_OPS_PER_PIXEL)))}
+        "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+        "candidate_share": kb["candidate_share"],
+        "noise_ms": device_ms(lambda: fast_scores_kernel(noise, thr), kernel="fast_scores_kernel"),
+        "noise_bound_ms": nb["bound_ms"], "noise_bound_by": nb["bound_by"],
+        "noise_candidate_share": nb["candidate_share"]}
+    for tag, c, ms in (("KITTI frame 0", kb, report["fast"]["ms"]),
+                       ("uniform noise", nb, report["fast"]["noise_ms"])):
+        print(f"  fast on {tag}: device {ms:.5f} ms/call, candidate share "
+              f"{c['candidate_share']:.4f} ({c['candidates']} of {c['pixels']} pixels, "
+              f"{c['polarities']} set polarities); bound by bytes {c['bytes_ms']:.6f} ms, "
+              f"by operations {c['operations_ms']:.6f} ms ({sm_clocks_per_s(dev):.4g} "
+              f"SM-clocks/s) [{smi}]", flush=True)
 
     smooth, y, x, valid = (inp[key] for key in ("smooth", "y", "x", "valid"))
     k = brief_descriptors(smooth, y, x, valid)

@@ -2,7 +2,8 @@
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` (Hopper)
 into ``srrg2_proslam_tpu_torch/build/`` (git-ignored), named by a hash of
-the sources, and bound with ``ctypes``: every entry point has a plain C
+the sources, one ``nvcc -c`` per source, all started together, then linked
+once, and bound with ``ctypes``: every entry point has a plain C
 interface taking device pointers, sizes and the CUDA stream, and returns
 ``cudaGetLastError()`` after its launch.  Nothing here runs at import.
 """
@@ -20,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,29 +57,37 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def build(extra_flags: tuple = ()) -> ctypes.CDLL:
+def build(extra_flags: tuple = (), csrc: Path = CSRC) -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` with ``NVCC_FLAGS`` + ``extra_flags`` (unless a
     library of the same sources and flags is already built) and load it."""
     global build_seconds, build_log
     flags = NVCC_FLAGS + list(extra_flags)
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(Path(csrc).glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(Path(csrc).glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(flags).encode())
     so = BUILD_DIR / f"libproslam_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp.so"
+        objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.o"
+        objdir.mkdir(parents=True, exist_ok=True)
+        tmp = objdir / so.name
+        objs = [objdir / f"{src.stem}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        procs = [subprocess.Popen([_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        build_log = "".join(proc.communicate()[0] for proc in procs)
+        if any(proc.returncode != 0 for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp, so)
+        shutil.rmtree(objdir)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

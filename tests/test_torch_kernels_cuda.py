@@ -8,17 +8,23 @@ elsewhere.  Run on a GPU machine with:
 (``--noconftest``: the suite's conftest imports jax, which a machine that
 only runs the port need not have.)
 
-Bounds: FAST scores bit-exact over the whole image and BRIEF descriptors
+Bounds: FAST scores bit-exact over the whole image (KITTI frame 0's pair,
+noise, a flat image with no candidates, non-integer values, spikes at the
+edges; B = 1, 2, 5 and shapes that are not multiples of the kernel's tile)
+and BRIEF descriptors
 bit-exact at every keypoint (min/max/subtraction and comparisons are
 exact); the GN burst X within
 atol 5e-4 of the plain burst with num_terms exact and inliers within 1
 (the reduction order differs), as tests/test_gn_pallas.py bounds the TPU
 kernel.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from srrg2_proslam_tpu_torch.io import datasets
 from srrg2_proslam_tpu_torch.kernels import brief, fast, gn, launch_counts, reset_launch_counts
 from srrg2_proslam_tpu_torch.ops import se3
 from srrg2_proslam_tpu_torch.ops.features import BORDER, _boxfilter
@@ -30,6 +36,9 @@ pytestmark = [
 ]
 
 
+DATA = os.path.join(os.path.dirname(__file__), "..", "test_data")
+
+
 @pytest.fixture()
 def rng():
     return np.random.RandomState(0)
@@ -38,17 +47,43 @@ def rng():
 CAM = Camera(fx=450.0, fy=450.0, cx=320.0, cy=240.0, rows=480, cols=640, baseline_px=45.0)
 
 
-@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 45), (3, 64, 160)])
-def test_fast_kernel_matches_plain(rng, shape):
-    img = torch.from_numpy(rng.randint(0, 256, shape).astype(np.float32)).cuda()
-    for thr in (15.0, 60.0):
+def _fast_input(rng, kind, shape):
+    if kind == "uniform":
+        return rng.randint(0, 256, shape).astype(np.float32)
+    if kind == "flat":          # no pixel passes the compass test
+        return np.zeros(shape, np.float32)
+    if kind == "gaussian":      # non-integer values
+        return rng.normal(0.0, 50.0, shape).astype(np.float32)
+    if kind == "spikes":        # bright spikes within 3 px of every edge
+        img = rng.randint(0, 30, shape).astype(np.float32)
+        B, H, W = shape
+        for e in range(3):
+            for y, x in ((e, W // 2), (H - 1 - e, W // 3), (H // 2, e), (H // 3, W - 1 - e),
+                         (e, e), (H - 1 - e, W - 1 - e)):
+                img[:, y, x] = 255.0
+        return img
+    frame = next(iter(datasets.iter_bundled_kitti(DATA, "city")))
+    return np.stack([frame.left, frame.right]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("kitti", (2, 376, 1241)),
+    ("uniform", (2, 376, 1241)), ("uniform", (1, 37, 45)), ("uniform", (3, 64, 160)),
+    ("uniform", (5, 100, 300)), ("uniform", (1, 17, 129)), ("uniform", (2, 130, 33)),
+    ("flat", (2, 376, 1241)), ("flat", (1, 20, 70)),
+    ("gaussian", (2, 376, 1241)), ("gaussian", (5, 61, 97)),
+    ("spikes", (1, 40, 50)), ("spikes", (2, 129, 257)), ("spikes", (5, 16, 128)),
+])
+def test_fast_kernel_matches_plain(rng, kind, shape):
+    img = torch.from_numpy(_fast_input(rng, kind, shape)).cuda()
+    for thr in (0.0, 15.0, 60.0):
         before = fast.launches
         got = fast.fast_scores_kernel(img, thr)
         assert fast.launches == before + 1
         ref = fast.fast_scores_plain(img, thr)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
-        assert int((ref > 0).sum()) > 0
+        assert int((ref > 0).sum()) == 0 if kind == "flat" else int((ref > 0).sum()) > 0
 
 
 @pytest.mark.parametrize("shape,n", [((2, 376, 1241), 1152), ((1, 37, 45), 50),
