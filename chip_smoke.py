@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch + CUDA port: stereo VO on full-size KITTI frames.
+"""GPU smoke run of the PyTorch + CUDA port: stereo VO on full-size KITTI
+frames, then per-frame GraphSLAM over a rendered closed loop.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -18,7 +19,23 @@ Phases, any failure exits non-zero:
      the card: the reference's pose gate must pass, the per-frame counts
      and final pose must agree with the port's CPU run (plain versions),
      and the kernels must have been launched FAST 5, BRIEF 5, GN 15 times;
-     then time a second pass.
+     then time a second pass;
+  5. render the closed loop of tests/test_rendered_e2e.py on the card with
+     the port's renderer (145 frames, 480x640, supersample 2) and run
+     adapt_stereo -> GraphSLAM.process over it at that test's config with
+     every other setting at its default (a 4096-landmark arena, 512 local
+     maps, 1024 edges): the test's gates must pass (>= 120 frames, >= 10
+     maps, >= 1 closure, >= 1 relocalisation, per-axis t-RMSE <= 0.30 m,
+     rotation <= 3 deg, ATE <= 0.5 m), the kernels must have been launched
+     FAST n, BRIEF n, GN 3n times for n frames, and the port's CPU run over
+     the same images (copied to the host) must give the same per-frame
+     status and map, the same map, closure and relocalisation counts and
+     closure events, and a final pose within SLAM_POSE_TOL_M /
+     SLAM_POSE_TOL_RAD (a prefix with >= 3 splits when the CPU run would
+     take longer than CPU_BUDGET_S); a second pass gives GraphSLAM
+     ms/frame and the split-time stages; the loop query's peak memory is
+     printed, and a standalone query at the default database size (64
+     slots x 1024, a 4096-row arena), dense and tiled.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -37,6 +54,12 @@ COUNT_TOL = 2                # per-frame count tolerance, GPU vs CPU run
 POSE_TOL_M = 0.01            # final pose, GPU vs CPU run
 POSE_TOL_RAD = 1e-3
 GN_ATOL = 5e-4               # GN burst X, kernel vs plain (tests/test_gn_pallas.py)
+# the rendered loop: tests/test_rendered_e2e.py's gates
+E2E_MIN_FRAMES, E2E_MIN_MAPS = 120, 10
+E2E_T_RMSE, E2E_ROT_DEG, E2E_ATE = 0.30, 3.0, 0.5
+SLAM_POSE_TOL_M = 0.05       # final pose, GPU vs CPU GraphSLAM run
+SLAM_POSE_TOL_RAD = 5e-3
+CPU_BUDGET_S = 240.0         # the CPU reference stops after this once >= 3 splits ran
 
 
 def fail(msg: str):
@@ -224,7 +247,85 @@ def run_vo(frames, cam, device, adapt_cfg, track_cfg):
     return rows, poses
 
 
+def slam_config():
+    """tests/test_rendered_e2e.py's GraphSLAM config; the rest at defaults."""
+    from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAMConfig, SplittingConfig
+
+    return GraphSLAMConfig(
+        splitting=SplittingConfig(maximum_translation_m=4.0, maximum_rotation_rad=0.35),
+        loop=LoopDetectorConfig(minimum_age_difference=3),
+        arena_capacity=4096, database_capacity=8192, max_db_descriptors_per_map=384)
+
+
+def run_slam(frames, cam, device, adapt_cfg, budget_s=None, min_maps=0):
+    """adapt_stereo -> GraphSLAM.process over (left, right) pairs on
+    ``device``; returns (slam, per-frame (status, map) rows).  With
+    ``budget_s`` the run stops at the first frame past the budget once the
+    graph holds ``min_maps`` maps."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+
+    slam = GraphSLAM(cam, slam_config(), device=device, time_stages=True)
+    rows = []
+    t0 = time.perf_counter()
+    for (left, right), stamp in frames:
+        meas = adapt_stereo(left, right, adapt_cfg)
+        slam.process(meas.points, meas.desc, meas.valid, stamp)
+        rows.append((slam.status, slam.current_map))
+        if (budget_s is not None and time.perf_counter() - t0 > budget_s
+                and slam.num_maps >= min_maps):
+            break
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return slam, rows
+
+
+def slam_counts(slam) -> dict:
+    return {k: getattr(slam, k) for k in ("num_maps", "num_edges", "num_closures",
+                                          "num_relocalizations", "num_losses",
+                                          "num_backstop_rejections")}
+
+
+def query_memory(dev, smi):
+    """The loop query at the default database size (64 slots of 1024) and a
+    4096-row query, dense and tiled (query_tile 8192): peak allocated
+    bytes above the inputs and device time per call."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.models import loop_closure as lc
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    db = lc.empty_database(65536, 1024, dev)
+    sign = lambda *shape: (torch.randint(0, 2, shape, generator=g, device=dev,
+                                         dtype=torch.int8) * 2 - 1)
+    db = db._replace(desc=sign(64, 1024, 256), valid=torch.ones_like(db.valid),
+                     map_id=torch.arange(64, dtype=torch.int32, device=dev),
+                     next=torch.tensor(64, dtype=torch.int32, device=dev))
+    q_desc, q_valid = sign(4096, 256), torch.ones(4096, dtype=torch.bool, device=dev)
+    out = {}
+    results = []
+    for tile in (0, 8192):
+        cfg = lc.LoopDetectorConfig(query_tile=tile)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        results.append(lc.query(q_desc, q_valid, 80, db, cfg, 512))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ms = cuda_ms(lambda: lc.query(q_desc, q_valid, 80, db, cfg, 512), reps=5, warmup=1)
+        out[tile] = (peak, ms)
+        print(f"  loop query [4096 x 64 x 1024], query_tile {tile}: peak {peak / 2**30:.3f} "
+              f"GiB above the inputs, {ms:.3f} ms/call (CUDA events) [{smi}]", flush=True)
+    if not all(torch.equal(a, b) for a, b in zip(*results)):
+        fail("tiled loop query disagrees with the dense one")
+    return out
+
+
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -427,6 +528,90 @@ def main():
           f"{first_pass / len(frames_gpu) * 1e3:.3f} incl. per-frame readback "
           f"[{smi}]", flush=True)
 
+    vo_counts = counts
+
+    # ---- 5. GraphSLAM over the rendered closed loop ------------------------
+    from srrg2_proslam_tpu_torch.io import synthetic
+    from srrg2_proslam_tpu_torch.metrics import trajectory
+
+    scam = synthetic.synthetic_camera()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = list(synthetic.iter_rendered_loop(side_a=10.0, side_b=6.0, step_m=0.4,
+                                             turn_frames=10, device=dev))
+    torch.cuda.synchronize()
+    n = len(loop)
+    print(f"rendered loop: {n} frames {tuple(loop[0].left.shape)} on the card in "
+          f"{time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
+    gpu_frames = [((f.left, f.right), f.timestamp) for f in loop]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, rows = run_slam(gpu_frames, scam, dev, adapt_cfg)
+    first_pass = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"GraphSLAM: {n} frames, {slam_counts(slam)}, closure events "
+          f"{slam.closure_events}; launches {counts} [{smi}]", flush=True)
+    if counts != {"fast": n, "brief": n, "gn_burst": 3 * n}:
+        fail(f"GraphSLAM launch counts {counts} != fast {n}, brief {n}, gn_burst {3 * n}")
+    gt = [f.gt_pose for f in loop]
+    err = trajectory.evaluate(slam.trajectory(), gt)
+    rmse = err.mean_translation_rmse
+    gate = (n >= E2E_MIN_FRAMES and slam.num_maps >= E2E_MIN_MAPS and slam.num_closures >= 1
+            and slam.num_relocalizations >= 1 and bool((rmse <= E2E_T_RMSE).all())
+            and err.mean_rotation_deg <= E2E_ROT_DEG and err.ate_rmse <= E2E_ATE)
+    print(f"rendered-loop gate: t-RMSE per axis {rmse.round(4)} (<= {E2E_T_RMSE}), rotation "
+          f"{err.mean_rotation_deg:.4f} deg (<= {E2E_ROT_DEG}), ATE {err.ate_rmse:.4f} m "
+          f"(<= {E2E_ATE}), maps {slam.num_maps}, closures {slam.num_closures}, "
+          f"relocalisations {slam.num_relocalizations} -> {'PASS' if gate else 'FAIL'} "
+          f"[{smi}]", flush=True)
+    if not gate:
+        fail("the rendered-loop gate failed")
+    query_peak = slam.stage_peak_bytes.get("query_validate", 0)
+
+    cpu_frames = [((f.left.cpu(), f.right.cpu()), f.timestamp) for f in loop]
+    t0 = time.perf_counter()
+    cpu_slam, cpu_rows = run_slam(cpu_frames, scam, "cpu", adapt_cfg,
+                                  budget_s=CPU_BUDGET_S, min_maps=4)
+    cpu_s = time.perf_counter() - t0
+    m = len(cpu_rows)
+    if m < n:
+        print(f"CPU run stopped after {m} of {n} frames ({cpu_s:.1f} s, "
+              f"{cpu_slam.num_maps} maps): comparing that prefix with a GPU run of it "
+              f"[{smi}]", flush=True)
+        ref_slam, ref_rows = run_slam(gpu_frames[:m], scam, dev, adapt_cfg)
+    else:
+        print(f"CPU run (plain versions) over all {n} frames: {cpu_s:.1f} s [{smi}]",
+              flush=True)
+        ref_slam, ref_rows = slam, rows
+    if cpu_rows != ref_rows:
+        diff = next(i for i, (a, b) in enumerate(zip(ref_rows, cpu_rows)) if a != b)
+        fail(f"GPU and CPU GraphSLAM runs part at frame {diff}: {ref_rows[diff]} vs "
+             f"{cpu_rows[diff]}")
+    if (slam_counts(ref_slam) != slam_counts(cpu_slam)
+            or ref_slam.closure_events != cpu_slam.closure_events):
+        fail(f"GPU and CPU GraphSLAM runs disagree: {slam_counts(ref_slam)} "
+             f"{ref_slam.closure_events} vs {slam_counts(cpu_slam)} {cpu_slam.closure_events}")
+    dt, dang = se3.error_t_and_angle(torch.from_numpy(ref_slam.robot_in_world()),
+                                     torch.from_numpy(cpu_slam.robot_in_world()))
+    print(f"GPU vs CPU GraphSLAM over {m} frames: per-frame status and map equal, counts and "
+          f"closure events equal; final pose |dt| {dt.numpy()} angle {float(dang):.3e} "
+          f"(tolerance {SLAM_POSE_TOL_M} m, {SLAM_POSE_TOL_RAD} rad) [{smi}]", flush=True)
+    if not (float(dt.max()) <= SLAM_POSE_TOL_M and float(dang) <= SLAM_POSE_TOL_RAD):
+        fail("GPU and CPU GraphSLAM final poses disagree")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam2, _ = run_slam(gpu_frames, scam, dev, adapt_cfg)
+    steady = (time.perf_counter() - t0) / n * 1e3
+    print(f"GraphSLAM ms/frame: {steady:.3f} (second pass, adapt_stereo + process, "
+          f"{slam2.num_maps} maps), first pass {first_pass / n * 1e3:.3f} [{smi}]", flush=True)
+    for stage, ms in slam2.stage_ms.items():
+        print(f"  split stage {stage}: {len(ms)} calls, mean {np.mean(ms):.3f} ms, max "
+              f"{np.max(ms):.3f} ms (second pass, synchronized) [{smi}]", flush=True)
+    print(f"  loop query peak allocated {query_peak / 2**30:.3f} GiB (whole process, "
+          f"torch.cuda.max_memory_allocated) [{smi}]", flush=True)
+    query_memory(dev, smi)
+
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
                "brief": ("srrg2_proslam_tpu_torch/csrc/brief.cu",
@@ -435,7 +620,8 @@ def main():
                             "srrg2_proslam_tpu/ops/gn_pallas.py:255")}
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[kname], "launches_per_frame": counts[kname] / len(frames_gpu),
+         "launches": counts[kname], "launches_per_frame": counts[kname] / n,
+         "launches_vo": vo_counts[kname], "launches_vo_per_frame": vo_counts[kname] / len(frames_gpu),
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

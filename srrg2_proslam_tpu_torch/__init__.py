@@ -5,15 +5,20 @@ its layout module for module, so each function has a counterpart of the
 same name:
 
 ops/       SE3, pinhole, triangulation, Hamming, matching, features,
-           Gauss-Newton, EKF — plain functions on tensors.
-models/    stereo adaptor, landmark arena, frame-to-map tracker.
-io/        bundled KITTI reader with a zlib/numpy PNG decoder.
+           Gauss-Newton, EKF, pose-graph optimization — plain functions
+           on tensors.
+models/    stereo adaptor, landmark arena, frame-to-map tracker, loop
+           closure database and validation, the GraphSLAM orchestrator.
+io/        bundled KITTI reader with a zlib/numpy PNG decoder; the
+           rendered room and trajectories.
+metrics/   ATE / RPE trajectory evaluation (numpy).
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
 csrc/      the CUDA C++ sources, built for sm_90a at first use.
 
-Imports torch and numpy only, never jax.  The port covers the stereo VO
-slice (``adapt_stereo`` -> ``track_step`` with the EKF estimator).
+Imports torch and numpy only, never jax.  The port covers stereo VO
+(``adapt_stereo`` -> ``track_step`` with the EKF estimator) and per-frame
+GraphSLAM on it (``adapt_stereo`` -> ``GraphSLAM.process``).
 """
 
 import torch as _torch

@@ -82,3 +82,62 @@ def insert(arena: LandmarkArena, pos, cov, desc, want: torch.Tensor,
         num_updates=_scatter_rows(arena.num_updates, dest, 1),
         valid=_scatter_rows(arena.valid, dest, True),
     )
+
+
+def merge_closure(ref_arena: LandmarkArena, query_arena: LandmarkArena,
+                  T_query_in_ref: torch.Tensor, match_row: torch.Tensor,
+                  match_mask: torch.Tensor, max_insertions: int) -> LandmarkArena:
+    """Merge a query map's landmarks into a reloaded reference map's arena.
+
+    Matched pairs combine by update-count-weighted mean and the ref
+    descriptor refreshes to the query's; unmatched query landmarks insert
+    into free slots, most mature first, at most ``max_insertions``.
+    T_query_in_ref [4, 4] maps the query frame into the ref frame;
+    match_row [Q] is the ref row per query row (-1), match_mask [Q] bool.
+
+    Several query rows may match one ref row: their weighted sums add
+    (``index_add``), and the descriptor of the LAST such query row wins —
+    what the JAX package's ``.at[row].set`` gives on the CPU, made explicit
+    here because a CUDA scatter of duplicates keeps an arbitrary one.
+    """
+    M = ref_arena.capacity
+    dev = ref_arena.pos.device
+    q = transform(query_arena, T_query_in_ref)
+    w_q = torch.clamp_min(query_arena.num_updates, 1).to(torch.float32)
+    ok = match_mask & query_arena.valid & (match_row >= 0)
+    row = torch.where(ok, match_row.long(), M)   # unmatched rows: sink row M
+    w_ok = torch.where(ok, w_q, 0.0)
+    sum_pos = torch.zeros((M + 1, 3), dtype=torch.float32, device=dev).index_add(
+        0, row, w_ok[:, None] * q.pos)[:M]
+    sum_w = torch.zeros((M + 1,), dtype=torch.float32, device=dev).index_add(
+        0, row, w_ok)[:M]
+    w_ref = ref_arena.num_updates.to(torch.float32)
+    touched = (sum_w > 0) & ref_arena.valid
+    new_pos = torch.where(
+        touched[:, None],
+        (ref_arena.pos * w_ref[:, None] + sum_pos)
+        / torch.clamp_min(w_ref + sum_w, 1.0)[:, None],
+        ref_arena.pos)
+    Q = query_arena.capacity
+    last = torch.full((M + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, row, torch.arange(Q, device=dev), reduce="amax")[:M]
+    new_desc = torch.where(touched[:, None], q.desc[last.clamp_min(0)], ref_arena.desc)
+    merged = ref_arena._replace(
+        pos=new_pos,
+        desc=new_desc,
+        num_updates=ref_arena.num_updates
+        + torch.where(ref_arena.valid, sum_w.to(torch.int32), 0),
+    )
+    unmatched = query_arena.valid & ~ok
+    order = torch.argsort(torch.where(unmatched, -query_arena.num_updates, 1 << 30),
+                          stable=True)
+    return insert(merged, q.pos[order], q.cov[order], q.desc[order],
+                  unmatched[order], max_insertions)
+
+
+def transform(arena: LandmarkArena, T: torch.Tensor) -> LandmarkArena:
+    """Rigidly move all landmarks (and covariances) by T (4x4)."""
+    R = T[:3, :3]
+    new_pos = arena.pos @ R.T + T[:3, 3]
+    new_cov = torch.einsum("ij,mjk,lk->mil", R, arena.cov, R)
+    return arena._replace(pos=new_pos, cov=new_cov)

@@ -1,15 +1,16 @@
-"""Gauss-Newton pose estimation on the rectified-stereo factor.
+"""Gauss-Newton pose estimation: the rectified-stereo and point-to-point factors.
 
-Port of srrg2_proslam_tpu/ops/gn.py (stereo slice).  The estimate X maps
-moving-frame points into the fixed (sensor) frame and is updated by left
-multiplication X <- exp(dx) X, dx = [v, w]; the Jacobian of (exp(dx) X p)
-at dx = 0 is [I | -skew(X p)].  ``gn_iterate`` over
+Port of srrg2_proslam_tpu/ops/gn.py (stereo and point3 systems).  The
+estimate X maps moving-frame points into the fixed (sensor) frame and is
+updated by left multiplication X <- exp(dx) X, dx = [v, w]; the Jacobian of
+(exp(dx) X p) at dx = 0 is [I | -skew(X p)].  ``gn_iterate`` over
 ``stereo_projective_system`` is the plain version of the GN burst kernel
-(kernels/gn.py).
+(kernels/gn.py).  ``gn_iterate_batch`` runs K independent estimates at
+once without reading anything back to the host (loop-closure validation).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -28,21 +29,28 @@ def robust_saturate(chi: torch.Tensor, chi_threshold: float) -> torch.Tensor:
     return torch.clamp_max(chi_threshold / torch.clamp_min(chi, 1e-12), 1.0)
 
 
-def _reduce_system(J, r, weights, mask, chi_threshold):
-    """(H, b, stats) with per-term saturated robust reweighting.
+def robust_clamp(chi: torch.Tensor, chi_threshold: float) -> torch.Tensor:
+    """Clamp kernel: weight 0 beyond the threshold (RobustifierClamp, chi=3)."""
+    return (chi <= chi_threshold).to(torch.float32)
 
-    J: [C, D, 6], r: [C, D], weights: [C], mask: [C] bool.
+
+def _reduce_system(J, r, weights, mask, chi_threshold,
+                   kernel: Callable = robust_saturate):
+    """(H, b, stats) with per-term robust reweighting.
+
+    J: [..., C, D, 6], r: [..., C, D], weights: [..., C], mask: [..., C]
+    bool; leading dimensions batch independent systems.
     """
     chi = torch.sum(r * r, dim=-1) * weights
-    kw = robust_saturate(chi, chi_threshold)
+    kw = kernel(chi, chi_threshold)
     w = torch.where(mask, weights * kw, 0.0)
-    H = torch.einsum("cdi,cdj,c->ij", J, J, w)
-    b = torch.einsum("cdi,cd,c->i", J, r, w)
+    H = torch.einsum("...cdi,...cdj,...c->...ij", J, J, w)
+    b = torch.einsum("...cdi,...cd,...c->...i", J, r, w)
     inlier = mask & (chi <= chi_threshold)
     stats = GNStats(
-        chi_total=torch.where(mask, torch.clamp_max(chi, chi_threshold), 0.0).sum(),
-        num_inliers=inlier.sum().to(torch.int32),
-        num_terms=mask.sum().to(torch.int32),
+        chi_total=torch.where(mask, torch.clamp_max(chi, chi_threshold), 0.0).sum(-1),
+        num_inliers=inlier.sum(-1).to(torch.int32),
+        num_terms=mask.sum(-1).to(torch.int32),
     )
     return H, b, stats
 
@@ -74,16 +82,29 @@ def stereo_projective_system(X, pts_moving, meas_uvu, weights, mask,
     return _reduce_system(J, r, weights, mask, chi_threshold)
 
 
+def point3_system(X, pts_moving, pts_fixed, weights, mask,
+                  chi_threshold: float = 3.0, kernel: Callable = robust_clamp):
+    """Normal equations of the point-to-point residual r = X p - q (loop
+    closures).  X [..., 4, 4]; pts_moving, pts_fixed [..., C, 3]; weights,
+    mask [..., C]; leading dimensions batch independent systems."""
+    p = se3.transform_points(X, pts_moving)
+    r = p - pts_fixed
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape + (3,))
+    J = torch.cat([eye, -se3.skew(p)], dim=-1)
+    return _reduce_system(J, r, weights, mask, chi_threshold, kernel)
+
+
 def gn_step_dx(X, H, b, damping: float = 1e-6):
     """One damped step: (exp(dx) X, dx) with dx = -(H + damping I)^-1 b.
 
-    A solve that fails or gives a non-finite dx yields dx = 0.
+    Batched over leading dimensions; a solve that fails or gives a
+    non-finite dx yields dx = 0 for that system.
     """
     Hd = H + damping * torch.eye(6, dtype=H.dtype, device=H.device)
     sol, info = torch.linalg.solve_ex(Hd, b)
     dx = -sol
-    good = (info == 0) & torch.isfinite(dx).all()
-    dx = torch.where(good, dx, 0.0)
+    good = (info == 0) & torch.isfinite(dx).all(-1)
+    dx = torch.where(good[..., None], dx, 0.0)
     return se3.exp(dx) @ X, dx
 
 
@@ -94,6 +115,7 @@ def gn_iterate(system_fn, X0, iterations: int, damping: float = 1e-6,
     A step applies only when at least ``min_inliers`` terms are active; the
     loop ends once the applied twist norm is not above ``epsilon`` (a
     refused step counts as norm 0).  Returns (X, stats of the last step).
+    Reads the stop flag back to the host each iteration.
     """
     X = X0
     stats = GNStats(torch.zeros((), dtype=torch.float32, device=X0.device),
@@ -107,4 +129,30 @@ def gn_iterate(system_fn, X0, iterations: int, damping: float = 1e-6,
         dx_norm = torch.where(ok, torch.linalg.vector_norm(dx), 0.0)
         if not bool(dx_norm > epsilon):
             break
+    return X, stats
+
+
+def gn_iterate_batch(system_fn, X0, iterations: int, damping: float = 1e-6,
+                     min_inliers: int = 6, epsilon: float = 0.0):
+    """``gn_iterate`` over K independent estimates X0 [K, 4, 4], with no host
+    read: all ``iterations`` run, and a sticky per-estimate live flag
+    (dx_norm > epsilon, refused step = 0) keeps an estimate and its stats
+    frozen from the iteration after it stopped.  Select for select this is
+    the per-estimate early-exit loop (the JAX package's vmapped
+    ``while_loop``, ``ops/gn.py:250-269``).  ``system_fn`` maps X [K, 4, 4]
+    to (H [K, 6, 6], b [K, 6], GNStats of [K])."""
+    K, dev = X0.shape[0], X0.device
+    X = X0
+    stats = GNStats(torch.zeros((K,), dtype=torch.float32, device=dev),
+                    torch.zeros((K,), dtype=torch.int32, device=dev),
+                    torch.zeros((K,), dtype=torch.int32, device=dev))
+    live = torch.ones((K,), dtype=torch.bool, device=dev)
+    for _ in range(iterations):
+        H, b, stats_i = system_fn(X)
+        X_new, dx = gn_step_dx(X, H, b, damping)
+        ok = stats_i.num_terms >= min_inliers
+        X = torch.where((live & ok)[:, None, None], X_new, X)
+        stats = GNStats(*(torch.where(live, a, s) for a, s in zip(stats_i, stats)))
+        dx_norm = torch.where(ok, torch.linalg.vector_norm(dx, dim=-1), 0.0)
+        live = live & (dx_norm > epsilon)
     return X, stats

@@ -16,7 +16,11 @@ bit-exact at every keypoint (min/max/subtraction and comparisons are
 exact); the GN burst X within
 atol 5e-4 of the plain burst with num_terms exact and inliers within 1
 (the reduction order differs), as tests/test_gn_pallas.py bounds the TPU
-kernel.
+kernel.  A short GraphSLAM run (an out-and-back walk through a random
+world, with closures and a relocalisation, at most 2 finished-map arenas
+kept on the card) on the card gives the CPU run's
+per-frame status and map, counts and closure events, and its trajectory
+within 1e-3 m / 1e-3 rad.
 """
 import os
 
@@ -188,3 +192,56 @@ def test_launch_counters_and_input_checks(rng):
     with pytest.raises(ValueError):
         brief.brief_descriptors(img.transpose(1, 2).contiguous().transpose(1, 2), y, y, ok)
     assert launch_counts() == {"fast": 1, "brief": 1, "gn_burst": 0}
+
+
+def _walk_frames(rng, cam):
+    """tests/test_relocalization.py's stream: a random world seen from an
+    out-and-back walk along z, as (points [N, 4], desc, valid) numpy."""
+    n = 500
+    pts_w = np.stack([rng.uniform(-15, 15, n), rng.uniform(-5, 5, n),
+                      rng.uniform(2, 40, n)], axis=1).astype(np.float32)
+    desc = rng.choice(np.array([-1, 1], np.int8), size=(n, 256))
+    frames = []
+    for z in list(np.arange(0, 3.5, 0.25)) + list(np.arange(3.5, -0.01, -0.25)):
+        p = pts_w + np.array([0.0, 0.0, -z], np.float32)
+        zs = np.maximum(p[:, 2], 0.5)
+        u = cam.fx * p[:, 0] / zs + cam.cx
+        v = cam.fy * p[:, 1] / zs + cam.cy
+        ur = u - cam.baseline_px / zs
+        ok = (p[:, 2] > 0.5) & (u >= 0) & (u < cam.cols) & (v >= 0) & (v < cam.rows) & (ur >= 0)
+        frames.append((np.stack([u, v, ur, v], 1).astype(np.float32), desc, ok))
+    return frames
+
+
+def test_graphslam_on_the_card_matches_cpu(rng):
+    from srrg2_proslam_tpu_torch.models import slam
+    from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
+
+    cam = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600, baseline_px=225.0)
+    cfg = slam.GraphSLAMConfig(
+        splitting=slam.SplittingConfig(maximum_translation_m=0.6),
+        loop=LoopDetectorConfig(minimum_age_difference=3), arena_capacity=1024,
+        max_local_maps=32, max_edges=64, database_capacity=16384,
+        max_device_map_arenas=2)    # older arenas move to the host and reload
+    frames = _walk_frames(rng, cam)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reset_launch_counts()
+        s = slam.GraphSLAM(cam, cfg, device=device)
+        rows = []
+        for i, (p, d, ok) in enumerate(frames):
+            s.process(*(torch.from_numpy(a).to(device) for a in (p, d, ok)), 0.1 * i)
+            rows.append((s.status, s.current_map))
+        runs[device] = (s, rows, launch_counts())
+    (g, g_rows, g_launch), (c, c_rows, _) = runs["cuda"], runs["cpu"]
+    assert g_launch == {"fast": 0, "brief": 0, "gn_burst": 3 * len(frames)}
+    assert g_rows == c_rows
+    keys = ("num_maps", "num_edges", "num_closures", "num_relocalizations", "num_losses",
+            "num_backstop_rejections")
+    assert {k: getattr(g, k) for k in keys} == {k: getattr(c, k) for k in keys}
+    assert g.closure_events == c.closure_events and g.num_relocalizations >= 1
+    on_card = [a.pos.is_cuda for a in g._map_arenas.values()]
+    assert sum(on_card) <= 2 and not all(on_card)
+    d_t, d_ang = se3.error_t_and_angle(torch.from_numpy(np.stack(g.trajectory())),
+                                       torch.from_numpy(np.stack(c.trajectory())))
+    assert float(d_t.max()) <= 1e-3 and float(d_ang.max()) <= 1e-3

@@ -23,20 +23,30 @@ from srrg2_proslam_tpu.ops import ekf as jax_ekf  # noqa: E402
 from srrg2_proslam_tpu.ops import features as jax_features  # noqa: E402
 from srrg2_proslam_tpu.ops import landmark_estimators as jax_le  # noqa: E402
 from srrg2_proslam_tpu.ops import matching as jax_matching  # noqa: E402
+from srrg2_proslam_tpu.models import loop_closure as jax_loop_closure  # noqa: E402
+from srrg2_proslam_tpu.models import slam as jax_slam  # noqa: E402
+from srrg2_proslam_tpu.ops import ba as jax_ba, pgo as jax_pgo  # noqa: E402
 
 from srrg2_proslam_tpu_torch.io import datasets  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend, tracker  # noqa: E402
-from srrg2_proslam_tpu_torch.ops import ekf, features, landmark_estimators, matching  # noqa: E402
+from srrg2_proslam_tpu_torch.models import loop_closure, slam  # noqa: E402
+from srrg2_proslam_tpu_torch.ops import ekf, features, landmark_estimators, matching, pgo  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DATA = os.path.join(ROOT, "test_data")
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, srrg2_proslam_tpu_torch.models.tracker, "
-            "srrg2_proslam_tpu_torch.models.frontend, srrg2_proslam_tpu_torch.kernels, "
-            "srrg2_proslam_tpu_torch.io.datasets; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+    # every module of the port, and chip_smoke.py, with jax and the JAX
+    # package blocked: importing either raises
+    code = ("import importlib, pkgutil, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['srrg2_proslam_tpu'] = None\n"
+            "import srrg2_proslam_tpu_torch as p\n"
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+            "for name in names + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
+            "assert len(names) > 20 and 'srrg2_proslam_tpu_torch.models.slam' in names\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -67,6 +77,13 @@ def _as_plain(cfg):
     (landmark_estimators.SmootherConfig, jax_le.SmootherConfig),
     (tracker.MergerConfig, jax_tracker.MergerConfig),
     (tracker.TrackerConfig, jax_tracker.TrackerConfig),
+    (pgo.PGOConfig, jax_pgo.PGOConfig),
+    (loop_closure.LoopDetectorConfig, jax_loop_closure.LoopDetectorConfig),
+    (slam.SplittingConfig, jax_slam.SplittingConfig),
+    (slam.RelocalizerConfig, jax_slam.RelocalizerConfig),
+    (slam.BAConfig, jax_ba.BAConfig),
+    (slam.LocalBAConfig, jax_slam.LocalBAConfig),
+    (slam.GraphSLAMConfig, jax_slam.GraphSLAMConfig),
 ], ids=lambda c: c.__name__ if isinstance(c, type) else None)
 def test_config_fields_and_defaults_match(port_cls, jax_cls):
     assert port_cls.__name__ == jax_cls.__name__
