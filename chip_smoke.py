@@ -27,15 +27,19 @@ Phases, any failure exits non-zero:
      maps, 1024 edges): the test's gates must pass (>= 120 frames, >= 10
      maps, >= 1 closure, >= 1 relocalisation, per-axis t-RMSE <= 0.30 m,
      rotation <= 3 deg, ATE <= 0.5 m), the kernels must have been launched
-     FAST n, BRIEF n, GN 3n times for n frames, and the port's CPU run over
-     the same images (copied to the host) must give the same per-frame
-     status and map, the same map, closure and relocalisation counts and
-     closure events, and a final pose within SLAM_POSE_TOL_M /
-     SLAM_POSE_TOL_RAD (a prefix with >= 3 splits when the CPU run would
-     take longer than CPU_BUDGET_S); a second pass gives GraphSLAM
-     ms/frame and the split-time stages; the loop query's peak memory is
-     printed, and a standalone query at the default database size (64
-     slots x 1024, a 4096-row arena), dense and tiled.
+     FAST n, BRIEF n, GN 3n times for n frames, and each kernel must agree
+     with its plain version at this path's inputs (FAST and BRIEF on the
+     first rendered pair, the GN burst on every burst captured from the run);
+     the port's CPU run over the same images (copied to the host) must give
+     the same per-frame status and map, the same map, closure and
+     relocalisation counts and closure events, and every frame's pose
+     within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD (a prefix with >= 3 splits
+     when the CPU run would take longer than CPU_BUDGET_S); a second pass,
+     with no stage timing, gives GraphSLAM ms/frame; a third, under
+     utils/profiling.profile_time with synchronized scopes, the stage
+     times and the loop query's peak memory; then the last split's query
+     rows run against a database of the default size (64 slots x 1024)
+     seeded with noisy copies of them, dense and tiled.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -57,8 +61,8 @@ GN_ATOL = 5e-4               # GN burst X, kernel vs plain (tests/test_gn_pallas
 # the rendered loop: tests/test_rendered_e2e.py's gates
 E2E_MIN_FRAMES, E2E_MIN_MAPS = 120, 10
 E2E_T_RMSE, E2E_ROT_DEG, E2E_ATE = 0.30, 3.0, 0.5
-SLAM_POSE_TOL_M = 0.05       # final pose, GPU vs CPU GraphSLAM run
-SLAM_POSE_TOL_RAD = 5e-3
+SLAM_POSE_TOL_M = 1e-3       # every frame's pose, GPU vs CPU GraphSLAM run
+SLAM_POSE_TOL_RAD = 1e-3
 CPU_BUDGET_S = 240.0         # the CPU reference stops after this once >= 3 splits ran
 
 
@@ -189,6 +193,21 @@ def fast_bound(images, threshold: float) -> dict:
             "candidate_share": candidates / pixels}
 
 
+def frontend_inputs(left, right, ext) -> dict:
+    """K3's and K1's inputs as adapt_stereo forms them for one pair: the
+    stacked images, the box-filtered images and the keypoints."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.ops.features import (
+        _boxfilter, _keypoint_rows_cols, detect_keypoints_batch)
+
+    images = torch.stack([left, right])
+    uv, _, valid = detect_keypoints_batch(images, ext)
+    y, x = _keypoint_rows_cols(uv, images.shape[1], images.shape[2])
+    smooth = _boxfilter(images, ext.smoothing_window)
+    return {"images": images, "smooth": smooth, "y": y, "x": x, "valid": valid}
+
+
 def main_path_inputs(frames_gpu, cam, adapt_cfg, track_cfg):
     """The kernels' inputs as the main path forms them: frame 0's pair and
     its keypoints (K3, K1), frame 1's round-0 correspondences (K2)."""
@@ -197,15 +216,8 @@ def main_path_inputs(frames_gpu, cam, adapt_cfg, track_cfg):
     from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
     from srrg2_proslam_tpu_torch.models.tracker import associate, initial_state, track_step
     from srrg2_proslam_tpu_torch.ops import se3
-    from srrg2_proslam_tpu_torch.ops.features import (
-        _boxfilter, _keypoint_rows_cols, detect_keypoints_batch)
 
-    ext = adapt_cfg.extractor
-    images = torch.stack(frames_gpu[0])
-    uv, _, valid = detect_keypoints_batch(images, ext)
-    y, x = _keypoint_rows_cols(uv, images.shape[1], images.shape[2])
-    smooth = _boxfilter(images, ext.smoothing_window)
-
+    inp = frontend_inputs(*frames_gpu[0], adapt_cfg.extractor)
     state = initial_state(capacity=4096)
     meas0 = adapt_stereo(*frames_gpu[0], adapt_cfg)
     state, _, _ = track_step(state, meas0.points, meas0.desc, meas0.valid, cam,
@@ -213,15 +225,98 @@ def main_path_inputs(frames_gpu, cam, adapt_cfg, track_cfg):
     meas1 = adapt_stereo(*frames_gpu[1], adapt_cfg)
     X_pred = se3.inverse(state.T_lm_robot @ se3.exp(state.velocity))
     weights_all = 1.0 + torch.log1p(state.arena.num_updates.to(torch.float32))
-    idw = torch.ones(meas1.points.shape[0], device=images.device)
+    idw = torch.ones(meas1.points.shape[0], device=inp["images"].device)
     matches, _, pts, w = associate(state.arena, X_pred, meas1.points, meas1.desc,
                                    meas1.valid, cam, track_cfg, 0, weights_all, idw)
     gn_kw = dict(iterations=track_cfg.gn_iterations, damping=track_cfg.damping,
                  min_inliers=track_cfg.min_num_inliers, epsilon=track_cfg.gn_epsilon,
                  chi_threshold=track_cfg.chi_threshold)
-    gn_args = (X_pred, pts, meas1.points[:, :3].contiguous(), w, matches.mask, cam)
-    return {"images": images, "smooth": smooth, "y": y, "x": x, "valid": valid,
-            "gn_args": gn_args, "gn_kw": gn_kw}
+    inp["gn_args"] = (X_pred, pts, meas1.points[:, :3].contiguous(), w, matches.mask, cam)
+    inp["gn_kw"] = gn_kw
+    return inp
+
+
+def check_fast(images, threshold: float, tag: str) -> float:
+    """K3 against its plain version, bit for bit; returns max_abs_err."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.kernels.fast import fast_scores_kernel, fast_scores_plain
+
+    k = fast_scores_kernel(images, threshold)
+    p = fast_scores_plain(images, threshold)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    print(f"K3 fast  {tuple(images.shape)} {tag}: max_abs_err {err} "
+          f"(corners {int((p > 0).sum())}; tolerance 0, bit-exact)", flush=True)
+    if not torch.equal(k, p):
+        fail(f"FAST kernel disagrees with its plain version on {tag}")
+    return err
+
+
+def check_kernels(inp, cam, threshold: float, tag: str):
+    """Hold K3, K1 and K2 against their plain versions on one pair's
+    frontend inputs and one burst's (as ``main_path_inputs`` forms them;
+    K3 and K1 bit-exact, K2 within GN_ATOL); fail on a mismatch.  Returns ({kernel: max_abs_err}, (active GN rows,
+    GN iterations the plain burst ran))."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.kernels.brief import (
+        brief_bitplanes_plain, brief_descriptors, brief_descriptors_plain,
+        descriptors_from_planes)
+
+    errs = {"fast": check_fast(inp["images"], threshold, tag)}
+
+    smooth, y, x, valid = (inp[key] for key in ("smooth", "y", "x", "valid"))
+    k = brief_descriptors(smooth, y, x, valid)
+    p = brief_descriptors_plain(smooth, y, x, valid)
+    dense = torch.where(valid[..., None],
+                        descriptors_from_planes(brief_bitplanes_plain(smooth), y, x), -1)
+    torch.cuda.synchronize()
+    err = float((k.to(torch.int32) - p.to(torch.int32)).abs().max())
+    print(f"K1 brief {tuple(smooth.shape)} {tag} at {tuple(y.shape)} keypoints "
+          f"({int(valid.sum())} valid) -> {tuple(k.shape)}: max_abs_err {err} "
+          f"(differing entries {int((k != p).sum())}, vs dense bitplanes "
+          f"{int((k != dense).sum())}; tolerance 0, bit-exact)", flush=True)
+    if err != 0.0 or not torch.equal(k, dense.to(torch.int8)):
+        fail(f"BRIEF kernel disagrees with its plain version on {tag}")
+    errs["brief"] = err
+
+    errs["gn_burst"], active, iterations = check_gn(inp["gn_args"], inp["gn_kw"], cam, tag)
+    return errs, (active, iterations)
+
+
+def check_gn(args, gn_kw, cam, tag: str, quiet: bool = False):
+    """K2 against its plain burst (gn_iterate) on one burst's inputs: X
+    within GN_ATOL, equal terms, inliers within 1; fail on a mismatch.
+    Returns (max_abs_err of X, active rows, iterations the plain burst ran)."""
+    from srrg2_proslam_tpu_torch.kernels.gn import gn_burst_stereo
+    from srrg2_proslam_tpu_torch.ops.gn import gn_iterate, stereo_projective_system
+
+    Xk, sk = gn_burst_stereo(*args, **gn_kw)
+    iterations_run = []
+
+    def counted(X, *rest):
+        iterations_run.append(1)
+        return stereo_projective_system(X, *rest)
+
+    X_pred, pts, gn_meas, w, mask, _ = args
+    Xp, sp = gn_iterate(lambda X: counted(X, pts, gn_meas, w, mask, cam, gn_kw["chi_threshold"]),
+                        X_pred, gn_kw["iterations"], damping=gn_kw["damping"],
+                        min_inliers=gn_kw["min_inliers"], epsilon=gn_kw["epsilon"])
+    err = float((Xk - Xp).abs().max())
+    active = int(mask.sum())
+    if not quiet:
+        print(f"K2 gn    {tag} C={pts.shape[0]} active={active} "
+              f"iterations={len(iterations_run)}: max_abs_err(X) {err:.3e} (tolerance "
+              f"{GN_ATOL}); terms {int(sk.num_terms)}/{int(sp.num_terms)} inliers "
+              f"{int(sk.num_inliers)}/{int(sp.num_inliers)} chi {float(sk.chi_total):.4f}/"
+              f"{float(sp.chi_total):.4f}", flush=True)
+    if not (err <= GN_ATOL and int(sk.num_terms) == int(sp.num_terms)
+            and abs(int(sk.num_inliers) - int(sp.num_inliers)) <= 1):
+        fail(f"GN burst kernel disagrees with its plain version on {tag}: X err {err:.3e}, "
+             f"terms {int(sk.num_terms)}/{int(sp.num_terms)}, inliers "
+             f"{int(sk.num_inliers)}/{int(sp.num_inliers)}")
+    return err, active, len(iterations_run)
 
 
 def run_vo(frames, cam, device, adapt_cfg, track_cfg):
@@ -268,7 +363,7 @@ def run_slam(frames, cam, device, adapt_cfg, budget_s=None, min_maps=0):
     from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
     from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
 
-    slam = GraphSLAM(cam, slam_config(), device=device, time_stages=True)
+    slam = GraphSLAM(cam, slam_config(), device=device)
     rows = []
     t0 = time.perf_counter()
     for (left, right), stamp in frames:
@@ -289,39 +384,58 @@ def slam_counts(slam) -> dict:
                                           "num_backstop_rejections")}
 
 
-def query_memory(dev, smi):
-    """The loop query at the default database size (64 slots of 1024) and a
-    4096-row query, dense and tiled (query_tile 8192): peak allocated
-    bytes above the inputs and device time per call."""
+def query_memory(dev, smi, q_desc, q_valid):
+    """The loop query at the default database size (64 slots of 1024) with a
+    real split's query rows (``q_desc`` [4096, 256], ``q_valid``), dense and
+    tiled (query_tile 8192): peak allocated bytes above the inputs and time
+    per call.  Four slots hold noisy copies (8 of 256 bits flipped) of n,
+    3n/4, n/2 and n/4 of the valid query rows (n up to 1024), the rest
+    random bits, so the top 4 candidates are known and their votes and
+    masks are not empty."""
     import torch
 
     from srrg2_proslam_tpu_torch.models import loop_closure as lc
 
     g = torch.Generator(device=dev).manual_seed(0)
+    desc = (torch.randint(0, 2, (64, 1024, 256), generator=g, device=dev,
+                          dtype=torch.int8) * 2 - 1)
+    rows = q_desc[q_valid]
+    n = min(1024, rows.shape[0])
+    seeded = {5: n, 23: 3 * n // 4, 40: n // 2, 58: n // 4}
+    for slot, count in seeded.items():
+        flips = torch.rand((count, 256), generator=g, device=dev).argsort(dim=1)[:, :8]
+        copy = rows[:count].clone()
+        copy.scatter_(1, flips, -copy.gather(1, flips))
+        desc[slot, :count] = copy
     db = lc.empty_database(65536, 1024, dev)
-    sign = lambda *shape: (torch.randint(0, 2, shape, generator=g, device=dev,
-                                         dtype=torch.int8) * 2 - 1)
-    db = db._replace(desc=sign(64, 1024, 256), valid=torch.ones_like(db.valid),
+    db = db._replace(desc=desc, valid=torch.ones_like(db.valid),
                      map_id=torch.arange(64, dtype=torch.int32, device=dev),
                      next=torch.tensor(64, dtype=torch.int32, device=dev))
-    q_desc, q_valid = sign(4096, 256), torch.ones(4096, dtype=torch.bool, device=dev)
-    out = {}
+    query_map = 80
     results = []
     for tile in (0, 8192):
         cfg = lc.LoopDetectorConfig(query_tile=tile)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        results.append(lc.query(q_desc, q_valid, 80, db, cfg, 512))
+        results.append(lc.query(q_desc, q_valid, query_map, db, cfg, 512))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) - base
-        ms = cuda_ms(lambda: lc.query(q_desc, q_valid, 80, db, cfg, 512), reps=5, warmup=1)
-        out[tile] = (peak, ms)
-        print(f"  loop query [4096 x 64 x 1024], query_tile {tile}: peak {peak / 2**30:.3f} "
-              f"GiB above the inputs, {ms:.3f} ms/call (CUDA events) [{smi}]", flush=True)
+        ms = cuda_ms(lambda: lc.query(q_desc, q_valid, query_map, db, cfg, 512),
+                     reps=5, warmup=1)
+        print(f"  loop query [{q_desc.shape[0]} x 64 x 1024], query_tile {tile}: peak "
+              f"{peak / 2**30:.3f} GiB above the inputs, {ms:.3f} ms/call (CUDA events) "
+              f"[{smi}]", flush=True)
+    dense = results[0]
     if not all(torch.equal(a, b) for a, b in zip(*results)):
         fail("tiled loop query disagrees with the dense one")
-    return out
+    cands, votes = dense.candidate_maps.tolist(), dense.votes.tolist()
+    print(f"  candidates {cands}, votes {votes}, matched rows "
+          f"{dense.match_mask.sum(1).tolist()} ({rows.shape[0]} valid query rows; "
+          f"tiled equals dense)", flush=True)
+    if cands != [s for s in sorted(seeded, key=seeded.get, reverse=True)] \
+            or not all(v > 0 for v in votes):
+        fail(f"loop query at the default size missed the seeded slots {seeded}")
 
 
 def main():
@@ -333,16 +447,13 @@ def main():
     from srrg2_proslam_tpu_torch import kernels
     from srrg2_proslam_tpu_torch.io import datasets
     from srrg2_proslam_tpu_torch.kernels import _build
-    from srrg2_proslam_tpu_torch.kernels.brief import (
-        brief_bitplanes_plain, brief_descriptors, brief_descriptors_plain,
-        descriptors_from_planes)
+    from srrg2_proslam_tpu_torch.kernels.brief import brief_descriptors, brief_descriptors_plain
     from srrg2_proslam_tpu_torch.kernels.fast import fast_scores_kernel, fast_scores_plain
     from srrg2_proslam_tpu_torch.kernels.gn import gn_burst_stereo, gn_burst_stereo_plain
     from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig, adapt_stereo
     from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig, initial_state, track_step
     from srrg2_proslam_tpu_torch.ops import se3
     from srrg2_proslam_tpu_torch.ops.features import _BRIEF_PAIRS
-    from srrg2_proslam_tpu_torch.ops.gn import gn_iterate, stereo_projective_system
 
     # ---- 1. the card -------------------------------------------------------
     smi = subprocess.run(
@@ -375,23 +486,14 @@ def main():
     report = {}
 
     # K3 on frame 0's pair, and on uniform noise of the same shape (nearly
-    # every pixel a candidate)
+    # every pixel a candidate); K1 at its keypoints; K2 on frame 1's round 0
     noise = torch.randint(0, 256, images.shape, generator=torch.Generator().manual_seed(0),
                           dtype=torch.int32).to(dev, torch.float32)
-    errs = []
-    for tag, img in (("KITTI frame 0", images), ("uniform noise", noise)):
-        k = fast_scores_kernel(img, thr)
-        p = fast_scores_plain(img, thr)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        print(f"K3 fast  {tuple(img.shape)} {tag}: max_abs_err {err} "
-              f"(corners {int((p > 0).sum())}; tolerance 0, bit-exact)", flush=True)
-        if not torch.equal(k, p):
-            fail(f"FAST kernel disagrees with its plain version on {tag}")
-        errs.append(err)
+    errs, (active, iterations) = check_kernels(inp, cam, thr, "KITTI frames 0/1")
+    check_fast(noise, thr, "uniform noise")
     kb, nb = fast_bound(images, thr), fast_bound(noise, thr)
     report["fast"] = {
-        "max_abs_err": errs[0],
+        "max_abs_err": errs["fast"],
         "ms": device_ms(lambda: fast_scores_kernel(images, thr), kernel="fast_scores_kernel"),
         "plain_ms": device_ms(lambda: fast_scores_plain(images, thr)),
         "event_ms": cuda_ms(lambda: fast_scores_kernel(images, thr)),
@@ -409,18 +511,6 @@ def main():
               f"SM-clocks/s) [{smi}]", flush=True)
 
     smooth, y, x, valid = (inp[key] for key in ("smooth", "y", "x", "valid"))
-    k = brief_descriptors(smooth, y, x, valid)
-    p = brief_descriptors_plain(smooth, y, x, valid)
-    dense = torch.where(valid[..., None],
-                        descriptors_from_planes(brief_bitplanes_plain(smooth), y, x), -1)
-    torch.cuda.synchronize()
-    err = float((k.to(torch.int32) - p.to(torch.int32)).abs().max())
-    print(f"K1 brief {tuple(smooth.shape)} at {tuple(y.shape)} keypoints "
-          f"({int(valid.sum())} valid) -> {tuple(k.shape)}: max_abs_err {err} "
-          f"(differing entries {int((k != p).sum())}, vs dense bitplanes "
-          f"{int((k != dense).sum())}; tolerance 0, bit-exact)", flush=True)
-    if err != 0.0 or not torch.equal(k, dense.to(torch.int8)):
-        fail("BRIEF kernel disagrees with its plain version")
     # bytes: each distinct sampled pixel of the valid keypoints once, the
     # keypoints (y, x int64, valid), the int8 output; ops: 256 comparisons
     B, H, W = smooth.shape
@@ -429,47 +519,28 @@ def main():
     lin = (bidx * H + y[..., None] + pairs[:, 0]) * W + x[..., None] + pairs[:, 1]
     samples = int(torch.unique(lin[valid]).numel())
     report["brief"] = {
-        "max_abs_err": err,
+        "max_abs_err": errs["brief"],
         "ms": device_ms(lambda: brief_descriptors(smooth, y, x, valid),
                         kernel="brief_descriptors_kernel"),
         "plain_ms": device_ms(lambda: brief_descriptors_plain(smooth, y, x, valid)),
         "event_ms": cuda_ms(lambda: brief_descriptors(smooth, y, x, valid)),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(samples * 4 + y.numel() * 17 + k.numel(),
+                   bound(samples * 4 + y.numel() * 17 + y.numel() * 256,
                          int(valid.sum()) * 256)))}
 
     args, gn_kw = inp["gn_args"], inp["gn_kw"]
-    Xk, sk = gn_burst_stereo(*args, **gn_kw)
-    iterations_run = []
-
-    def counted(X, *rest):
-        iterations_run.append(1)
-        return stereo_projective_system(X, *rest)
-
-    X_pred, pts, gn_meas, w, mask, _ = args
-    Xp, sp = gn_iterate(lambda X: counted(X, pts, gn_meas, w, mask, cam, gn_kw["chi_threshold"]),
-                        X_pred, gn_kw["iterations"], damping=gn_kw["damping"],
-                        min_inliers=gn_kw["min_inliers"], epsilon=gn_kw["epsilon"])
-    err = float((Xk - Xp).abs().max())
-    active = int(mask.sum())
-    print(f"K2 gn    C={pts.shape[0]} active={active} iterations={len(iterations_run)}: "
-          f"max_abs_err(X) {err:.3e} (tolerance {GN_ATOL}); terms {int(sk.num_terms)}/"
-          f"{int(sp.num_terms)} inliers {int(sk.num_inliers)}/{int(sp.num_inliers)} "
-          f"chi {float(sk.chi_total):.4f}/{float(sp.chi_total):.4f}", flush=True)
-    if not (err <= GN_ATOL and int(sk.num_terms) == int(sp.num_terms)
-            and abs(int(sk.num_inliers) - int(sp.num_inliers)) <= 1):
-        fail("GN burst kernel disagrees with its plain version")
+    pts = args[1]
     # bytes: X0, the mask, the active rows' point, measurement and weight,
     # the 19-word output; ops: the accumulation of the iterations this
     # run's data needs (the 6x6 solves add ~0.3 kflop each)
     report["gn_burst"] = {
-        "max_abs_err": err,
+        "max_abs_err": errs["gn_burst"],
         "ms": device_ms(lambda: gn_burst_stereo(*args, **gn_kw), kernel="gn_burst_stereo_kernel"),
         "plain_ms": device_ms(lambda: gn_burst_stereo_plain(*args, **gn_kw)),
         "event_ms": cuda_ms(lambda: gn_burst_stereo(*args, **gn_kw)),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(64 + pts.shape[0] + active * 28 + 19 * 4,
-                         GN_FLOPS_PER_TERM * active * len(iterations_run))))}
+                         GN_FLOPS_PER_TERM * active * iterations)))}
     for kname, r in report.items():
         print(f"  {kname}: device {r['ms']:.5f} ms/call (events {r['event_ms']:.5f}), "
               f"plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
@@ -533,6 +604,8 @@ def main():
     # ---- 5. GraphSLAM over the rendered closed loop ------------------------
     from srrg2_proslam_tpu_torch.io import synthetic
     from srrg2_proslam_tpu_torch.metrics import trajectory
+    from srrg2_proslam_tpu_torch.models import loop_closure
+    from srrg2_proslam_tpu_torch.utils import profiling
 
     scam = synthetic.synthetic_camera()
     torch.cuda.synchronize()
@@ -544,9 +617,23 @@ def main():
     print(f"rendered loop: {n} frames {tuple(loop[0].left.shape)} on the card in "
           f"{time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
     gpu_frames = [((f.left, f.right), f.timestamp) for f in loop]
+
+    # the first pass: launches, the gate, and the inputs of every GN burst
+    # of the run, captured through the kernel module
+    bursts = []
+    real_burst = kernels.gn.gn_burst_stereo
+
+    def capture_burst(*args, **kw):
+        bursts.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+        return real_burst(*args, **kw)
+
     kernels.reset_launch_counts()
+    kernels.gn.gn_burst_stereo = capture_burst
     t0 = time.perf_counter()
-    slam, rows = run_slam(gpu_frames, scam, dev, adapt_cfg)
+    try:
+        slam, rows = run_slam(gpu_frames, scam, dev, adapt_cfg)
+    finally:
+        kernels.gn.gn_burst_stereo = real_burst
     first_pass = time.perf_counter() - t0
     counts = kernels.launch_counts()
     print(f"GraphSLAM: {n} frames, {slam_counts(slam)}, closure events "
@@ -566,7 +653,27 @@ def main():
           f"[{smi}]", flush=True)
     if not gate:
         fail("the rendered-loop gate failed")
-    query_peak = slam.stage_peak_bytes.get("query_validate", 0)
+
+    # the kernels at this path's inputs: K3 and K1 on the first rendered
+    # pair, K2 on every burst of the run (the busiest one printed)
+    if len(bursts) != 3 * n:
+        fail(f"captured {len(bursts)} GN bursts, not {3 * n}")
+    active = [int(args[4].sum()) for args, _ in bursts]
+    busiest = max(range(len(bursts)), key=active.__getitem__)
+    loop_inp = frontend_inputs(*gpu_frames[0][0], adapt_cfg.extractor)
+    loop_inp["gn_args"], loop_inp["gn_kw"] = bursts[busiest]
+    loop_errs, _ = check_kernels(
+        loop_inp, scam, thr, f"rendered loop (pair 0; GN burst {busiest % 3} of frame "
+        f"{busiest // 3})")
+    gn_errs = [check_gn(args, kw, scam, f"rendered loop burst {i}", quiet=True)[0]
+               for i, (args, kw) in enumerate(bursts)]
+    loop_errs["gn_burst"] = max(gn_errs)
+    print(f"K2 gn    rendered loop, all {len(bursts)} bursts of the run: max_abs_err(X) "
+          f"{max(gn_errs):.3e} (tolerance {GN_ATOL}), active rows {min(active)}-"
+          f"{max(active)}, {sum(a == 0 for a in active)} empty", flush=True)
+    for kname, e in loop_errs.items():
+        report[kname]["max_abs_err_loop"] = e
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], e)
 
     cpu_frames = [((f.left.cpu(), f.right.cpu()), f.timestamp) for f in loop]
     t0 = time.perf_counter()
@@ -591,26 +698,58 @@ def main():
             or ref_slam.closure_events != cpu_slam.closure_events):
         fail(f"GPU and CPU GraphSLAM runs disagree: {slam_counts(ref_slam)} "
              f"{ref_slam.closure_events} vs {slam_counts(cpu_slam)} {cpu_slam.closure_events}")
-    dt, dang = se3.error_t_and_angle(torch.from_numpy(ref_slam.robot_in_world()),
-                                     torch.from_numpy(cpu_slam.robot_in_world()))
+    dt, dang = se3.error_t_and_angle(torch.from_numpy(np.stack(ref_slam.trajectory())),
+                                     torch.from_numpy(np.stack(cpu_slam.trajectory())))
+    worst_t, worst_a = dt.max(dim=1).values, dang
     print(f"GPU vs CPU GraphSLAM over {m} frames: per-frame status and map equal, counts and "
-          f"closure events equal; final pose |dt| {dt.numpy()} angle {float(dang):.3e} "
-          f"(tolerance {SLAM_POSE_TOL_M} m, {SLAM_POSE_TOL_RAD} rad) [{smi}]", flush=True)
-    if not (float(dt.max()) <= SLAM_POSE_TOL_M and float(dang) <= SLAM_POSE_TOL_RAD):
-        fail("GPU and CPU GraphSLAM final poses disagree")
+          f"closure events equal; trajectory frame for frame: max |dt| "
+          f"{float(worst_t.max()):.3e} m (frame {int(worst_t.argmax())}), max angle "
+          f"{float(worst_a.max()):.3e} rad (frame {int(worst_a.argmax())}), final |dt| "
+          f"{dt[-1].numpy()} (tolerance {SLAM_POSE_TOL_M} m, {SLAM_POSE_TOL_RAD} rad per "
+          f"frame) [{smi}]", flush=True)
+    if not (float(worst_t.max()) <= SLAM_POSE_TOL_M
+            and float(worst_a.max()) <= SLAM_POSE_TOL_RAD):
+        fail("GPU and CPU GraphSLAM trajectories disagree")
 
+    # the second pass, timing off: GraphSLAM ms/frame
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slam2, _ = run_slam(gpu_frames, scam, dev, adapt_cfg)
     steady = (time.perf_counter() - t0) / n * 1e3
     print(f"GraphSLAM ms/frame: {steady:.3f} (second pass, adapt_stereo + process, "
-          f"{slam2.num_maps} maps), first pass {first_pass / n * 1e3:.3f} [{smi}]", flush=True)
-    for stage, ms in slam2.stage_ms.items():
-        print(f"  split stage {stage}: {len(ms)} calls, mean {np.mean(ms):.3f} ms, max "
-              f"{np.max(ms):.3f} ms (second pass, synchronized) [{smi}]", flush=True)
-    print(f"  loop query peak allocated {query_peak / 2**30:.3f} GiB (whole process, "
-          f"torch.cuda.max_memory_allocated) [{smi}]", flush=True)
-    query_memory(dev, smi)
+          f"{slam2.num_maps} maps, no stage timing), first pass {first_pass / n * 1e3:.3f} "
+          f"[{smi}]", flush=True)
+
+    # the third pass: the stages under profile_time, each synchronized, and
+    # the loop query's peak memory (reset before each split's query)
+    query_peak, last_query = [0], {}
+    real_detect = loop_closure.detect_and_validate
+
+    def measured_detect(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = real_detect(*args, **kw)
+        torch.cuda.synchronize()
+        query_peak[0] = max(query_peak[0], torch.cuda.max_memory_allocated(dev))
+        last_query["desc"], last_query["valid"] = args[0], args[1]
+        return out
+
+    profiling.reset()
+    profiling.enable()
+    loop_closure.detect_and_validate = measured_detect
+    try:
+        run_slam(gpu_frames, scam, dev, adapt_cfg)
+    finally:
+        loop_closure.detect_and_validate = real_detect
+        profiling.enable(False)
+    for stage, st in profiling.stats().items():
+        print(f"  stage {stage}: {st['calls']} calls, mean {st['mean_ms']:.3f} ms, total "
+              f"{st['total_s'] * 1e3:.3f} ms (third pass, profile_time, synchronized) "
+              f"[{smi}]", flush=True)
+    print(f"  loop query peak allocated {query_peak[0] / 2**30:.3f} GiB (whole process, "
+          f"torch.cuda.max_memory_allocated over detect_and_validate; {slam.db.num_slots} "
+          f"slots x {slam.db.budget}) [{smi}]", flush=True)
+    query_memory(dev, smi, last_query["desc"], last_query["valid"])
 
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),

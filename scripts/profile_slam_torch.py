@@ -7,10 +7,10 @@ Usage (one CUDA card; builds the kernels from csrc/ on first use):
 
 Renders the closed loop of tests/test_rendered_e2e.py on the card (145
 frames, 480x640) and runs adapt_stereo -> GraphSLAM.process over it with
-chip_smoke.py's config, twice; the second pass records the split stages
-(``GraphSLAM(time_stages=True)``) and keeps the inputs of the last loop
-query and of the first PGO.  Then, each under torch.profiler after a
-warm-up call, it replays:
+chip_smoke.py's config, twice; the second pass records the stages under
+``utils/profiling.profile_time`` (each scope synchronizes) and keeps the
+inputs of the last loop query and of the first PGO.  Then, each under
+torch.profiler after a warm-up call, it replays:
 
   * ``loop_closure.detect_and_validate`` on that query's inputs, and its
     two halves: ``query`` and ``validate_batch``;
@@ -81,6 +81,7 @@ def main():
     from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig, adapt_stereo
     from srrg2_proslam_tpu_torch.models.tracker import track_step
     from srrg2_proslam_tpu_torch.ops import pgo, se3
+    from srrg2_proslam_tpu_torch.utils import profiling
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the operator tables")
@@ -110,6 +111,8 @@ def main():
 
     slam_mod.loop_closure.detect_and_validate = keep_dv
     slam_mod.pgo.optimize = keep_opt
+    profiling.reset()
+    profiling.enable()
     try:
         t0 = time.perf_counter()
         s, _ = run_slam(frames, cam, dev, acfg)
@@ -117,10 +120,11 @@ def main():
     finally:
         slam_mod.loop_closure.detect_and_validate = real_dv
         slam_mod.pgo.optimize = real_opt
-    stages = {k: {"calls": len(v), "mean_ms": sum(v) / len(v), "total_ms": sum(v)}
-              for k, v in s.stage_ms.items()}
-    print(f"pass: {len(frames)} frames, {wall / len(frames) * 1e3:.3f} ms/frame; "
-          f"stages {json.dumps(stages)} [{smi}]", flush=True)
+        profiling.enable(False)
+    stages = {k: {"calls": v["calls"], "mean_ms": v["mean_ms"], "total_ms": v["total_s"] * 1e3}
+              for k, v in profiling.stats().items()}
+    print(f"pass: {len(frames)} frames, {wall / len(frames) * 1e3:.3f} ms/frame (stages "
+          f"synchronized); stages {json.dumps(stages)} [{smi}]", flush=True)
 
     (q_desc, q_valid, q_pos, q_map, db, poses, lcfg, n_maps), _ = kept["detect"]
     K = min(lcfg.max_candidates, db.num_slots, n_maps)

@@ -12,6 +12,7 @@ models/    stereo adaptor, landmark arena, frame-to-map tracker, loop
 io/        bundled KITTI reader with a zlib/numpy PNG decoder; the
            rendered room and trajectories.
 metrics/   ATE / RPE trajectory evaluation (numpy).
+utils/     profile_time scoped host timers.
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
 csrc/      the CUDA C++ sources, built for sm_90a at first use.

@@ -21,8 +21,6 @@ frame's record.  Settings that need them raise NotImplementedError.
 """
 from __future__ import annotations
 
-import contextlib
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
@@ -32,6 +30,7 @@ import torch
 
 from ..ops import pgo, se3
 from ..ops.pinhole import Camera
+from ..utils.profiling import profile_time
 from . import landmarks as lm
 from . import loop_closure
 from .tracker import TrackerConfig, TrackerState, _check_supported, initial_state, track_step
@@ -165,15 +164,15 @@ class GraphSLAM:
     ``process(meas_points, meas_desc, meas_valid, timestamp)`` per frame,
     with the adaptor's tensors on ``device``; read ``robot_in_world()``,
     ``trajectory()`` and ``status``.  ``device`` defaults to the card and
-    raises without one.  With ``time_stages`` the split-time stages
-    synchronize the device around themselves and record their host-clock
-    milliseconds in ``stage_ms`` (and, on CUDA, their peak allocated bytes
-    in ``stage_peak_bytes``).
+    raises without one.  The stages carry the JAX package's
+    ``profile_time`` scopes (utils/profiling.py): tracker_dispatch,
+    status_readback, split, db_insert, loop_detect, closure_decision (the
+    whole decision: agreement, backstop rounds and their PGO), pgo and
+    reloc.
     """
 
     def __init__(self, cam: Camera, config: GraphSLAMConfig = GraphSLAMConfig(),
-                 model: str = "stereo", device=torch.device("cuda"), mesh=None,
-                 time_stages: bool = False):
+                 model: str = "stereo", device=torch.device("cuda"), mesh=None):
         _check_graph_config(config, model, mesh)
         self.cam = cam
         self.config = config
@@ -203,25 +202,6 @@ class GraphSLAM:
         self.num_backstop_rejections = 0
         # (reference_map, query_map) of every accepted closure, in order
         self.closure_events: list = []
-        self.stage_ms = {} if time_stages else None
-        self.stage_peak_bytes: dict = {}
-
-    @contextlib.contextmanager
-    def _timed(self, name: str):
-        if self.stage_ms is None:
-            yield
-            return
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
-        t0 = time.perf_counter()
-        yield
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            self.stage_peak_bytes[name] = max(self.stage_peak_bytes.get(name, 0),
-                                              torch.cuda.max_memory_allocated(self.device))
-        self.stage_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
 
     # ------------------------------------------------------------------
     # local-map management
@@ -336,7 +316,8 @@ class GraphSLAM:
             for k in ks:
                 self._add_graph_edge(int(pkt[k, 0]), m.query_map,
                                      torch.as_tensor(Z_of(k), device=self.device))
-            self.graph, _ = pgo.optimize(self.graph, self.config.pgo)
+            with profile_time("pgo"):
+                self.graph, _ = pgo.optimize(self.graph, self.config.pgo)
 
         thr = self.config.loop.backstop_max_edge_residual
         tol = self.config.loop.backstop_agreement_tolerance
@@ -446,16 +427,18 @@ class GraphSLAM:
         if self.num_maps == 0:
             self._make_new_map(se3.identity(self.device))
             self.status = INITIALIZING
-        state, stats, _ = track_step(self.tracker_state, meas_points, meas_desc,
-                                     meas_valid, self.cam, self.config.tracker, self.model)
+        with profile_time("tracker_dispatch"):
+            state, stats, _ = track_step(self.tracker_state, meas_points, meas_desc,
+                                         meas_valid, self.cam, self.config.tracker,
+                                         self.model)
         self.tracker_state = state
         self.last_stats = stats
         marker = self._consume_frame(state, stats, timestamp)
         if marker is not None:
-            with self._timed("pgo_backstop"):
+            with profile_time("closure_decision"):
                 reloc = self._consume_marker(marker)
             if reloc is not None:
-                with self._timed("relocalize"):
+                with profile_time("reloc"):
                     self._relocalize(marker, *reloc)
         return stats
 
@@ -463,7 +446,8 @@ class GraphSLAM:
         """The status machine on the frame's packet (one host read); returns
         the split's closure marker, if any."""
         config = self.config
-        pkt = stats.host_packet.cpu().numpy()
+        with profile_time("status_readback"):
+            pkt = stats.host_packet.cpu().numpy()
         num_inliers, t_norm, angle = int(pkt[0]), float(pkt[1]), float(pkt[2])
         if self._frames_in_current_map == 0:
             # a fresh map's first frame only populates the arena
@@ -483,7 +467,8 @@ class GraphSLAM:
             # splitting criterion (viewpoint distance, kitti.conf:542-550)
             T_split = np.eye(4, dtype=np.float32)
             T_split[:3, :] = pkt[8:20].reshape(3, 4)
-            marker = self._handle_split(state, T_split, timestamp)
+            with profile_time("split"):
+                marker = self._handle_split(state, T_split, timestamp)
         else:
             T_rec[:3, :] = pkt[8:20].reshape(3, 4)
         self.frames.append(FrameRecord(timestamp, self.current_map, T_rec))
@@ -494,7 +479,7 @@ class GraphSLAM:
         pose, with the motion model reset (app_benchmark.cpp:163-169)."""
         self.num_losses += 1
         T_world_robot = self.graph.poses[self.current_map] @ state.T_lm_robot
-        with self._timed("db_insert"):
+        with profile_time("db_insert"):
             self._finalize_current_map()
         self._make_new_map(T_world_robot)
         self.tracker_state = self.tracker_state._replace(
@@ -506,11 +491,11 @@ class GraphSLAM:
         """Close the current local map, query the loop database, and open the
         next map (app_benchmark.cpp:136-161)."""
         T_world_robot = self.graph.poses[self.current_map] @ state.T_lm_robot
-        with self._timed("db_insert"):
+        with profile_time("db_insert"):
             self._finalize_current_map()
         marker = None
         if self.config.enable_loop_closing and self.num_maps >= 2:
-            with self._timed("query_validate"):
+            with profile_time("loop_detect"):
                 marker = self._loop_query(state, T_split, timestamp)
         self._make_new_map(T_world_robot)
         if marker is not None:

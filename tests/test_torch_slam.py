@@ -28,6 +28,7 @@ from srrg2_proslam_tpu.metrics import trajectory as jtm  # noqa: E402
 from srrg2_proslam_tpu.models import slam as js  # noqa: E402
 from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig as JLoopCfg  # noqa: E402
 from srrg2_proslam_tpu.ops import se3 as jse3  # noqa: E402
+from srrg2_proslam_tpu.utils import profiling as jprof  # noqa: E402
 
 from srrg2_proslam_tpu_torch.io import synthetic as tsyn  # noqa: E402
 from srrg2_proslam_tpu_torch.io.datasets import kitti_camera  # noqa: E402
@@ -35,6 +36,7 @@ from srrg2_proslam_tpu_torch.metrics import trajectory as ttm  # noqa: E402
 from srrg2_proslam_tpu_torch.models import slam as ts  # noqa: E402
 from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # noqa: E402
 from srrg2_proslam_tpu_torch.ops import se3 as tse3  # noqa: E402
+from srrg2_proslam_tpu_torch.utils import profiling as tprof  # noqa: E402
 
 CAM = kitti_camera(rows=400, cols=600)._replace(fx=450.0, fy=450.0, cx=300.0, cy=200.0,
                                                 baseline_px=450.0 * 0.5)
@@ -101,27 +103,37 @@ def _config(mod, loop_cls, kw):
     return mod.GraphSLAMConfig(**kw)
 
 
-def _summary(slam, per_frame):
+def _summary(slam, per_frame, prof):
     return dict(per_frame=per_frame, counters={k: getattr(slam, k) for k in COUNTERS},
                 events=list(slam.closure_events), trajectory=slam.trajectory(),
-                robot=slam.robot_in_world())
+                robot=slam.robot_in_world(),
+                scopes={k: v["calls"] for k, v in prof.stats().items()})
 
 
 @pytest.fixture(scope="module")
 def runs():
-    """Every scenario once through each package."""
+    """Every scenario once through each package, with both packages'
+    profile_time scopes on."""
     out = {}
     for name in ("lost", "closure", "relocalize"):
         frames, kw = _scenario(name)
         j = js.GraphSLAM(CAM, _config(js, JLoopCfg, kw))
         t = ts.GraphSLAM(CAM, _config(ts, LoopDetectorConfig, kw), device="cpu")
         j_rows, t_rows = [], []
-        for p, d, ok, stamp in frames:
-            j.process(jnp.asarray(p), jnp.asarray(d), jnp.asarray(ok), stamp)
-            j_rows.append((j.status, j.current_map))
-            t.process(torch.from_numpy(p), torch.from_numpy(d), torch.from_numpy(ok), stamp)
-            t_rows.append((t.status, t.current_map))
-        out[name] = (_summary(j, j_rows), _summary(t, t_rows))
+        for prof in (jprof, tprof):
+            prof.reset()
+            prof.enable(True)
+        try:
+            for p, d, ok, stamp in frames:
+                j.process(jnp.asarray(p), jnp.asarray(d), jnp.asarray(ok), stamp)
+                j_rows.append((j.status, j.current_map))
+                t.process(torch.from_numpy(p), torch.from_numpy(d), torch.from_numpy(ok),
+                          stamp)
+                t_rows.append((t.status, t.current_map))
+        finally:
+            for prof in (jprof, tprof):
+                prof.enable(False)
+        out[name] = (_summary(j, j_rows, jprof), _summary(t, t_rows, tprof))
     return out
 
 
@@ -157,6 +169,18 @@ def test_trajectory_matches_jax(runs, name):
     d_t, d_ang = tse3.error_t_and_angle(A, B)
     assert float(d_t.max()) <= POSE_TOL and float(d_ang.max()) <= POSE_TOL
     np.testing.assert_allclose(t["robot"], j["robot"], atol=POSE_TOL)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_profile_scopes_match_jax(runs, name):
+    """The port's profile_time scopes carry the JAX package's names and are
+    entered as often; ``reloc`` counts the relocalisations."""
+    j, t = runs[name]
+    assert t["scopes"]["tracker_dispatch"] == len(t["per_frame"])
+    assert {k: t["scopes"].get(k, 0) for k in j["scopes"]} == j["scopes"]
+    assert t["scopes"].get("reloc", 0) == t["counters"]["num_relocalizations"]
+    if name != "lost":
+        assert t["scopes"]["loop_detect"] >= 1 and t["scopes"]["pgo"] >= 1
 
 
 def _chain(slam, n, device_of):
