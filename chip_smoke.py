@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port: stereo VO on full-size KITTI
-frames, then per-frame GraphSLAM over a rendered closed loop.
+frames, per-frame GraphSLAM over a rendered closed loop, then RGB-D
+GraphSLAM (ICL and the loop as RGB-D, with local BA) and the other
+landmark estimators and the motion prior on KITTI.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -39,7 +41,23 @@ Phases, any failure exits non-zero:
      utils/profiling.profile_time with synchronized scopes, the stage
      times and the loop query's peak memory; then the last split's query
      rows run against a database of the default size (64 slots x 1024)
-     seeded with noisy copies of them, dense and tiled.
+     seeded with noisy copies of them, dense and tiled;
+  6. RGB-D and the estimators: FAST and BRIEF bit-exact at ICL frame 0
+     [1, 480, 640] (and timed there); ICL frames 0 and 1 through
+     adapt_rgbd -> GraphSLAM(model="rgbd") at the default config within
+     5e-3 m per axis and 0.01 rad of the fixture's camera_01_in_00; the
+     loop of phase 5 as RGB-D (the left view and its depth in millimetres)
+     through adapt_rgbd -> GraphSLAM(model="rgbd") at phase 5's config
+     with local BA on: phase 5's gates, launches FAST n, BRIEF n, GN 0 (the
+     depth factor has no kernel, as in the JAX package), FAST and BRIEF
+     bit-exact on the first frame, the port's CPU run equal frame for frame
+     (a prefix past RGBD_CPU_BUDGET_S), RGB-D ms/frame from a second pass;
+     then the 5 KITTI frames with the weighted-mean estimator, the
+     smoother, and the EKF with the motion prior at euroc_slam.json's
+     1.0 / 4.0: the VO gate, the CPU run's counts and final pose, launches
+     FAST 5 / BRIEF 5 / GN 15 (GN 0 with the prior: its GN has no kernel,
+     as in the JAX package) and every GN burst within GN_ATOL of its plain
+     burst.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -64,6 +82,8 @@ E2E_T_RMSE, E2E_ROT_DEG, E2E_ATE = 0.30, 3.0, 0.5
 SLAM_POSE_TOL_M = 1e-3       # every frame's pose, GPU vs CPU GraphSLAM run
 SLAM_POSE_TOL_RAD = 1e-3
 CPU_BUDGET_S = 240.0         # the CPU reference stops after this once >= 3 splits ran
+RGBD_CPU_BUDGET_S = 60.0     # likewise for the RGB-D loop's CPU reference
+ICL_GATE_T, ICL_GATE_ANGLE = 5e-3, 0.01   # tests/test_rgbd_integration.py:73-74
 
 
 def fail(msg: str):
@@ -193,15 +213,13 @@ def fast_bound(images, threshold: float) -> dict:
             "candidate_share": candidates / pixels}
 
 
-def frontend_inputs(left, right, ext) -> dict:
-    """K3's and K1's inputs as adapt_stereo forms them for one pair: the
-    stacked images, the box-filtered images and the keypoints."""
-    import torch
-
+def frontend_inputs(images, ext) -> dict:
+    """K3's and K1's inputs as the adaptors form them for a batch of images
+    (a stereo pair [2, H, W], an RGB-D intensity [1, H, W]): the images,
+    the box-filtered images and the keypoints."""
     from srrg2_proslam_tpu_torch.ops.features import (
         _boxfilter, _keypoint_rows_cols, detect_keypoints_batch)
 
-    images = torch.stack([left, right])
     uv, _, valid = detect_keypoints_batch(images, ext)
     y, x = _keypoint_rows_cols(uv, images.shape[1], images.shape[2])
     smooth = _boxfilter(images, ext.smoothing_window)
@@ -217,7 +235,7 @@ def main_path_inputs(frames_gpu, cam, adapt_cfg, track_cfg):
     from srrg2_proslam_tpu_torch.models.tracker import associate, initial_state, track_step
     from srrg2_proslam_tpu_torch.ops import se3
 
-    inp = frontend_inputs(*frames_gpu[0], adapt_cfg.extractor)
+    inp = frontend_inputs(torch.stack(frames_gpu[0]), adapt_cfg.extractor)
     state = initial_state(capacity=4096)
     meas0 = adapt_stereo(*frames_gpu[0], adapt_cfg)
     state, _, _ = track_step(state, meas0.points, meas0.desc, meas0.valid, cam,
@@ -258,6 +276,14 @@ def check_kernels(inp, cam, threshold: float, tag: str):
     frontend inputs and one burst's (as ``main_path_inputs`` forms them;
     K3 and K1 bit-exact, K2 within GN_ATOL); fail on a mismatch.  Returns ({kernel: max_abs_err}, (active GN rows,
     GN iterations the plain burst ran))."""
+    errs = check_frontend(inp, threshold, tag)
+    errs["gn_burst"], active, iterations = check_gn(inp["gn_args"], inp["gn_kw"], cam, tag)
+    return errs, (active, iterations)
+
+
+def check_frontend(inp, threshold: float, tag: str) -> dict:
+    """K3 and K1 against their plain versions, bit for bit, on frontend
+    inputs (``frontend_inputs``); returns {kernel: max_abs_err}."""
     import torch
 
     from srrg2_proslam_tpu_torch.kernels.brief import (
@@ -265,7 +291,6 @@ def check_kernels(inp, cam, threshold: float, tag: str):
         descriptors_from_planes)
 
     errs = {"fast": check_fast(inp["images"], threshold, tag)}
-
     smooth, y, x, valid = (inp[key] for key in ("smooth", "y", "x", "valid"))
     k = brief_descriptors(smooth, y, x, valid)
     p = brief_descriptors_plain(smooth, y, x, valid)
@@ -280,9 +305,24 @@ def check_kernels(inp, cam, threshold: float, tag: str):
     if err != 0.0 or not torch.equal(k, dense.to(torch.int8)):
         fail(f"BRIEF kernel disagrees with its plain version on {tag}")
     errs["brief"] = err
+    return errs
 
-    errs["gn_burst"], active, iterations = check_gn(inp["gn_args"], inp["gn_kw"], cam, tag)
-    return errs, (active, iterations)
+
+def brief_bound(smooth, y, x, valid):
+    """K1's (bound_ms, bound_by) at these keypoints: bytes are each distinct
+    sampled pixel of the valid keypoints once, the keypoints (y, x int64,
+    valid) and the int8 output; operations 256 comparisons per valid
+    keypoint."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.ops.features import _BRIEF_PAIRS
+
+    B, H, W = smooth.shape
+    pairs = torch.as_tensor(_BRIEF_PAIRS, device=smooth.device).long().reshape(512, 2)
+    bidx = torch.arange(B, device=smooth.device)[:, None, None]
+    lin = (bidx * H + y[..., None] + pairs[:, 0]) * W + x[..., None] + pairs[:, 1]
+    samples = int(torch.unique(lin[valid]).numel())
+    return bound(samples * 4 + y.numel() * 17 + y.numel() * 256, int(valid.sum()) * 256)
 
 
 def check_gn(args, gn_kw, cam, tag: str, quiet: bool = False):
@@ -321,12 +361,10 @@ def check_gn(args, gn_kw, cam, tag: str, quiet: bool = False):
 
 def run_vo(frames, cam, device, adapt_cfg, track_cfg):
     """The port's main path over the frames; returns (per-frame stats, poses)."""
-    import torch
-
     from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
     from srrg2_proslam_tpu_torch.models.tracker import initial_state, track_step
 
-    state = initial_state(capacity=4096, device=device)
+    state = initial_state(4096, track_cfg.landmark_estimator, device=device)
     rows, poses = [], []
     for left, right in frames:
         meas = adapt_stereo(left, right, adapt_cfg)
@@ -342,32 +380,39 @@ def run_vo(frames, cam, device, adapt_cfg, track_cfg):
     return rows, poses
 
 
-def slam_config():
-    """tests/test_rendered_e2e.py's GraphSLAM config; the rest at defaults."""
+def slam_config(local_ba: bool = False):
+    """tests/test_rendered_e2e.py's GraphSLAM config (with local BA on if
+    asked); the rest at defaults."""
     from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
-    from srrg2_proslam_tpu_torch.models.slam import GraphSLAMConfig, SplittingConfig
+    from srrg2_proslam_tpu_torch.models.slam import (
+        GraphSLAMConfig, LocalBAConfig, SplittingConfig)
 
     return GraphSLAMConfig(
         splitting=SplittingConfig(maximum_translation_m=4.0, maximum_rotation_rad=0.35),
         loop=LoopDetectorConfig(minimum_age_difference=3),
+        local_ba=LocalBAConfig(enabled=local_ba),
         arena_capacity=4096, database_capacity=8192, max_db_descriptors_per_map=384)
 
 
-def run_slam(frames, cam, device, adapt_cfg, budget_s=None, min_maps=0):
-    """adapt_stereo -> GraphSLAM.process over (left, right) pairs on
-    ``device``; returns (slam, per-frame (status, map) rows).  With
-    ``budget_s`` the run stops at the first frame past the budget once the
-    graph holds ``min_maps`` maps."""
+def run_slam(frames, cam, device, adapt_cfg, budget_s=None, min_maps=0,
+             model="stereo", config=None):
+    """adapt -> GraphSLAM.process over image pairs on ``device``: (left,
+    right) through adapt_stereo, or with ``model="rgbd"`` (intensity, raw
+    depth) through adapt_rgbd; ``config`` defaults to ``slam_config()``.
+    Returns (slam, per-frame (status, map) rows).  With ``budget_s`` the
+    run stops at the first frame past the budget once the graph holds
+    ``min_maps`` maps."""
     import torch
 
-    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_rgbd, adapt_stereo
     from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
 
-    slam = GraphSLAM(cam, slam_config(), device=device)
+    adapt = adapt_stereo if model == "stereo" else adapt_rgbd
+    slam = GraphSLAM(cam, config or slam_config(), model=model, device=device)
     rows = []
     t0 = time.perf_counter()
-    for (left, right), stamp in frames:
-        meas = adapt_stereo(left, right, adapt_cfg)
+    for (a, b), stamp in frames:
+        meas = adapt(a, b, adapt_cfg)
         slam.process(meas.points, meas.desc, meas.valid, stamp)
         rows.append((slam.status, slam.current_map))
         if (budget_s is not None and time.perf_counter() - t0 > budget_s
@@ -438,8 +483,244 @@ def query_memory(dev, smi, q_desc, q_valid):
         fail(f"loop query at the default size missed the seeded slots {seeded}")
 
 
-def main():
+def icl_fixture_pose():
+    """camera_01 in camera_00 from the fixture's GT poses (fixtures.hpp:
+    597-608, as tests/test_rgbd_integration.py:30-37 builds them)."""
     import numpy as np
+
+    from srrg2_proslam_tpu_torch.io.quaternions import quaternion_to_rotation
+
+    def pose(t, q_wxyz):
+        T = np.eye(4)
+        w, x, y, z = q_wxyz
+        T[:3, :3] = quaternion_to_rotation(np.array([x, y, z, w]))
+        T[:3, 3] = t
+        return T
+
+    T_w_c0 = pose([0.0, 0.0, -2.25], [1.0, 0.0, 0.0, 0.0])
+    T_w_c1 = pose([0.000466347, 0.00895357, -2.24935],
+                  [0.999999, -0.00101358, 0.00052453, -0.000231475])
+    return (np.linalg.inv(T_w_c0) @ T_w_c1).astype(np.float32)
+
+
+def loop_gate(slam, gt, tag: str, smi: str):
+    """tests/test_rendered_e2e.py's gates on a GraphSLAM run of the loop."""
+    from srrg2_proslam_tpu_torch.metrics import trajectory
+
+    err = trajectory.evaluate(slam.trajectory(), gt)
+    rmse = err.mean_translation_rmse
+    gate = (len(gt) >= E2E_MIN_FRAMES and slam.num_maps >= E2E_MIN_MAPS
+            and slam.num_closures >= 1 and slam.num_relocalizations >= 1
+            and bool((rmse <= E2E_T_RMSE).all()) and err.mean_rotation_deg <= E2E_ROT_DEG
+            and err.ate_rmse <= E2E_ATE)
+    print(f"{tag} gate: t-RMSE per axis {rmse.round(4)} (<= {E2E_T_RMSE}), rotation "
+          f"{err.mean_rotation_deg:.4f} deg (<= {E2E_ROT_DEG}), ATE {err.ate_rmse:.4f} m "
+          f"(<= {E2E_ATE}), maps {slam.num_maps}, closures {slam.num_closures}, "
+          f"relocalisations {slam.num_relocalizations} -> {'PASS' if gate else 'FAIL'} "
+          f"[{smi}]", flush=True)
+    if not gate:
+        fail(f"the {tag} gate failed")
+
+
+def compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, tag: str, smi: str):
+    """The GPU and CPU GraphSLAM runs over the same frames: per-frame status
+    and map, counts and closure events equal, every pose within
+    SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD; fail otherwise."""
+    import numpy as np
+    import torch
+
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    if cpu_rows != ref_rows:
+        diff = next(i for i, (a, b) in enumerate(zip(ref_rows, cpu_rows)) if a != b)
+        fail(f"{tag}: GPU and CPU GraphSLAM runs part at frame {diff}: {ref_rows[diff]} vs "
+             f"{cpu_rows[diff]}")
+    if (slam_counts(ref_slam) != slam_counts(cpu_slam)
+            or ref_slam.closure_events != cpu_slam.closure_events):
+        fail(f"{tag}: GPU and CPU GraphSLAM runs disagree: {slam_counts(ref_slam)} "
+             f"{ref_slam.closure_events} vs {slam_counts(cpu_slam)} {cpu_slam.closure_events}")
+    dt, dang = se3.error_t_and_angle(torch.from_numpy(np.stack(ref_slam.trajectory())),
+                                     torch.from_numpy(np.stack(cpu_slam.trajectory())))
+    worst_t = dt.max(dim=1).values
+    print(f"{tag}, GPU vs CPU GraphSLAM over {len(cpu_rows)} frames: per-frame status and map "
+          f"equal, counts and closure events equal; trajectory frame for frame: max |dt| "
+          f"{float(worst_t.max()):.3e} m (frame {int(worst_t.argmax())}), max angle "
+          f"{float(dang.max()):.3e} rad (frame {int(dang.argmax())}), final |dt| "
+          f"{dt[-1].numpy()} (tolerance {SLAM_POSE_TOL_M} m, {SLAM_POSE_TOL_RAD} rad per "
+          f"frame) [{smi}]", flush=True)
+    if not (float(worst_t.max()) <= SLAM_POSE_TOL_M
+            and float(dang.max()) <= SLAM_POSE_TOL_RAD):
+        fail(f"{tag}: GPU and CPU GraphSLAM trajectories disagree")
+
+
+def phase_rgbd(dev, smi, report, thr):
+    """Phase 6, RGB-D: ICL and the rendered loop through
+    adapt_rgbd -> GraphSLAM(model="rgbd"); returns the loop's launches."""
+    import numpy as np
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import datasets, synthetic
+    from srrg2_proslam_tpu_torch.kernels.brief import brief_descriptors, brief_descriptors_plain
+    from srrg2_proslam_tpu_torch.kernels.fast import fast_scores_kernel, fast_scores_plain
+    from srrg2_proslam_tpu_torch.models.frontend import DepthAdaptorConfig
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAMConfig
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    dcfg = DepthAdaptorConfig()
+    icl = list(datasets.iter_bundled_icl(os.path.join(ROOT, "test_data")))[:2]
+    icam = datasets.icl_camera()
+    icl_gpu = [((torch.from_numpy(f.intensity).to(dev), torch.from_numpy(f.depth).to(dev)),
+                f.timestamp) for f in icl]
+    inp = frontend_inputs(icl_gpu[0][0][0][None], dcfg.extractor)
+    errs = check_frontend(inp, thr, "ICL frame 0")
+    images, smooth, y, x, valid = (inp[k] for k in ("images", "smooth", "y", "x", "valid"))
+    fb = fast_bound(images, thr)
+    timed = {
+        "fast": (lambda: fast_scores_kernel(images, thr), "fast_scores_kernel",
+                 lambda: fast_scores_plain(images, thr), (fb["bound_ms"], fb["bound_by"])),
+        "brief": (lambda: brief_descriptors(smooth, y, x, valid), "brief_descriptors_kernel",
+                  lambda: brief_descriptors_plain(smooth, y, x, valid),
+                  brief_bound(smooth, y, x, valid))}
+    for kname, (fn, kernel, plain, (b_ms, b_by)) in timed.items():
+        r = report[kname]
+        r["ms_rgbd"] = device_ms(fn, kernel=kernel)
+        r["plain_ms_rgbd"] = device_ms(plain)
+        r["bound_ms_rgbd"], r["bound_by_rgbd"] = b_ms, b_by
+        r["max_abs_err"] = max(r["max_abs_err"], errs[kname])
+        print(f"  {kname} at ICL frame 0 {tuple(images.shape)} ({int(valid.sum())} valid "
+              f"keypoints): device {r['ms_rgbd']:.5f} ms/call, plain {r['plain_ms_rgbd']:.5f} "
+              f"ms, bound {b_ms:.6f} ms ({b_by}) [{smi}]", flush=True)
+
+    kernels.reset_launch_counts()
+    slam, _ = run_slam(icl_gpu, icam, dev, dcfg, model="rgbd", config=GraphSLAMConfig())
+    counts = kernels.launch_counts()
+    stats = slam.last_stats
+    t_err, angle = se3.error_t_and_angle(
+        torch.from_numpy(slam.robot_in_world().astype(np.float32)),
+        torch.from_numpy(icl_fixture_pose()))
+    gate = bool((t_err <= ICL_GATE_T).all()) and float(angle) <= ICL_GATE_ANGLE
+    print(f"ICL frames 0 -> 1, GraphSLAM(model=\"rgbd\"): meas {int(stats.num_measurements)} "
+          f"inliers {int(stats.num_inliers)} status {slam.status}; |t err| "
+          f"{t_err.numpy().round(5)} m angle {float(angle):.5f} rad vs the fixture "
+          f"(<= {ICL_GATE_T} m, {ICL_GATE_ANGLE} rad) -> {'PASS' if gate else 'FAIL'}; "
+          f"launches {counts} [{smi}]", flush=True)
+    if not gate or counts != {"fast": 2, "brief": 2, "gn_burst": 0}:
+        fail(f"ICL RGB-D: gate {gate}, launches {counts} != fast 2, brief 2, gn_burst 0")
+
+    scam = synthetic.synthetic_camera()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = list(synthetic.iter_rendered_loop_rgbd(side_a=10.0, side_b=6.0, step_m=0.4,
+                                                  turn_frames=10, device=dev))
+    torch.cuda.synchronize()
+    n = len(loop)
+    print(f"rendered loop as RGB-D: {n} frames {tuple(loop[0].intensity.shape)} on the card "
+          f"in {time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
+    frames = [((f.intensity, f.depth), f.timestamp) for f in loop]
+    config = slam_config(local_ba=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, rows = run_slam(frames, scam, dev, dcfg, model="rgbd", config=config)
+    first_pass = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"RGB-D GraphSLAM with local BA: {n} frames, {slam_counts(slam)}, closure events "
+          f"{slam.closure_events}; launches {counts} [{smi}]", flush=True)
+    if counts != {"fast": n, "brief": n, "gn_burst": 0}:
+        fail(f"RGB-D launch counts {counts} != fast {n}, brief {n}, gn_burst 0")
+    loop_gate(slam, [f.gt_pose for f in loop], "RGB-D rendered-loop", smi)
+    errs = check_frontend(frontend_inputs(frames[0][0][0][None], dcfg.extractor), thr,
+                          "rendered loop as RGB-D, frame 0")
+    for kname, e in errs.items():
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], e)
+
+    cpu_frames = [((f.intensity.cpu(), f.depth.cpu()), f.timestamp) for f in loop]
+    t0 = time.perf_counter()
+    cpu_slam, cpu_rows = run_slam(cpu_frames, scam, "cpu", dcfg, budget_s=RGBD_CPU_BUDGET_S,
+                                  min_maps=4, model="rgbd", config=config)
+    m = len(cpu_rows)
+    if m < n:
+        print(f"RGB-D CPU run stopped after {m} of {n} frames ({time.perf_counter() - t0:.1f} "
+              f"s, {cpu_slam.num_maps} maps): comparing that prefix with a GPU run of it "
+              f"[{smi}]", flush=True)
+        ref_slam, ref_rows = run_slam(frames[:m], scam, dev, dcfg, model="rgbd", config=config)
+    else:
+        print(f"RGB-D CPU run over all {n} frames: {time.perf_counter() - t0:.1f} s [{smi}]",
+              flush=True)
+        ref_slam, ref_rows = slam, rows
+    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, "RGB-D loop", smi)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam2, _ = run_slam(frames, scam, dev, dcfg, model="rgbd", config=config)
+    steady = (time.perf_counter() - t0) / n * 1e3
+    print(f"RGB-D ms/frame: {steady:.3f} (second pass, adapt_rgbd + process with local BA, "
+          f"{slam2.num_maps} maps, no stage timing), first pass {first_pass / n * 1e3:.3f} "
+          f"[{smi}]", flush=True)
+    return counts
+
+
+def phase_estimators(dev, smi, report, frames_np, frames_gpu, cam, adapt_cfg):
+    """Phase 6, estimators: the 5 KITTI frames with the weighted mean, the
+    smoother and the EKF with the motion prior; every GN burst against its
+    plain burst."""
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    gt = torch.from_numpy(frames_np[-1].gt_pose)
+    cpu_frames = [(torch.from_numpy(f.left), torch.from_numpy(f.right)) for f in frames_np]
+    real_burst = kernels.gn.gn_burst_stereo
+    gn_errs = []
+    for tag, cfg, gn_launches in (
+            ("weighted_mean", TrackerConfig(landmark_estimator="weighted_mean"), 15),
+            ("smoother", TrackerConfig(landmark_estimator="smoother"), 15),
+            ("motion prior 1.0/4.0", TrackerConfig(motion_prior_translation_info=1.0,
+                                                   motion_prior_rotation_info=4.0), 0)):
+        bursts = []
+
+        def capture_burst(*args, **kw):
+            bursts.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+            return real_burst(*args, **kw)
+
+        kernels.reset_launch_counts()
+        kernels.gn.gn_burst_stereo = capture_burst
+        try:
+            rows, poses = run_vo(frames_gpu, cam, dev, adapt_cfg, cfg)
+        finally:
+            kernels.gn.gn_burst_stereo = real_burst
+        counts = kernels.launch_counts()
+        t_err, angle = se3.error_t_and_angle(poses[-1], gt)
+        gate = bool((t_err <= torch.tensor(GATE_T)).all()) and float(angle) <= GATE_ANGLE
+        cpu_rows, cpu_poses = run_vo(cpu_frames, cam, "cpu", adapt_cfg, cfg)
+        dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
+        errs = [check_gn(args, kw, cam, f"{tag} burst {i}", quiet=True)[0]
+                for i, (args, kw) in enumerate(bursts)]
+        gn_errs += errs
+        print(f"KITTI VO, {tag}: matches {[r['matches'] for r in rows]} inliers "
+              f"{[r['inliers'] for r in rows]} merges {[r['merges'] for r in rows]}; |t err| "
+              f"{t_err.numpy().round(4)} angle {float(angle):.5f} -> "
+              f"{'PASS' if gate else 'FAIL'}; GPU vs CPU final |dt| {dt.numpy()} angle "
+              f"{float(dang):.3e}; launches {counts}; {len(bursts)} GN bursts within "
+              f"{max(errs, default=0.0):.3e} of their plain bursts [{smi}]", flush=True)
+        if not gate:
+            fail(f"the 5-frame KITTI gate failed with {tag}")
+        if counts != {"fast": 5, "brief": 5, "gn_burst": gn_launches}:
+            fail(f"{tag}: launch counts {counts} != fast 5, brief 5, gn_burst {gn_launches}")
+        for i, (g, c) in enumerate(zip(rows, cpu_rows)):
+            for key in ("meas", "matches", "inliers", "merges", "adds"):
+                if abs(g[key] - c[key]) > COUNT_TOL:
+                    fail(f"{tag} frame {i} {key}: GPU {g[key]} vs CPU {c[key]} "
+                         f"(tolerance {COUNT_TOL})")
+        if not (float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
+            fail(f"{tag}: GPU and CPU final poses disagree")
+    report["gn_burst"]["max_abs_err_estimators"] = max(gn_errs)
+    report["gn_burst"]["max_abs_err"] = max(report["gn_burst"]["max_abs_err"], max(gn_errs))
+
+
+def main():
     import torch
 
     if not torch.cuda.is_available():
@@ -453,7 +734,6 @@ def main():
     from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig, adapt_stereo
     from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig, initial_state, track_step
     from srrg2_proslam_tpu_torch.ops import se3
-    from srrg2_proslam_tpu_torch.ops.features import _BRIEF_PAIRS
 
     # ---- 1. the card -------------------------------------------------------
     smi = subprocess.run(
@@ -511,22 +791,13 @@ def main():
               f"SM-clocks/s) [{smi}]", flush=True)
 
     smooth, y, x, valid = (inp[key] for key in ("smooth", "y", "x", "valid"))
-    # bytes: each distinct sampled pixel of the valid keypoints once, the
-    # keypoints (y, x int64, valid), the int8 output; ops: 256 comparisons
-    B, H, W = smooth.shape
-    pairs = torch.as_tensor(_BRIEF_PAIRS, device=dev).long().reshape(512, 2)
-    bidx = torch.arange(B, device=dev)[:, None, None]
-    lin = (bidx * H + y[..., None] + pairs[:, 0]) * W + x[..., None] + pairs[:, 1]
-    samples = int(torch.unique(lin[valid]).numel())
     report["brief"] = {
         "max_abs_err": errs["brief"],
         "ms": device_ms(lambda: brief_descriptors(smooth, y, x, valid),
                         kernel="brief_descriptors_kernel"),
         "plain_ms": device_ms(lambda: brief_descriptors_plain(smooth, y, x, valid)),
         "event_ms": cuda_ms(lambda: brief_descriptors(smooth, y, x, valid)),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(samples * 4 + y.numel() * 17 + y.numel() * 256,
-                         int(valid.sum()) * 256)))}
+        **dict(zip(("bound_ms", "bound_by"), brief_bound(smooth, y, x, valid)))}
 
     args, gn_kw = inp["gn_args"], inp["gn_kw"]
     pts = args[1]
@@ -603,7 +874,6 @@ def main():
 
     # ---- 5. GraphSLAM over the rendered closed loop ------------------------
     from srrg2_proslam_tpu_torch.io import synthetic
-    from srrg2_proslam_tpu_torch.metrics import trajectory
     from srrg2_proslam_tpu_torch.models import loop_closure
     from srrg2_proslam_tpu_torch.utils import profiling
 
@@ -640,19 +910,7 @@ def main():
           f"{slam.closure_events}; launches {counts} [{smi}]", flush=True)
     if counts != {"fast": n, "brief": n, "gn_burst": 3 * n}:
         fail(f"GraphSLAM launch counts {counts} != fast {n}, brief {n}, gn_burst {3 * n}")
-    gt = [f.gt_pose for f in loop]
-    err = trajectory.evaluate(slam.trajectory(), gt)
-    rmse = err.mean_translation_rmse
-    gate = (n >= E2E_MIN_FRAMES and slam.num_maps >= E2E_MIN_MAPS and slam.num_closures >= 1
-            and slam.num_relocalizations >= 1 and bool((rmse <= E2E_T_RMSE).all())
-            and err.mean_rotation_deg <= E2E_ROT_DEG and err.ate_rmse <= E2E_ATE)
-    print(f"rendered-loop gate: t-RMSE per axis {rmse.round(4)} (<= {E2E_T_RMSE}), rotation "
-          f"{err.mean_rotation_deg:.4f} deg (<= {E2E_ROT_DEG}), ATE {err.ate_rmse:.4f} m "
-          f"(<= {E2E_ATE}), maps {slam.num_maps}, closures {slam.num_closures}, "
-          f"relocalisations {slam.num_relocalizations} -> {'PASS' if gate else 'FAIL'} "
-          f"[{smi}]", flush=True)
-    if not gate:
-        fail("the rendered-loop gate failed")
+    loop_gate(slam, [f.gt_pose for f in loop], "rendered-loop", smi)
 
     # the kernels at this path's inputs: K3 and K1 on the first rendered
     # pair, K2 on every burst of the run (the busiest one printed)
@@ -660,7 +918,7 @@ def main():
         fail(f"captured {len(bursts)} GN bursts, not {3 * n}")
     active = [int(args[4].sum()) for args, _ in bursts]
     busiest = max(range(len(bursts)), key=active.__getitem__)
-    loop_inp = frontend_inputs(*gpu_frames[0][0], adapt_cfg.extractor)
+    loop_inp = frontend_inputs(torch.stack(gpu_frames[0][0]), adapt_cfg.extractor)
     loop_inp["gn_args"], loop_inp["gn_kw"] = bursts[busiest]
     loop_errs, _ = check_kernels(
         loop_inp, scam, thr, f"rendered loop (pair 0; GN burst {busiest % 3} of frame "
@@ -690,26 +948,7 @@ def main():
         print(f"CPU run (plain versions) over all {n} frames: {cpu_s:.1f} s [{smi}]",
               flush=True)
         ref_slam, ref_rows = slam, rows
-    if cpu_rows != ref_rows:
-        diff = next(i for i, (a, b) in enumerate(zip(ref_rows, cpu_rows)) if a != b)
-        fail(f"GPU and CPU GraphSLAM runs part at frame {diff}: {ref_rows[diff]} vs "
-             f"{cpu_rows[diff]}")
-    if (slam_counts(ref_slam) != slam_counts(cpu_slam)
-            or ref_slam.closure_events != cpu_slam.closure_events):
-        fail(f"GPU and CPU GraphSLAM runs disagree: {slam_counts(ref_slam)} "
-             f"{ref_slam.closure_events} vs {slam_counts(cpu_slam)} {cpu_slam.closure_events}")
-    dt, dang = se3.error_t_and_angle(torch.from_numpy(np.stack(ref_slam.trajectory())),
-                                     torch.from_numpy(np.stack(cpu_slam.trajectory())))
-    worst_t, worst_a = dt.max(dim=1).values, dang
-    print(f"GPU vs CPU GraphSLAM over {m} frames: per-frame status and map equal, counts and "
-          f"closure events equal; trajectory frame for frame: max |dt| "
-          f"{float(worst_t.max()):.3e} m (frame {int(worst_t.argmax())}), max angle "
-          f"{float(worst_a.max()):.3e} rad (frame {int(worst_a.argmax())}), final |dt| "
-          f"{dt[-1].numpy()} (tolerance {SLAM_POSE_TOL_M} m, {SLAM_POSE_TOL_RAD} rad per "
-          f"frame) [{smi}]", flush=True)
-    if not (float(worst_t.max()) <= SLAM_POSE_TOL_M
-            and float(worst_a.max()) <= SLAM_POSE_TOL_RAD):
-        fail("GPU and CPU GraphSLAM trajectories disagree")
+    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, "rendered loop", smi)
 
     # the second pass, timing off: GraphSLAM ms/frame
     torch.cuda.synchronize()
@@ -751,6 +990,12 @@ def main():
           f"slots x {slam.db.budget}) [{smi}]", flush=True)
     query_memory(dev, smi, last_query["desc"], last_query["valid"])
 
+    # ---- 6. RGB-D GraphSLAM, the estimators and the motion prior -----------
+    t6 = time.perf_counter()
+    rgbd_counts = phase_rgbd(dev, smi, report, thr)
+    phase_estimators(dev, smi, report, frames_np, frames_gpu, cam, adapt_cfg)
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s [{smi}]", flush=True)
+
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
                "brief": ("srrg2_proslam_tpu_torch/csrc/brief.cu",
@@ -761,6 +1006,7 @@ def main():
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[kname], "launches_per_frame": counts[kname] / n,
          "launches_vo": vo_counts[kname], "launches_vo_per_frame": vo_counts[kname] / len(frames_gpu),
+         "launches_rgbd": rgbd_counts[kname],
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

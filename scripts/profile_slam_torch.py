@@ -3,19 +3,23 @@
 
 Usage (one CUDA card; builds the kernels from csrc/ on first use):
 
-    python3 scripts/profile_slam_torch.py [--out DIR]
+    python3 scripts/profile_slam_torch.py [--rgbd] [--out DIR]
 
 Renders the closed loop of tests/test_rendered_e2e.py on the card (145
 frames, 480x640) and runs adapt_stereo -> GraphSLAM.process over it with
-chip_smoke.py's config, twice; the second pass records the stages under
+chip_smoke.py's config (with --rgbd: the loop as RGB-D through
+adapt_rgbd -> GraphSLAM(model="rgbd") with local BA on, chip_smoke.py
+phase 6), twice; the second pass records the stages under
 ``utils/profiling.profile_time`` (each scope synchronizes) and keeps the
-inputs of the last loop query and of the first PGO.  Then, each under
-torch.profiler after a warm-up call, it replays:
+inputs of the last loop query, of the first PGO and (--rgbd) of the first
+local BA.  Then, each under torch.profiler after a warm-up call, it
+replays:
 
   * ``loop_closure.detect_and_validate`` on that query's inputs, and its
     two halves: ``query`` and ``validate_batch``;
   * ``pgo.optimize`` on that graph;
-  * one ``track_step`` of a steady frame, for scale;
+  * (--rgbd) ``ba.optimize`` on that BA problem;
+  * one ``track_step`` of a steady frame;
 
 and prints for each: host ms per call (CUDA events), device ms (sum of
 device op durations), CUDA runtime calls (launches, copies, synchronizes)
@@ -78,12 +82,15 @@ def main():
     from chip_smoke import run_slam, slam_config
     from srrg2_proslam_tpu_torch.io import synthetic
     from srrg2_proslam_tpu_torch.models import loop_closure, slam as slam_mod
-    from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig, adapt_stereo
+    from srrg2_proslam_tpu_torch.models.frontend import (
+        DepthAdaptorConfig, StereoAdaptorConfig, adapt_rgbd, adapt_stereo)
     from srrg2_proslam_tpu_torch.models.tracker import track_step
-    from srrg2_proslam_tpu_torch.ops import pgo, se3
+    from srrg2_proslam_tpu_torch.ops import ba, pgo, se3
     from srrg2_proslam_tpu_torch.utils import profiling
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rgbd", action="store_true",
+                    help="the loop as RGB-D with local BA on (chip_smoke.py phase 6)")
     ap.add_argument("--out", default=None, help="directory for the operator tables")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -92,14 +99,20 @@ def main():
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(smi, flush=True)
 
-    loop = list(synthetic.iter_rendered_loop(side_a=10.0, side_b=6.0, step_m=0.4,
-                                             turn_frames=10, device=dev))
-    frames = [((f.left, f.right), f.timestamp) for f in loop]
-    cam, acfg = synthetic.synthetic_camera(), StereoAdaptorConfig()
-    run_slam(frames, cam, dev, acfg)                   # warm-up pass
+    kw = dict(side_a=10.0, side_b=6.0, step_m=0.4, turn_frames=10, device=dev)
+    if args.rgbd:
+        frames = [((f.intensity, f.depth), f.timestamp)
+                  for f in synthetic.iter_rendered_loop_rgbd(**kw)]
+        model, acfg, adapt = "rgbd", DepthAdaptorConfig(), adapt_rgbd
+    else:
+        frames = [((f.left, f.right), f.timestamp) for f in synthetic.iter_rendered_loop(**kw)]
+        model, acfg, adapt = "stereo", StereoAdaptorConfig(), adapt_stereo
+    config = slam_config(local_ba=args.rgbd)
+    cam = synthetic.synthetic_camera()
+    run_slam(frames, cam, dev, acfg, model=model, config=config)     # warm-up pass
 
     kept = {}
-    real_dv, real_opt = loop_closure.detect_and_validate, pgo.optimize
+    real_dv, real_opt, real_ba = loop_closure.detect_and_validate, pgo.optimize, ba.optimize
 
     def keep_dv(*a, **k):
         kept["detect"] = (a, k)
@@ -109,17 +122,23 @@ def main():
         kept.setdefault("pgo", (graph, config))
         return real_opt(graph, config)
 
+    def keep_ba(*a, **k):
+        kept.setdefault("ba", (a, k))
+        return real_ba(*a, **k)
+
     slam_mod.loop_closure.detect_and_validate = keep_dv
     slam_mod.pgo.optimize = keep_opt
+    slam_mod.ba_ops.optimize = keep_ba
     profiling.reset()
     profiling.enable()
     try:
         t0 = time.perf_counter()
-        s, _ = run_slam(frames, cam, dev, acfg)
+        s, _ = run_slam(frames, cam, dev, acfg, model=model, config=config)
         wall = time.perf_counter() - t0
     finally:
         slam_mod.loop_closure.detect_and_validate = real_dv
         slam_mod.pgo.optimize = real_opt
+        slam_mod.ba_ops.optimize = real_ba
         profiling.enable(False)
     stages = {k: {"calls": v["calls"], "mean_ms": v["mean_ms"], "total_ms": v["total_s"] * 1e3}
               for k, v in profiling.stats().items()}
@@ -132,7 +151,7 @@ def main():
     cand = result.candidate_maps.clamp_min(0).long()
     T_init = se3.inverse(poses[cand]) @ poses[q_map]
     graph, pcfg = kept["pgo"]
-    meas = adapt_stereo(*frames[-1][0], acfg)
+    meas = adapt(*frames[-1][0], acfg)
     state = s.tracker_state
     calls = {
         "detect_and_validate": lambda: real_dv(*kept["detect"][0]),
@@ -140,9 +159,12 @@ def main():
         "validate_batch": lambda: loop_closure.validate_batch(q_pos, result, T_init, lcfg),
         "pgo_optimize": lambda: real_opt(graph, pcfg),
         "track_step": lambda: track_step(state, meas.points, meas.desc, meas.valid, cam,
-                                         slam_config().tracker, "stereo"),
+                                         config.tracker, model),
     }
-    out = {"device": torch.cuda.get_device_name(0), "card": smi, "stages": stages,
+    if "ba" in kept:
+        calls["ba_optimize"] = lambda: real_ba(*kept["ba"][0], **kept["ba"][1])
+    out = {"device": torch.cuda.get_device_name(0), "card": smi, "model": model,
+           "local_ba": config.local_ba.enabled, "stages": stages,
            "ms_per_frame": wall / len(frames) * 1e3, "query_rows": int(q_desc.shape[0]),
            "db_slots": db.num_slots, "db_budget": db.budget, "candidates": K,
            "pgo_poses": graph.capacity, "calls": []}

@@ -5,21 +5,26 @@ its layout module for module, so each function has a counterpart of the
 same name:
 
 ops/       SE3, pinhole, triangulation, Hamming, matching, features,
-           Gauss-Newton, EKF, pose-graph optimization — plain functions
-           on tensors.
-models/    stereo adaptor, landmark arena, frame-to-map tracker, loop
-           closure database and validation, the GraphSLAM orchestrator.
-io/        bundled KITTI reader with a zlib/numpy PNG decoder; the
-           rendered room and trajectories.
+           Gauss-Newton, EKF, weighted-mean and smoother landmark
+           estimators, pose-graph optimization, bundle adjustment — plain
+           functions on tensors.
+models/    stereo and RGB-D adaptors, landmark arena, frame-to-map tracker,
+           loop closure database and validation, the GraphSLAM
+           orchestrator (with split-time local BA).
+io/        bundled KITTI and ICL readers with zlib/numpy PNG and PGM
+           decoders, quaternions; the rendered room and trajectories
+           (stereo or RGB-D).
 metrics/   ATE / RPE trajectory evaluation (numpy).
 utils/     profile_time scoped host timers.
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
 csrc/      the CUDA C++ sources, built for sm_90a at first use.
 
-Imports torch and numpy only, never jax.  The port covers stereo VO
-(``adapt_stereo`` -> ``track_step`` with the EKF estimator) and per-frame
-GraphSLAM on it (``adapt_stereo`` -> ``GraphSLAM.process``).
+Imports torch and numpy only, never jax.  The port covers stereo and
+RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` -> ``track_step``, with the
+EKF, weighted-mean or smoother landmark estimator and the optional
+motion prior) and per-frame GraphSLAM on it (-> ``GraphSLAM.process``,
+with optional local BA).
 """
 
 import torch as _torch

@@ -1,4 +1,4 @@
-"""Rendered stereo sequences: a textured room and a known trajectory.
+"""Rendered stereo and RGB-D sequences: a textured room and a known trajectory.
 
 Port of srrg2_proslam_tpu/io/synthetic.py.  A closed rectangular circuit
 (or an out-and-back walk) inside a room of textured planes (ground + four
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.pinhole import Camera
-from .datasets import StereoFrame
+from .datasets import RGBDFrame, StereoFrame
 
 
 class PlaneSet(NamedTuple):
@@ -237,3 +237,29 @@ def iter_rendered_loop(count: Optional[int] = None, seed: int = 0, rows: int = 4
         left, right, _ = render_stereo(cam, torch.as_tensor(T_wc, device=device), planes)
         yield StereoFrame(timestamp=0.1 * i, left=left, right=right,
                           gt_pose=np.linalg.inv(T_wc).astype(np.float32))
+
+
+def depth_to_raw_mm(depth: torch.Tensor) -> torch.Tensor:
+    """Rendered depth in metres -> raw millimetres as an RGB-D sensor gives
+    them (the adaptor's default ``depth_scale`` 1e-3), 0 where no plane
+    is hit."""
+    return torch.where(torch.isfinite(depth), depth * 1000.0, 0.0)
+
+
+def iter_rendered_loop_rgbd(count: Optional[int] = None, seed: int = 0, rows: int = 480,
+                            cols: int = 640, side_a: float = 20.0, side_b: float = 10.0,
+                            step_m: float = 0.35, turn_frames: int = 14, fx: float = 450.0,
+                            laps: int = 1,
+                            device=torch.device("cuda")) -> Iterator[RGBDFrame]:
+    """:func:`iter_rendered_loop` as RGB-D frames: the left view (the same
+    render, supersample 2) as intensity and its depth as raw millimetres."""
+    cam = synthetic_camera(rows, cols, fx=fx)
+    planes = make_room(seed=seed, size_x=side_b + 12.0, size_z=side_a + 12.0,
+                       device=device)
+    poses = loop_trajectory(side_a, side_b, step_m, turn_frames, laps=laps)
+    if count is not None:
+        poses = poses[:count]
+    for i, T_wc in enumerate(poses):
+        image, depth = render_view(cam, torch.as_tensor(T_wc, device=device), planes, 2)
+        yield RGBDFrame(timestamp=0.1 * i, intensity=image, depth=depth_to_raw_mm(depth),
+                        gt_pose=np.linalg.inv(T_wc).astype(np.float32))

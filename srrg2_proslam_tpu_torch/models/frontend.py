@@ -1,9 +1,13 @@
-"""Stereo measurement adaptor: raw image pair -> fixed-capacity 4-D points.
+"""Measurement adaptors: raw images -> fixed-capacity measurements.
 
-Port of srrg2_proslam_tpu/models/frontend.py (stereo path): extract left
-and right features as one batch, match along epipolar lines, and emit
-[uL vL uR vR] rows carrying the left descriptor, with disparities below the
-minimum dropped.
+Port of srrg2_proslam_tpu/models/frontend.py, per frame:
+
+  * stereo: extract left and right features as one batch, match along
+    epipolar lines, and emit [uL vL uR vR] rows carrying the left
+    descriptor, with disparities below the minimum dropped;
+  * RGB-D: extract features on the intensity image (a batch of one), look
+    up each keypoint's raw depth, scale it to metres and emit [u v depth]
+    rows, depths outside the configured range dropped.
 """
 from __future__ import annotations
 
@@ -28,6 +32,18 @@ class StereoMeasurement(NamedTuple):
         return self.valid.sum()
 
 
+class DepthMeasurement(NamedTuple):
+    """points[N, 3] = (u, v, depth_m)."""
+
+    points: torch.Tensor
+    desc: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.valid.sum()
+
+
 @dataclass(frozen=True)
 class StereoAdaptorConfig:
     extractor: FeatureExtractorConfig = field(default_factory=FeatureExtractorConfig)
@@ -35,6 +51,15 @@ class StereoAdaptorConfig:
     minimum_disparity_px: float = 1.0
     # SSD-parabola disparity refinement (ops/subpixel.py), not ported yet
     subpixel_refinement: bool = False
+
+
+@dataclass(frozen=True)
+class DepthAdaptorConfig:
+    extractor: FeatureExtractorConfig = field(default_factory=FeatureExtractorConfig)
+    # raw depth units -> metres (the bundled ICL PGMs are millimetres)
+    depth_scale: float = 1.0e-3
+    minimum_depth_m: float = 0.1
+    maximum_depth_m: float = 50.0
 
 
 def _stereo_tail(image_left, image_right, uv_l, desc_l, valid_l, uv_r, desc_r,
@@ -68,3 +93,27 @@ def adapt_stereo(image_left: torch.Tensor, image_right: torch.Tensor,
         feats.uv[0], feats.desc[0], feats.valid[0],
         feats.uv[1], feats.desc[1], feats.valid[1], config,
     )
+
+
+def _rgbd_tail(uv, desc, valid, depth_raw, config: DepthAdaptorConfig) -> DepthMeasurement:
+    """Per-keypoint depth lookup and measurement assembly for one frame."""
+    H, W = depth_raw.shape
+    y = uv[:, 1].to(torch.int32).clamp(0, H - 1).long()
+    x = uv[:, 0].to(torch.int32).clamp(0, W - 1).long()
+    depth = depth_raw[y, x] * config.depth_scale
+    ok = valid & (depth > config.minimum_depth_m) & (depth < config.maximum_depth_m)
+    points = torch.cat([uv, depth[:, None]], dim=-1)
+    return DepthMeasurement(
+        points=torch.where(ok[:, None], points, 0.0),
+        desc=torch.where(ok[:, None], desc, -1).to(torch.int8),
+        valid=ok,
+    )
+
+
+def adapt_rgbd(intensity: torch.Tensor, depth_raw: torch.Tensor,
+               config: DepthAdaptorConfig) -> DepthMeasurement:
+    """RGB-D frame -> 3-D (u, v, depth_m) measurements.  intensity [H, W]
+    float32 (0..255); depth_raw [H, W] float32 raw units (scaled by
+    ``depth_scale``)."""
+    feats = extract_features_batch(intensity[None], config.extractor)
+    return _rgbd_tail(feats.uv[0], feats.desc[0], feats.valid[0], depth_raw, config)

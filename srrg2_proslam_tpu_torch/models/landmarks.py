@@ -51,7 +51,10 @@ def _scatter_rows(base: torch.Tensor, dest: torch.Tensor, rows) -> torch.Tensor:
     Untaken candidates all target the sink row M, the only duplicate target.
     """
     padded = torch.cat([base, torch.zeros_like(base[:1])], dim=0)
-    padded[dest] = rows
+    if torch.is_tensor(rows):
+        padded[dest] = rows
+    else:   # a fill: assigning a Python scalar syncs on the card
+        padded.index_fill_(0, dest, rows)
     return padded[:-1]
 
 

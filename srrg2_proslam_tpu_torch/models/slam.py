@@ -1,7 +1,8 @@
 """Graph SLAM orchestrator: local maps, loop closing, PGO, relocalisation.
 
 Port of srrg2_proslam_tpu/models/slam.py, per-frame synchronous mode
-(``speculation_depth = 0``) for the stereo model with the EKF estimator.
+(``speculation_depth = 0``) for the stereo and RGB-D models with every
+landmark estimator of the tracker.
 ``process`` runs one tracker step (models/tracker.py) and reads back the
 frame's small status packet (the one host read per frame) to drive the
 status machine (Initializing / Tracking / Lost) and the viewpoint
@@ -12,7 +13,10 @@ is read back (the one host read per split); accepted closures become
 pose-graph factors, PGO runs (ops/pgo.py) under the geometric backstop,
 and a closure that passes the relocaliser's gates moves tracking back into
 the old map.  The trajectory is unrolled through the optimized local-map
-poses.
+poses.  With ``local_ba.enabled`` every ``keyframe_stride``-th tracked
+frame's association is kept (the last ``max_keyframes``), and a split
+first refines the finished map's landmarks by bundle adjustment over them
+(ops/ba.py) before the map enters the database.
 
 The speculative frame queue, the chunked sequence mode and the mesh of the
 JAX package are not carried over: with no queue, a split's closure
@@ -28,12 +32,14 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import ba as ba_ops
 from ..ops import pgo, se3
 from ..ops.pinhole import Camera
 from ..utils.profiling import profile_time
 from . import landmarks as lm
 from . import loop_closure
-from .tracker import TrackerConfig, TrackerState, _check_supported, initial_state, track_step
+from .tracker import (TrackerConfig, TrackerState, _check_supported, _robot_sensor,
+                      initial_state, track_step)
 
 
 @dataclass(frozen=True)
@@ -54,21 +60,15 @@ class RelocalizerConfig:
     relocalize_min_inliers_ratio: float = 0.5
 
 
-@dataclass(frozen=True)
-class BAConfig:
-    """The JAX package's ops/ba.py BAConfig (local BA is not ported yet)."""
-
-    iterations: int = 5
-    damping: float = 1e-3
-    chi_threshold: float = 25.0
-    anchor_weight: float = 1e6
-    depth_weight: float = 1.0
-    structure_only: bool = True
+BAConfig = ba_ops.BAConfig     # the type of LocalBAConfig.ba, as in the JAX package
 
 
 @dataclass(frozen=True)
 class LocalBAConfig:
-    """Split-time refinement of the finished local map; ``enabled`` raises."""
+    """Split-time refinement of the finished local map (ops/ba.py) over its
+    last ``max_keyframes`` keyframes, one every ``keyframe_stride`` frames;
+    ``max_refine_maturity`` > 0 refines only landmarks updated at most that
+    often."""
 
     enabled: bool = False
     max_keyframes: int = 8
@@ -81,8 +81,8 @@ class LocalBAConfig:
 class GraphSLAMConfig:
     """Same fields and defaults as the JAX package's GraphSLAMConfig.
 
-    ``speculation_depth > 0``, ``chunk_size > 0`` and ``local_ba.enabled``
-    raise NotImplementedError; ``chunk_lag`` and ``chunk_group`` only
+    ``speculation_depth > 0`` and ``chunk_size > 0`` raise
+    NotImplementedError; ``chunk_lag`` and ``chunk_group`` only
     matter with ``chunk_size > 0``.
     """
 
@@ -153,8 +153,6 @@ def _check_graph_config(config: GraphSLAMConfig, model: str, mesh) -> None:
                                   "the port runs synchronously")
     if config.chunk_size > 0:
         raise NotImplementedError("chunked stepping (chunk_size > 0) is not ported yet")
-    if config.local_ba.enabled:
-        raise NotImplementedError("local BA is not ported yet")
     _check_supported(config.tracker, model)
 
 
@@ -179,7 +177,7 @@ class GraphSLAM:
         self.model = model
         self.device = torch.device(device)
         self.status = INITIALIZING
-        self.tracker_state: TrackerState = initial_state(config.arena_capacity, self.device)
+        self.tracker_state: TrackerState = self._initial_state()
         self.graph = pgo.empty_graph(config.max_local_maps, config.max_edges, self.device)
         self.db = loop_closure.empty_database(
             config.database_capacity, config.max_db_descriptors_per_map, self.device)
@@ -202,6 +200,14 @@ class GraphSLAM:
         self.num_backstop_rejections = 0
         # (reference_map, query_map) of every accepted closure, in order
         self.closure_events: list = []
+        # local-BA keyframes of the active map: (T_lm_sensor, match_idx,
+        # GN measurement rows, match_mask), device tensors
+        self._ba_keyframes: list = []
+
+    def _initial_state(self) -> TrackerState:
+        return initial_state(self.config.arena_capacity,
+                             self.config.tracker.landmark_estimator,
+                             device=self.device)
 
     # ------------------------------------------------------------------
     # local-map management
@@ -224,9 +230,9 @@ class GraphSLAM:
         self.current_map = idx
         # fresh tracker state: empty arena, identity pose, keep velocity
         vel = self.tracker_state.velocity
-        self.tracker_state = initial_state(self.config.arena_capacity,
-                                           self.device)._replace(velocity=vel)
+        self.tracker_state = self._initial_state()._replace(velocity=vel)
         self._frames_in_current_map = 0
+        self._ba_keyframes = []
 
     def _add_graph_edge(self, i: int, j: int, Z):
         """Factor insertion with double-and-copy growth."""
@@ -408,13 +414,21 @@ class GraphSLAM:
             m.match_row[k], m.match_mask[k], self.config.closure_merge_max_insertions)
         self._map_arenas[cand] = merged
         self._note_device_arena(cand)
+        buf = m.query_state.meas_buf
+        if buf is not None:
+            # the buffers belong to the abandoned query map: the reloaded
+            # map starts with zeroed ones (T_world_to_cam slots 0, not
+            # identity, as in the JAX package)
+            buf = type(buf)(*(torch.zeros_like(t) for t in buf))
         T_new = (T_k @ m.T_split).astype(np.float32)
         self.tracker_state = TrackerState(
             arena=merged, T_lm_robot=torch.as_tensor(T_new, device=self.device),
-            velocity=m.query_state.velocity)
+            velocity=m.query_state.velocity, meas_buf=buf)
         self.num_relocalizations += 1
         self._frames_in_current_map = 1  # the arena is populated
         self.current_map = cand
+        # keyframes of the abandoned map index its arena, not this one
+        self._ba_keyframes = []
         # the split frame's record belongs to the reloaded map
         self.frames[m.frame_record_index] = FrameRecord(m.timestamp, cand, T_new)
 
@@ -433,7 +447,7 @@ class GraphSLAM:
                                          self.model)
         self.tracker_state = state
         self.last_stats = stats
-        marker = self._consume_frame(state, stats, timestamp)
+        marker = self._consume_frame(state, stats, meas_points, timestamp)
         if marker is not None:
             with profile_time("closure_decision"):
                 reloc = self._consume_marker(marker)
@@ -442,7 +456,7 @@ class GraphSLAM:
                     self._relocalize(marker, *reloc)
         return stats
 
-    def _consume_frame(self, state: TrackerState, stats, timestamp: float):
+    def _consume_frame(self, state: TrackerState, stats, meas_points, timestamp: float):
         """The status machine on the frame's packet (one host read); returns
         the split's closure marker, if any."""
         config = self.config
@@ -457,6 +471,8 @@ class GraphSLAM:
         else:
             self.status = LOST
         self._frames_in_current_map += 1
+        if config.local_ba.enabled and self.status == TRACKING:
+            self._record_ba_keyframe(state, stats, meas_points)
 
         marker = None
         T_rec = np.eye(4, dtype=np.float32)
@@ -489,7 +505,12 @@ class GraphSLAM:
     def _handle_split(self, state: TrackerState, T_split: np.ndarray,
                       timestamp: float) -> Optional[_ClosureMarker]:
         """Close the current local map, query the loop database, and open the
-        next map (app_benchmark.cpp:136-161)."""
+        next map (app_benchmark.cpp:136-161).  With local BA the finished
+        map's landmarks are refined first; the database and the arena store
+        take the refined map, the loop query the frame's own."""
+        if self.config.local_ba.enabled:
+            with profile_time("local_ba"):
+                self._run_local_ba()
         T_world_robot = self.graph.poses[self.current_map] @ state.T_lm_robot
         with profile_time("db_insert"):
             self._finalize_current_map()
@@ -502,6 +523,54 @@ class GraphSLAM:
             marker.new_map = self.current_map
             marker.odo_edge_slot = self.num_edges - 1
         return marker
+
+    def _record_ba_keyframe(self, state: TrackerState, stats, meas_points):
+        """Keep every ``keyframe_stride``-th tracked frame's association for
+        split-time BA (device tensors; no read back), the last
+        ``max_keyframes`` of the active map.  Keyframe poses are sensor
+        poses: the sensor-in-robot extrinsic is folded in."""
+        lba = self.config.local_ba
+        if self._frames_in_current_map % lba.keyframe_stride != 0:
+            return
+        gn_meas = meas_points[:, :3] if self.model == "stereo" else meas_points
+        T_rs, _ = _robot_sensor(tuple(self.config.tracker.T_robot_sensor), self.device)
+        self._ba_keyframes.append((state.T_lm_robot @ T_rs, stats.match_idx, gn_meas,
+                                   stats.match_mask))
+        if len(self._ba_keyframes) > lba.max_keyframes:
+            self._ba_keyframes.pop(0)
+
+    def _run_local_ba(self):
+        """Refine the finished map's landmarks over its keyframes (ops/ba.py;
+        with ``ba.structure_only`` off the keyframe poses move too, but only
+        the points are kept).  Pure device work: nothing is read back."""
+        lba = self.config.local_ba
+        K = len(self._ba_keyframes)
+        if K < 2:
+            return
+        arena = self.tracker_state.arena
+        P = lba.max_keyframes
+        N = self._ba_keyframes[0][2].shape[0]
+        zdim = self._ba_keyframes[0][2].shape[1]
+        dev = self.device
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        pad = (P - K) * N
+        refine_mask = arena.valid
+        if lba.max_refine_maturity > 0:
+            refine_mask = refine_mask & (arena.num_updates <= lba.max_refine_maturity)
+        problem = ba_ops.BAProblem(
+            poses=torch.stack([kf[0] for kf in self._ba_keyframes] + [eye] * (P - K)),
+            pose_valid=torch.arange(P, device=dev) < K,
+            points=arena.pos, point_valid=refine_mask,
+            obs_kf=torch.arange(P, dtype=torch.int32, device=dev).repeat_interleave(N),
+            obs_lm=torch.cat([kf[1].clamp_min(0) for kf in self._ba_keyframes]
+                             + [torch.zeros((pad,), dtype=torch.int32, device=dev)]),
+            obs_z=torch.cat([kf[2] for kf in self._ba_keyframes]
+                            + [torch.zeros((pad, zdim), dtype=torch.float32, device=dev)]),
+            obs_valid=torch.cat([kf[3] for kf in self._ba_keyframes]
+                                + [torch.zeros((pad,), dtype=torch.bool, device=dev)]))
+        refined, _ = ba_ops.optimize(problem, self.cam, self.model, lba.ba)
+        self.tracker_state = self.tracker_state._replace(
+            arena=arena._replace(pos=refined.points))
 
     # ------------------------------------------------------------------
     # accessors (example_slam_3d.cpp:106-141 parity)

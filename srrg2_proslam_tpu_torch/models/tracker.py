@@ -1,31 +1,43 @@
 """Frame-to-map tracker: clip -> align -> merge, one step per frame.
 
-Port of srrg2_proslam_tpu/models/tracker.py for the stereo model with the
-EKF landmark estimator:
+Port of srrg2_proslam_tpu/models/tracker.py, for the stereo model
+(measurements uL vL uR vR) and the RGB-D model ("rgbd": u v depth):
 
   * scene clipping is an in-view mask over the whole arena;
   * alignment runs ``rounds`` re-association rounds, each a projective
-    match followed by one GN burst (kernel K2 on a CUDA tensor);
-  * the merge updates matched landmarks with the batched EKF and inserts
+    match followed by one GN burst;
+  * the merge updates matched landmarks with the selected estimator (the
+    batched EKF, the weighted mean or the pose-based smoother) and inserts
     ranked, binned unmatched measurements into free arena slots;
   * the pose and the constant-velocity model update last.
 
-Other models and estimators raise NotImplementedError.
+The GN route is chosen from the config, where the JAX package chooses it
+(its ``use_pallas_gn``): the stereo factor with the motion prior off runs
+the burst kernel K2 on a CUDA tensor (kernels/gn.py, its plain version on
+a CPU tensor); the RGB-D factor, and any factor with the constant-velocity
+motion prior on, run ``ops/gn.py::gn_iterate`` over the (prior-wrapped)
+system, as the JAX package does on every backend, with the sticky live
+flag (``unroll=True``) so nothing is read back to the host.  K2 has no
+prior term, as the TPU kernel has none; this route is not a fallback: K2
+raises on bad inputs and never runs its plain version on a CUDA tensor.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops import se3
 from ..ops.ekf import LandmarkEKFConfig, ekf_update_batch, initial_covariance
-from ..ops.landmark_estimators import SmootherConfig, WeightedMeanConfig
+from ..ops.gn import gn_iterate, projective_depth_system, stereo_projective_system
+from ..ops.landmark_estimators import (
+    MeasurementBuffer, SmootherConfig, WeightedMeanConfig, add_measurements,
+    empty_measurement_buffer, smoother_update_batch, weighted_mean_update_batch)
 from ..ops.matching import ProjectiveMatcherConfig, match_projective
-from ..ops.pinhole import Camera, project
+from ..ops.pinhole import Camera, project, unproject
 from ..ops.triangulation import triangulate_rectified
 from . import landmarks as lm
 from .landmarks import LandmarkArena
@@ -44,9 +56,12 @@ class MergerConfig:
 class TrackerConfig:
     """Same fields and defaults as the JAX package's TrackerConfig.
 
+    ``landmark_estimator`` is "ekf", "weighted_mean" or "smoother".
     ``gn_pallas`` and ``gn_unroll`` are kept for that parity and have no
-    effect: a CUDA tensor always takes the GN burst kernel (K2), a CPU
-    tensor its plain version, and there is no compiled loop to unroll.
+    effect: the stereo factor without the motion prior always takes the GN
+    burst (K2 on a CUDA tensor, its plain version on a CPU tensor), and the
+    generic route always runs with the sticky flag (select for select the
+    early-exit loop).
     """
 
     matcher: ProjectiveMatcherConfig = field(default_factory=ProjectiveMatcherConfig)
@@ -77,10 +92,13 @@ class TrackerState(NamedTuple):
     arena: LandmarkArena
     T_lm_robot: torch.Tensor    # robot pose in the local-map frame (4x4)
     velocity: torch.Tensor      # constant-velocity twist [6]
+    # per-landmark measurement ring buffers: only with the smoother estimator
+    meas_buf: Optional[MeasurementBuffer] = None
 
     def to(self, device) -> "TrackerState":
+        buf = None if self.meas_buf is None else self.meas_buf.to(device)
         return TrackerState(self.arena.to(device), self.T_lm_robot.to(device),
-                            self.velocity.to(device))
+                            self.velocity.to(device), buf)
 
 
 class TrackStats(NamedTuple):
@@ -100,23 +118,37 @@ class TrackStats(NamedTuple):
     host_packet: torch.Tensor
 
 
-def initial_state(capacity: int, device=torch.device("cuda")) -> TrackerState:
+def initial_state(capacity: int, estimator: str = "ekf", smoother_slots: int = 8,
+                  device=torch.device("cuda")) -> TrackerState:
+    """Empty arena, identity pose, zero velocity; with the smoother
+    estimator also empty measurement buffers of ``smoother_slots`` slots."""
+    buf = (empty_measurement_buffer(capacity, smoother_slots, device)
+           if estimator == "smoother" else None)
     return TrackerState(
         arena=lm.empty_arena(capacity, device),
         T_lm_robot=se3.identity(device),
         velocity=torch.zeros(6, dtype=torch.float32, device=device),
+        meas_buf=buf,
     )
 
 
 _STATE_KEYS = ("pos", "cov", "desc", "num_updates", "valid",
                "T_lm_robot", "velocity")
+_BUF_DTYPES = {"point_in_image": torch.float32, "point_in_camera": torch.float32,
+               "T_world_to_cam": torch.float32, "count": torch.int32}
 
 
 def state_to_numpy(state: TrackerState) -> dict:
-    """TrackerState -> dict of numpy arrays (arena fields, pose, velocity)."""
+    """TrackerState -> dict of numpy arrays (arena fields, pose, velocity,
+    and the measurement buffers' fields as "meas_buf.<field>" when the
+    state has them)."""
     arrays = dict(state.arena._asdict(), T_lm_robot=state.T_lm_robot,
                   velocity=state.velocity)
-    return {k: arrays[k].detach().cpu().numpy() for k in _STATE_KEYS}
+    out = {k: arrays[k].detach().cpu().numpy() for k in _STATE_KEYS}
+    if state.meas_buf is not None:
+        for k, v in state.meas_buf._asdict().items():
+            out[f"meas_buf.{k}"] = v.detach().cpu().numpy()
+    return out
 
 
 def state_from_numpy(d: dict, device=torch.device("cuda")) -> TrackerState:
@@ -126,18 +158,41 @@ def state_from_numpy(d: dict, device=torch.device("cuda")) -> TrackerState:
         pos=t["pos"].to(torch.float32), cov=t["cov"].to(torch.float32),
         desc=t["desc"].to(torch.int8), num_updates=t["num_updates"].to(torch.int32),
         valid=t["valid"].to(torch.bool))
+    buf = None
+    if "meas_buf.count" in d:
+        buf = MeasurementBuffer(**{
+            k: torch.as_tensor(np.asarray(d[f"meas_buf.{k}"]), device=device).to(dt)
+            for k, dt in _BUF_DTYPES.items()})
     return TrackerState(arena, t["T_lm_robot"].to(torch.float32),
-                        t["velocity"].to(torch.float32))
+                        t["velocity"].to(torch.float32), buf)
+
+
+MODELS = ("stereo", "rgbd")
+ESTIMATORS = ("ekf", "weighted_mean", "smoother")
 
 
 def _check_supported(config: TrackerConfig, model: str) -> None:
-    if model != "stereo":
-        raise NotImplementedError(f"tracker model {model!r} is not ported yet")
-    if config.landmark_estimator != "ekf":
-        raise NotImplementedError(
-            f"landmark estimator {config.landmark_estimator!r} is not ported yet")
-    if config.motion_prior_translation_info > 0.0 or config.motion_prior_rotation_info > 0.0:
-        raise NotImplementedError("the motion-prior factor is not ported yet")
+    if model not in MODELS:
+        raise ValueError(f"tracker model {model!r} is not one of {MODELS}")
+    if config.landmark_estimator not in ESTIMATORS:
+        raise ValueError(f"landmark estimator {config.landmark_estimator!r} is not "
+                         f"one of {ESTIMATORS}")
+
+
+def _uses_motion_prior(config: TrackerConfig) -> bool:
+    return (config.motion_prior_translation_info > 0.0
+            or config.motion_prior_rotation_info > 0.0)
+
+
+def _adapt_to_sensor_points(points, valid, cam: Camera, model: str,
+                            min_disparity: float):
+    """Measurement rows -> (sensor-frame points, ok, insertion preference):
+    stereo prefers higher disparity, RGB-D lower depth."""
+    if model == "stereo":
+        pts, ok = triangulate_rectified(cam, points, valid, min_disparity)
+        return pts, ok, points[:, 0] - points[:, 2]
+    pts, ok = unproject(cam, points)
+    return pts, ok & valid, -points[:, 2]
 
 
 @lru_cache(maxsize=16)
@@ -146,6 +201,13 @@ def _robot_sensor(T_robot_sensor: tuple, device: torch.device):
     T_rs = torch.tensor(T_robot_sensor, dtype=torch.float32,
                         device=device).reshape(4, 4)
     return T_rs, se3.inverse(T_rs)
+
+
+@lru_cache(maxsize=16)
+def _prior_weights(translation_info: float, rotation_info: float, device: torch.device):
+    """The motion prior's diagonal information [6], made once per device."""
+    return torch.tensor([translation_info] * 3 + [rotation_info] * 3,
+                        dtype=torch.float32, device=device)
 
 
 def associate(arena: LandmarkArena, X, meas_points, meas_desc, meas_valid,
@@ -173,7 +235,8 @@ def associate(arena: LandmarkArena, X, meas_points, meas_desc, meas_valid,
 
 def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
                cam: Camera, config: TrackerConfig, model: str = "stereo"):
-    """One tracker step on stereo measurements [N, 4] = (uL vL uR vR).
+    """One tracker step on stereo measurements [N, 4] = (uL vL uR vR) or,
+    with ``model="rgbd"``, RGB-D measurements [N, 3] = (u v depth_m).
 
     Returns (new_state, stats, X_final); ``X_final`` maps local-map points
     into the sensor frame.
@@ -191,9 +254,10 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
     X_pred = se3.inverse(T_pred @ T_rs)
     X = X_pred
 
-    gn_meas = meas_points[:, :3].contiguous()  # (uL, vL, uR)
+    # (uL, vL, uR) | (u, v, d)
+    gn_meas = (meas_points[:, :3] if model == "stereo" else meas_points).contiguous()
     weights_all = 1.0 + torch.log1p(arena.num_updates.to(torch.float32))
-    if config.stereo_inverse_depth_weighting:
+    if model == "stereo" and config.stereo_inverse_depth_weighting:
         disp = meas_points[:, 0] - meas_points[:, 2]
         mean_disp = torch.where(meas_valid, disp, 0.0).sum() / torch.clamp_min(
             meas_valid.sum(), 1)
@@ -201,18 +265,49 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
     else:
         idw = torch.ones((meas_points.shape[0],), dtype=torch.float32, device=dev)
 
+    # the constant-velocity prior: a quadratic pull toward the prediction
+    # with unit Jacobian in the left-perturbation parametrisation
+    use_prior = _uses_motion_prior(config)
+
+    def with_motion_prior(system):
+        if not use_prior:
+            return system
+        prior_w = _prior_weights(config.motion_prior_translation_info,
+                                 config.motion_prior_rotation_info, dev)
+        X_pred_inv = se3.inverse(X_pred)
+
+        def wrapped(Xc):
+            H, b, st = system(Xc)
+            r = se3.log(Xc @ X_pred_inv)
+            return H + torch.diag(prior_w), b + prior_w * r, st
+
+        return wrapped
+
+    # the JAX package's use_pallas_gn, less the backend: K2 for the stereo
+    # factor without the prior, else the generic loop with no host read
+    use_burst = model == "stereo" and not use_prior
+    factor = stereo_projective_system if model == "stereo" else projective_depth_system
+
     # ---- alignment: re-association rounds, one GN burst each ---------------
     for r in range(config.rounds):
         matches, stage, pts_moving, weights = associate(
             arena, X, meas_points, meas_desc, meas_valid, cam, config, r,
             weights_all, idw)
-        X, stats = gn_burst_stereo(
-            X.contiguous(), pts_moving, gn_meas, weights, matches.mask, cam,
-            iterations=config.gn_iterations, damping=config.damping,
-            min_inliers=config.min_num_inliers, epsilon=config.gn_epsilon,
-            chi_threshold=config.chi_threshold)
+        if use_burst:
+            X, stats = gn_burst_stereo(
+                X.contiguous(), pts_moving, gn_meas, weights, matches.mask, cam,
+                iterations=config.gn_iterations, damping=config.damping,
+                min_inliers=config.min_num_inliers, epsilon=config.gn_epsilon,
+                chi_threshold=config.chi_threshold)
+        else:
+            system = (lambda Xc, pm=pts_moving, w=weights, mk=matches.mask:
+                      factor(Xc, pm, gn_meas, w, mk, cam, config.chi_threshold))
+            X, stats = gn_iterate(
+                with_motion_prior(system), X, config.gn_iterations,
+                damping=config.damping, min_inliers=config.min_num_inliers,
+                epsilon=config.gn_epsilon, unroll=True)
 
-    # ---- merge: EKF update of matched landmarks ----------------------------
+    # ---- merge: landmark estimator on matched landmarks --------------------
     M = arena.capacity
     # measurement rows scattered to their matched landmark slots; unmatched
     # rows all land in the sink row M
@@ -230,21 +325,40 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
     dist_by_lm = by_landmark(1e9, matches.distance)
     matched_lm = matched_lm & (dist_by_lm <= config.merger.maximum_distance_appearance)
 
-    ekf_out = ekf_update_batch(arena.pos, arena.cov, z_by_lm, matched_lm, X, cam,
-                               "stereo", config.ekf)
-    accepted = ekf_out.accepted
+    meas_buf = state.meas_buf
+    if config.landmark_estimator == "smoother":
+        # buffer this frame's observation per landmark, then the
+        # structure-only GN over every buffered observation of each
+        p_sensor_meas, meas_ok, _ = _adapt_to_sensor_points(
+            z_by_lm, matched_lm, cam, model, config.minimum_disparity_px)
+        meas_buf = add_measurements(meas_buf, z_by_lm[:, :2], p_sensor_meas, X,
+                                    matched_lm & meas_ok)
+        sm = smoother_update_batch(arena.pos, meas_buf, arena.num_updates,
+                                   arena.valid & matched_lm, cam, config.smoother)
+        new_pos, new_cov, accepted = sm.position, arena.cov, sm.accepted
+    elif config.landmark_estimator == "weighted_mean":
+        p_sensor_meas, meas_ok, _ = _adapt_to_sensor_points(
+            z_by_lm, matched_lm, cam, model, config.minimum_disparity_px)
+        p_world_meas = se3.transform_points(se3.inverse(X), p_sensor_meas)
+        wm = weighted_mean_update_batch(arena.pos, arena.num_updates, p_world_meas,
+                                        matched_lm & meas_ok, config.weighted_mean)
+        new_pos, new_cov, accepted = wm.position, arena.cov, wm.accepted
+    else:
+        ekf_out = ekf_update_batch(arena.pos, arena.cov, z_by_lm, matched_lm, X, cam,
+                                   "stereo" if model == "stereo" else "projective_depth",
+                                   config.ekf)
+        new_pos, new_cov, accepted = ekf_out.position, ekf_out.covariance, ekf_out.accepted
     num_merges = accepted.sum()
     arena = arena._replace(
-        pos=ekf_out.position,
-        cov=ekf_out.covariance,
+        pos=new_pos,
+        cov=new_cov,
         desc=torch.where(matched_lm[:, None], desc_by_lm, arena.desc),
         num_updates=arena.num_updates + accepted.to(torch.int32),
     )
 
     # ---- merge: ranked binned insertion of unmatched measurements ----------
-    pts_sensor_new, tri_ok = triangulate_rectified(
-        cam, meas_points, meas_valid, config.minimum_disparity_px)
-    pref = meas_points[:, 0] - meas_points[:, 2]  # higher disparity first
+    pts_sensor_new, tri_ok, pref = _adapt_to_sensor_points(
+        meas_points, meas_valid, cam, model, config.minimum_disparity_px)
     unmatched = meas_valid & ~matches.mask & tri_ok
     allow_adds = num_merges < config.merger.target_number_of_merges
 
@@ -267,7 +381,7 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
         map_uv, map_in_view = project(cam, se3.transform_points(X, arena.pos))
         map_bins = torch.where(arena.valid & map_in_view, bin_id(map_uv), n_bins)
         occupied = torch.zeros((n_bins + 1,), dtype=torch.bool, device=dev)
-        occupied[map_bins] = True
+        occupied.index_fill_(0, map_bins, True)
         occupied = occupied[:n_bins]
         cand_bins = bin_id(meas_points[:, :2])
         # best (highest preference) candidate per bin wins; the dense rank is
@@ -304,6 +418,7 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
         arena=arena,
         T_lm_robot=torch.where(aligned, T_lm_robot_new, T_pred),
         velocity=torch.where(aligned, vel_new, state.velocity),
+        meas_buf=meas_buf,
     )
     T_final = new_state.T_lm_robot
     num_inliers = stats.num_inliers

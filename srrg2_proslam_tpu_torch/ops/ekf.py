@@ -1,4 +1,5 @@
-"""Per-landmark EKF updates, batched over the whole arena (stereo model).
+"""Per-landmark EKF updates, batched over the whole arena (stereo and
+projective-depth models).
 
 Port of srrg2_proslam_tpu/ops/ekf.py.  Each landmark's update is an
 iterated EKF (two Gauss-Newton sweeps) whose correction is a sequence of
@@ -48,6 +49,27 @@ def _measurement_model_stereo(p_s: torch.Tensor, cam: Camera):
     return h, H
 
 
+def _measurement_model_projective_depth(p_s: torch.Tensor, cam: Camera):
+    """(u, v, depth) and its [M, 3, 3] Jacobian at sensor points [M, 3]."""
+    x, y, z = p_s.unbind(-1)
+    iz = 1.0 / torch.clamp_min(z, 1e-3)
+    iz2 = iz * iz
+    h = torch.stack([cam.fx * x * iz + cam.cx, cam.fy * y * iz + cam.cy, z], dim=-1)
+    zero = torch.zeros_like(x)
+    H = torch.stack([
+        torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], dim=-1),
+        torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], dim=-1),
+        torch.stack([zero, zero, torch.ones_like(x)], dim=-1),
+    ], dim=-2)
+    return h, H
+
+
+_MODELS = {
+    "projective_depth": _measurement_model_projective_depth,
+    "stereo": _measurement_model_stereo,
+}
+
+
 def _matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (A @ v[..., None])[..., 0]
 
@@ -58,10 +80,13 @@ def ekf_update_batch(positions, covariances, measurements, valid,
     """EKF update of M landmarks against row-aligned measurements.
 
     positions [M, 3] and covariances [M, 3, 3] in the local-map frame;
-    measurements [M, 4]; valid [M] marks rows that observed the landmark.
+    measurements [M, D] rows of the model ("stereo": D = 4, uL vL uR vR;
+    "projective_depth": D = 3, u v depth); valid [M] marks rows that
+    observed the landmark.
     """
-    if model != "stereo":
+    if model not in _MODELS:
         raise NotImplementedError(f"EKF measurement model {model!r} is not ported yet")
+    model_fn = _MODELS[model]
     R = T_world_in_sensor[:3, :3]
     t = T_world_in_sensor[:3, 3]
     # predict: into the sensor frame (zero process noise)
@@ -70,7 +95,7 @@ def ekf_update_batch(positions, covariances, measurements, valid,
     r_noise = config.measurement_noise_px2
 
     def sweep(x_lin):
-        h, H = _measurement_model_stereo(x_lin, cam)
+        h, H = model_fn(x_lin, cam)
         innov0 = measurements - h - _matvec(H, p_s - x_lin)
         dx = torch.zeros_like(p_s)
         P = P_s

@@ -1,11 +1,14 @@
-"""Gauss-Newton pose estimation: the rectified-stereo and point-to-point factors.
+"""Gauss-Newton pose estimation: the rectified-stereo, projective-depth and
+point-to-point factors.
 
-Port of srrg2_proslam_tpu/ops/gn.py (stereo and point3 systems).  The
+Port of srrg2_proslam_tpu/ops/gn.py.  The
 estimate X maps moving-frame points into the fixed (sensor) frame and is
 updated by left multiplication X <- exp(dx) X, dx = [v, w]; the Jacobian of
 (exp(dx) X p) at dx = 0 is [I | -skew(X p)].  ``gn_iterate`` over
 ``stereo_projective_system`` is the plain version of the GN burst kernel
-(kernels/gn.py).  ``gn_iterate_batch`` runs K independent estimates at
+(kernels/gn.py).  ``gn_iterate(..., unroll=True)`` runs the same loop
+with a sticky live flag and no host read (the tracker's generic route:
+RGB-D and the motion prior).  ``gn_iterate_batch`` runs K independent estimates at
 once without reading anything back to the host (loop-closure validation).
 """
 from __future__ import annotations
@@ -82,6 +85,35 @@ def stereo_projective_system(X, pts_moving, meas_uvu, weights, mask,
     return _reduce_system(J, r, weights, mask, chi_threshold)
 
 
+def projective_depth_system(X, pts_moving, meas_uvd, weights, mask,
+                            cam: Camera, chi_threshold: float = 25.0,
+                            depth_weight: float = 10.0):
+    """Normal equations of the pinhole + depth (RGB-D) residual
+    r = (fx x/z + cx, fy y/z + cy, sqrt(w_d) z) - (u, v, sqrt(w_d) d)."""
+    p = se3.transform_points(X, pts_moving)
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    iz = 1.0 / torch.clamp_min(z, 1e-3)
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    sw = depth_weight ** 0.5
+    r = torch.stack([u, v, sw * z], dim=-1) - torch.stack(
+        [meas_uvd[:, 0], meas_uvd[:, 1], meas_uvd[:, 2] * sw], dim=-1)
+    zero = torch.zeros_like(x)
+    Jp = torch.stack(
+        [
+            torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], -1),
+            torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], -1),
+            torch.stack([zero, zero, torch.full_like(x, sw)], -1),
+        ],
+        dim=-2,
+    )
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(Jp.shape)
+    J = Jp @ torch.cat([eye, -se3.skew(p)], dim=-1)  # [C, 3, 6]
+    mask = mask & (z > cam.range_min)
+    return _reduce_system(J, r, weights, mask, chi_threshold)
+
+
 def point3_system(X, pts_moving, pts_fixed, weights, mask,
                   chi_threshold: float = 3.0, kernel: Callable = robust_clamp):
     """Normal equations of the point-to-point residual r = X p - q (loop
@@ -109,18 +141,34 @@ def gn_step_dx(X, H, b, damping: float = 1e-6):
 
 
 def gn_iterate(system_fn, X0, iterations: int, damping: float = 1e-6,
-               min_inliers: int = 6, epsilon: float = 0.0):
+               min_inliers: int = 6, epsilon: float = 0.0, unroll: bool = False):
     """Up to ``iterations`` GN steps of a 6-DoF system.
 
     A step applies only when at least ``min_inliers`` terms are active; the
     loop ends once the applied twist norm is not above ``epsilon`` (a
     refused step counts as norm 0).  Returns (X, stats of the last step).
-    Reads the stop flag back to the host each iteration.
+
+    ``unroll`` chooses the scheme, not the result (select for select the
+    same, as in the JAX package): False reads the stop flag back to the
+    host each iteration and leaves the loop; True runs every iteration with
+    a sticky live flag, so a stopped estimate and its stats stay frozen,
+    and reads nothing back.
     """
     X = X0
     stats = GNStats(torch.zeros((), dtype=torch.float32, device=X0.device),
                     torch.zeros((), dtype=torch.int32, device=X0.device),
                     torch.zeros((), dtype=torch.int32, device=X0.device))
+    if unroll:
+        live = torch.ones((), dtype=torch.bool, device=X0.device)
+        for _ in range(iterations):
+            H, b, stats_i = system_fn(X)
+            X_new, dx = gn_step_dx(X, H, b, damping)
+            ok = stats_i.num_terms >= min_inliers
+            X = torch.where(live & ok, X_new, X)
+            stats = GNStats(*(torch.where(live, a, s) for a, s in zip(stats_i, stats)))
+            dx_norm = torch.where(ok, torch.linalg.vector_norm(dx), 0.0)
+            live = live & (dx_norm > epsilon)
+        return X, stats
     for _ in range(iterations):
         H, b, stats = system_fn(X)
         X_new, dx = gn_step_dx(X, H, b, damping)

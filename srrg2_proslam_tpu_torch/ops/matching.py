@@ -138,8 +138,8 @@ def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
     good = ratios >= config.minimum_matching_ratio
     stage = torch.where(good.any(), torch.argmax(good.to(torch.int32)),
                         n_stages - 1).to(torch.int32)
-    sel = stage.long()
-    idx = torch.stack([m.idx for m in per_stage])[sel]
-    distance = torch.stack([m.distance for m in per_stage])[sel]
-    mask = torch.stack([m.mask for m in per_stage])[sel]
+    # index_select: indexing by a 0-dim tensor reads it back to the host
+    sel = stage.long().reshape(1)
+    idx, distance, mask = (torch.stack([getattr(m, f) for m in per_stage])
+                           .index_select(0, sel)[0] for f in ("idx", "distance", "mask"))
     return Matches(idx=idx, distance=distance, mask=mask), stage

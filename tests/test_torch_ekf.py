@@ -109,5 +109,5 @@ def test_scripted_insert_update_insert(rng, max_insertions):
 def test_unknown_model_is_not_ported():
     a = tlm.empty_arena(4, "cpu")
     with pytest.raises(NotImplementedError):
-        tekf.ekf_update_batch(a.pos, a.cov, torch.zeros(4, 3), a.valid, torch.eye(4),
-                              CAM, "projective_depth", tekf.LandmarkEKFConfig())
+        tekf.ekf_update_batch(a.pos, a.cov, torch.zeros(4, 2), a.valid, torch.eye(4),
+                              CAM, "projective", tekf.LandmarkEKFConfig())

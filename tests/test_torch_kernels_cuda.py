@@ -20,7 +20,13 @@ kernel.  A short GraphSLAM run (an out-and-back walk through a random
 world, with closures and a relocalisation, at most 2 finished-map arenas
 kept on the card) on the card gives the CPU run's
 per-frame status and map, counts and closure events, and its trajectory
-within 1e-3 m / 1e-3 rad.
+within 1e-3 m / 1e-3 rad.  The RGB-D path: FAST and BRIEF bit-exact at
+ICL frame 0's [1, 480, 640] and its keypoints; ICL frames 0 -> 1 through
+``adapt_rgbd -> track_step(model="rgbd")`` on the card give the CPU run's
+measurements bit for bit, its counts, and its pose within 5e-4 (the GN
+route with no kernel: launches FAST 2, BRIEF 2, GN 0); a smoother step
+(KITTI frames 0 -> 1, stereo) on the card gives the CPU run's counts,
+pose within 5e-4, positions within 1e-3 m and buffers within 1e-3.
 """
 import os
 
@@ -170,7 +176,7 @@ def test_kernel_switches_keep_kernels_on_cuda(rng):
     reset_launch_counts()
     meas = frontend.adapt_stereo(left, right, frontend.StereoAdaptorConfig(
         extractor=FeatureExtractorConfig(dense_brief=False)))
-    tracker.track_step(tracker.initial_state(64, "cuda"), meas.points, meas.desc, meas.valid,
+    tracker.track_step(tracker.initial_state(64, device="cuda"), meas.points, meas.desc, meas.valid,
                        cam, tracker.TrackerConfig(gn_pallas=False), "stereo")
     assert launch_counts() == {"fast": 1, "brief": 1, "gn_burst": 3}
 
@@ -245,3 +251,83 @@ def test_graphslam_on_the_card_matches_cpu(rng):
     d_t, d_ang = se3.error_t_and_angle(torch.from_numpy(np.stack(g.trajectory())),
                                        torch.from_numpy(np.stack(c.trajectory())))
     assert float(d_t.max()) <= 1e-3 and float(d_ang.max()) <= 1e-3
+
+
+def _icl_frames():
+    return list(datasets.iter_bundled_icl(DATA))[:2]
+
+
+def test_fast_and_brief_kernels_at_icl_frame_0():
+    from srrg2_proslam_tpu_torch.ops.features import (
+        FeatureExtractorConfig, _keypoint_rows_cols, detect_keypoints_batch)
+
+    img = torch.from_numpy(_icl_frames()[0].intensity)[None].cuda()
+    assert img.shape == (1, 480, 640)
+    cfg = FeatureExtractorConfig()
+    got = fast.fast_scores_kernel(img, cfg.detector_threshold)
+    ref = fast.fast_scores_plain(img, cfg.detector_threshold)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and int((ref > 0).sum()) > 1000
+    uv, _, valid = detect_keypoints_batch(img, cfg)
+    y, x = _keypoint_rows_cols(uv, 480, 640)
+    smooth = _boxfilter(img, cfg.smoothing_window).contiguous()
+    got = brief.brief_descriptors(smooth, y, x, valid)
+    ref = brief.brief_descriptors_plain(smooth, y, x, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1152, 256) and int(valid.sum()) > 300
+    assert torch.equal(got, ref)
+
+
+def _track(frames, device, model, cfg):
+    from srrg2_proslam_tpu_torch.models import frontend, tracker
+
+    state = tracker.initial_state(4096, cfg.landmark_estimator, device=device)
+    out = []
+    for a, b in frames:
+        a, b = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        if model == "rgbd":
+            cam = datasets.icl_camera()
+            meas = frontend.adapt_rgbd(a, b, frontend.DepthAdaptorConfig())
+        else:
+            cam = datasets.kitti_camera(*a.shape)
+            meas = frontend.adapt_stereo(a, b, frontend.StereoAdaptorConfig())
+        state, stats, _ = tracker.track_step(state, meas.points, meas.desc, meas.valid, cam,
+                                             cfg, model)
+        out.append(([t.cpu() for t in meas], {k: int(getattr(stats, k)) for k in (
+            "num_measurements", "num_matches", "num_inliers", "num_merges",
+            "num_additions")}))
+    return state.to("cpu"), out
+
+
+def test_rgbd_track_step_on_the_card_matches_cpu():
+    from srrg2_proslam_tpu_torch.models import tracker
+
+    frames = [(f.intensity, f.depth) for f in _icl_frames()]
+    reset_launch_counts()
+    g_state, g_out = _track(frames, "cuda", "rgbd", tracker.TrackerConfig())
+    assert launch_counts() == {"fast": 2, "brief": 2, "gn_burst": 0}
+    c_state, c_out = _track(frames, "cpu", "rgbd", tracker.TrackerConfig())
+    for (g_meas, g_counts), (c_meas, c_counts) in zip(g_out, c_out):
+        assert all(torch.equal(a, b) for a, b in zip(g_meas, c_meas))
+        assert g_counts == c_counts
+    assert c_out[1][1]["num_inliers"] > 30
+    assert float((g_state.T_lm_robot - c_state.T_lm_robot).abs().max()) <= 5e-4
+
+
+def test_smoother_step_on_the_card_matches_cpu():
+    from srrg2_proslam_tpu_torch.models import tracker
+
+    frames = [(f.left, f.right) for f in datasets.iter_bundled_kitti(DATA, "city")][:2]
+    cfg = tracker.TrackerConfig(landmark_estimator="smoother")
+    reset_launch_counts()
+    g_state, g_out = _track(frames, "cuda", "stereo", cfg)
+    assert launch_counts() == {"fast": 2, "brief": 2, "gn_burst": 6}
+    c_state, c_out = _track(frames, "cpu", "stereo", cfg)
+    for (_, g_counts), (_, c_counts) in zip(g_out, c_out):
+        assert g_counts == c_counts
+    assert c_out[1][1]["num_merges"] > 50
+    assert float((g_state.T_lm_robot - c_state.T_lm_robot).abs().max()) <= 5e-4
+    assert torch.equal(g_state.arena.valid, c_state.arena.valid)
+    assert float((g_state.arena.pos - c_state.arena.pos).abs().max()) <= 1e-3
+    for a, b in zip(g_state.meas_buf, c_state.meas_buf):
+        assert float((a.double() - b.double()).abs().max()) <= 1e-3

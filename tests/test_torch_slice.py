@@ -169,22 +169,22 @@ def test_carried_state_step(frames, jax_run, k, options):
 
 
 def test_unsupported_options_raise():
-    cam = datasets.kitti_camera()
-    state = tracker.initial_state(8, "cpu")
-    pts, desc, valid = torch.zeros(4, 4), torch.zeros(4, 256, dtype=torch.int8), torch.zeros(4, dtype=torch.bool)
-    for cfg, model in [(tracker.TrackerConfig(), "rgbd"),
-                       (tracker.TrackerConfig(landmark_estimator="smoother"), "stereo"),
-                       (tracker.TrackerConfig(motion_prior_translation_info=1.0), "stereo")]:
+    """Oriented BRIEF and the sub-pixel disparity refinement are not ported."""
+    oriented = frontend.FeatureExtractorConfig(oriented=True)
+    img = torch.zeros(40, 60)
+    for adapt in (lambda: frontend.adapt_stereo(img, img, frontend.StereoAdaptorConfig(
+                      extractor=oriented)),
+                  lambda: frontend.adapt_rgbd(img, img, frontend.DepthAdaptorConfig(
+                      extractor=oriented)),
+                  lambda: frontend.adapt_stereo(img, img, frontend.StereoAdaptorConfig(
+                      subpixel_refinement=True))):
         with pytest.raises(NotImplementedError):
-            tracker.track_step(state, pts, desc, valid, cam, cfg, model)
-    with pytest.raises(NotImplementedError):
-        frontend.adapt_stereo(torch.zeros(40, 60), torch.zeros(40, 60),
-                              frontend.StereoAdaptorConfig(subpixel_refinement=True))
+            adapt()
 
 
 def test_entry_points_default_to_the_card():
     """With no device given the state lives on the card; without one it raises."""
-    d = tracker.state_to_numpy(tracker.initial_state(8, "cpu"))
+    d = tracker.state_to_numpy(tracker.initial_state(8, device="cpu"))
 
     def leaves(x):
         return [t for v in x for t in (leaves(v) if isinstance(v, tuple) else [v])]
