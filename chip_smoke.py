@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port: stereo VO on full-size KITTI
 frames, per-frame GraphSLAM over a rendered closed loop, then RGB-D
-GraphSLAM (ICL and the loop as RGB-D, with local BA) and the other
-landmark estimators and the motion prior on KITTI.
+GraphSLAM (ICL and the loop as RGB-D, with local BA), the other landmark
+estimators and the motion prior on KITTI, and the shipped configurations
+through the sequence API.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -57,7 +58,23 @@ Phases, any failure exits non-zero:
      1.0 / 4.0: the VO gate, the CPU run's counts and final pose, launches
      FAST 5 / BRIEF 5 / GN 15 (GN 0 with the prior: its GN has no kernel,
      as in the JAX package) and every GN burst within GN_ATOL of its plain
-     burst.
+     burst;
+  7. the shipped configurations and the sequence API: the 5 KITTI pairs
+     under the port-loaded euroc_adaptor.json (oriented BRIEF, sub-pixel
+     disparities) and aggressive_motion_adaptor.json (sub-pixel) on the
+     card against the port's CPU run (keypoints, valid rows and uL/v
+     bit-exact, u_R within UR_ATOL, oriented descriptor bits within
+     ORIENTED_GPU_BITS per frame; launches FAST 5 / BRIEF 0 oriented, FAST 5 / BRIEF 5 upright);
+     the rendered loop of phase 5 through GraphSLAM.process_sequence with
+     speculation_depth 8 and chunk_size 16: FAST and BRIEF bit-exact and
+     timed at the first chunk's inputs ([32, 480, 640], 32 x 1152
+     keypoints), launches FAST and BRIEF once per chunk and GN 3 per
+     tracker step (frames replayed after splits and losses included), phase
+     5's gates, phase 5's per-frame run equal frame for frame (status, map,
+     every pose within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD), ms/frame from a
+     second pass beside phase 5's; kitti_slam.json + kitti_adaptor.json
+     through process_sequence over the 5 KITTI pairs equal to the CPU run,
+     and every shipped SLAM config constructs a GraphSLAM on the card.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -81,6 +98,14 @@ E2E_MIN_FRAMES, E2E_MIN_MAPS = 120, 10
 E2E_T_RMSE, E2E_ROT_DEG, E2E_ATE = 0.30, 3.0, 0.5
 SLAM_POSE_TOL_M = 1e-3       # every frame's pose, GPU vs CPU GraphSLAM run
 SLAM_POSE_TOL_RAD = 1e-3
+# phase 7: the oriented adaptor on the card against the port's CPU run,
+# under the bound pinned against JAX on the CPU (cuDNN's convolution and
+# the card's atan2/sincos may round otherwise than the CPU's, so a rotated
+# pair can flip where two bilinear samples tie; 0 bits measured on the H100)
+ORIENTED_GPU_BITS = 8        # differing descriptor bits per frame, card vs CPU
+UR_ATOL = 2.5e-4             # px, u_R card vs CPU (sub-pixel refinement)
+SEQ_CHUNK = 16               # phase 7: chunk_size of the sequence run
+SEQ_DEPTH = 8                # phase 7: speculation_depth of the sequence run
 CPU_BUDGET_S = 240.0         # the CPU reference stops after this once >= 3 splits ran
 RGBD_CPU_BUDGET_S = 60.0     # likewise for the RGB-D loop's CPU reference
 ICL_GATE_T, ICL_GATE_ANGLE = 5e-3, 0.01   # tests/test_rgbd_integration.py:73-74
@@ -523,26 +548,27 @@ def loop_gate(slam, gt, tag: str, smi: str):
 
 
 def compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, tag: str, smi: str):
-    """The GPU and CPU GraphSLAM runs over the same frames: per-frame status
-    and map, counts and closure events equal, every pose within
-    SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD; fail otherwise."""
+    """Two GraphSLAM runs over the same frames (the card's and the CPU's, or
+    two modes): per-frame (status, map) rows, counts and closure events
+    equal, every pose within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD; fail
+    otherwise."""
     import numpy as np
     import torch
 
     from srrg2_proslam_tpu_torch.ops import se3
 
     if cpu_rows != ref_rows:
-        diff = next(i for i, (a, b) in enumerate(zip(ref_rows, cpu_rows)) if a != b)
-        fail(f"{tag}: GPU and CPU GraphSLAM runs part at frame {diff}: {ref_rows[diff]} vs "
-             f"{cpu_rows[diff]}")
+        diff = next((i for i, (a, b) in enumerate(zip(ref_rows, cpu_rows)) if a != b),
+                    min(len(ref_rows), len(cpu_rows)))
+        fail(f"{tag}: the runs part at frame {diff}: {ref_rows[diff]} vs {cpu_rows[diff]}")
     if (slam_counts(ref_slam) != slam_counts(cpu_slam)
             or ref_slam.closure_events != cpu_slam.closure_events):
-        fail(f"{tag}: GPU and CPU GraphSLAM runs disagree: {slam_counts(ref_slam)} "
+        fail(f"{tag}: the runs disagree: {slam_counts(ref_slam)} "
              f"{ref_slam.closure_events} vs {slam_counts(cpu_slam)} {cpu_slam.closure_events}")
     dt, dang = se3.error_t_and_angle(torch.from_numpy(np.stack(ref_slam.trajectory())),
                                      torch.from_numpy(np.stack(cpu_slam.trajectory())))
     worst_t = dt.max(dim=1).values
-    print(f"{tag}, GPU vs CPU GraphSLAM over {len(cpu_rows)} frames: per-frame status and map "
+    print(f"{tag} over {len(cpu_rows)} frames: per-frame status and map "
           f"equal, counts and closure events equal; trajectory frame for frame: max |dt| "
           f"{float(worst_t.max()):.3e} m (frame {int(worst_t.argmax())}), max angle "
           f"{float(dang.max()):.3e} rad (frame {int(dang.argmax())}), final |dt| "
@@ -550,7 +576,7 @@ def compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, tag: str, smi: str
           f"frame) [{smi}]", flush=True)
     if not (float(worst_t.max()) <= SLAM_POSE_TOL_M
             and float(dang.max()) <= SLAM_POSE_TOL_RAD):
-        fail(f"{tag}: GPU and CPU GraphSLAM trajectories disagree")
+        fail(f"{tag}: the trajectories disagree")
 
 
 def phase_rgbd(dev, smi, report, thr):
@@ -648,7 +674,8 @@ def phase_rgbd(dev, smi, report, thr):
         print(f"RGB-D CPU run over all {n} frames: {time.perf_counter() - t0:.1f} s [{smi}]",
               flush=True)
         ref_slam, ref_rows = slam, rows
-    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, "RGB-D loop", smi)
+    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows,
+                      "RGB-D loop, GPU vs CPU GraphSLAM", smi)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -718,6 +745,187 @@ def phase_estimators(dev, smi, report, frames_np, frames_gpu, cam, adapt_cfg):
             fail(f"{tag}: GPU and CPU final poses disagree")
     report["gn_burst"]["max_abs_err_estimators"] = max(gn_errs)
     report["gn_burst"]["max_abs_err"] = max(report["gn_burst"]["max_abs_err"], max(gn_errs))
+
+
+
+
+def phase_adaptor_configs(dev, smi, frames_np, frames_gpu):
+    """Phase 7a: the 5 KITTI pairs under the port-loaded euroc_adaptor.json
+    (oriented, sub-pixel) and aggressive_motion_adaptor.json (upright,
+    sub-pixel) on the card against the port's CPU run."""
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
+    from srrg2_proslam_tpu_torch.ops.features import extract_features_batch
+    from srrg2_proslam_tpu_torch.utils import config as cfg
+
+    for name in ("euroc_adaptor", "aggressive_motion_adaptor"):
+        acfg = cfg.load(os.path.join(ROOT, "configurations", f"{name}.json"))
+        oriented = acfg.extractor.oriented
+        kernels.reset_launch_counts()
+        gpu = [adapt_stereo(l, r, acfg) for l, r in frames_gpu]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {"fast": 5, "brief": 0 if oriented else 5, "gn_burst": 0}
+        bits, ur, valid_diff, kp_exact = [], [], [], True
+        for (l, r), (lc, rc), g in zip(frames_gpu, (
+                (torch.from_numpy(f.left), torch.from_numpy(f.right)) for f in frames_np), gpu):
+            c = adapt_stereo(lc, rc, acfg)
+            fg = extract_features_batch(torch.stack([l, r]), acfg.extractor)
+            fc = extract_features_batch(torch.stack([lc, rc]), acfg.extractor)
+            kp_exact &= all(torch.equal(getattr(fg, k).cpu(), getattr(fc, k))
+                            for k in ("uv", "response", "valid"))
+            g = [t.cpu() for t in g]
+            both = g[2] & c.valid
+            bits.append(int((g[1][both] != c.desc[both]).sum()))
+            valid_diff.append(int((g[2] != c.valid).sum()))
+            d = (g[0][both] - c.points[both]).abs()
+            ur.append((float(d[:, 2].max()), float(d[:, [0, 1, 3]].max())))
+        print(f"KITTI adaptor {name}.json (oriented {oriented}, sub-pixel "
+              f"{acfg.subpixel_refinement}), card vs CPU: keypoints bit-exact {kp_exact}; "
+              f"valid rows differing per frame {valid_diff}; descriptor bits differing per "
+              f"frame {bits} (bound {ORIENTED_GPU_BITS if oriented else 0}); u_R max diff "
+              f"{max(u for u, _ in ur):.3e} px (bound {UR_ATOL}), uL/v max diff "
+              f"{max(o for _, o in ur):.3e}; launches {counts} [{smi}]", flush=True)
+        if counts != want:
+            fail(f"{name}: launches {counts} != {want}")
+        if not kp_exact or max(u for u, _ in ur) > UR_ATOL or max(o for _, o in ur) > 0:
+            fail(f"{name}: the card's adaptor disagrees with the CPU run")
+        if max(bits) > (ORIENTED_GPU_BITS if oriented else 0) or max(valid_diff) > 0:
+            fail(f"{name}: descriptor bits {bits} / valid rows {valid_diff} past the bound")
+
+
+def run_sequence(frames, cam, device, adapt_cfg, config):
+    """GraphSLAM.process_sequence over stacked (left, right) images; returns
+    (slam, per-frame (status, map) rows): each frame's status as it is
+    consumed (whatever the speculation depth) and its local map."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+
+    slam = GraphSLAM(cam, config, device=device)
+    statuses = []
+    consume = slam._consume_frame
+
+    def consume_and_record(e):
+        consume(e)
+        statuses.append(slam.status)
+
+    slam._consume_frame = consume_and_record
+    lefts = torch.stack([a for (a, _), _ in frames])
+    rights = torch.stack([b for (_, b), _ in frames])
+    slam.process_sequence(lefts, rights, [t for _, t in frames], adapt_cfg)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return slam, list(zip(statuses, (f.local_map_index for f in slam.frames)))
+
+
+def phase_sequence(dev, smi, report, thr, loop, ref_slam, ref_rows, ref_ms, adapt_cfg):
+    """Phase 7b: the rendered loop through GraphSLAM.process_sequence at
+    phase 5's config with speculation_depth 8 and chunk_size 16: K3 and K1
+    at the first chunk's inputs, launches, the gates, phase 5's per-frame
+    run frame for frame, and ms/frame.  Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import synthetic
+    from srrg2_proslam_tpu_torch.kernels.brief import brief_descriptors, brief_descriptors_plain
+    from srrg2_proslam_tpu_torch.kernels.fast import fast_scores_kernel, fast_scores_plain
+
+    scam = synthetic.synthetic_camera()
+    frames = [((f.left, f.right), f.timestamp) for f in loop]
+    n = len(frames)
+    config = dataclasses.replace(slam_config(), speculation_depth=SEQ_DEPTH,
+                                 chunk_size=SEQ_CHUNK)
+    first = torch.cat([torch.stack([f.left for f in loop[:SEQ_CHUNK]]),
+                       torch.stack([f.right for f in loop[:SEQ_CHUNK]])])
+    inp = frontend_inputs(first, adapt_cfg.extractor)
+    errs = check_frontend(inp, thr, f"first chunk of the sequence, B = {2 * SEQ_CHUNK}")
+    images, smooth, y, x, valid = (inp[k] for k in ("images", "smooth", "y", "x", "valid"))
+    fb = fast_bound(images, thr)
+    timed = {
+        "fast": (lambda: fast_scores_kernel(images, thr), "fast_scores_kernel",
+                 lambda: fast_scores_plain(images, thr), (fb["bound_ms"], fb["bound_by"])),
+        "brief": (lambda: brief_descriptors(smooth, y, x, valid), "brief_descriptors_kernel",
+                  lambda: brief_descriptors_plain(smooth, y, x, valid),
+                  brief_bound(smooth, y, x, valid))}
+    for kname, (fn, kernel, plain, (b_ms, b_by)) in timed.items():
+        r = report[kname]
+        r["ms_b32"] = device_ms(fn, kernel=kernel)
+        r["plain_ms_b32"] = device_ms(plain)
+        r["bound_ms_b32"], r["bound_by_b32"] = b_ms, b_by
+        r["max_abs_err"] = max(r["max_abs_err"], errs[kname])
+        print(f"  {kname} at the first chunk {tuple(images.shape)} ({int(valid.sum())} valid "
+              f"keypoints): device {r['ms_b32']:.5f} ms/call, plain {r['plain_ms_b32']:.5f} "
+              f"ms, bound {b_ms:.6f} ms ({b_by}) [{smi}]", flush=True)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, rows = run_sequence(frames, scam, dev, adapt_cfg, config)
+    first_pass = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    chunks = -(-n // SEQ_CHUNK)
+    gn_want = 3 * (n + slam.num_replayed_frames)
+    print(f"process_sequence (speculation_depth {SEQ_DEPTH}, chunk_size {SEQ_CHUNK}): {n} "
+          f"frames, {slam_counts(slam)}, {slam.num_replayed_frames} frames replayed "
+          f"({slam.num_reloc_rollbacks} relocalisation rollbacks, {slam.num_reloc_replays} "
+          f"frames replayed there); launches {counts}, predicted fast {chunks}, brief "
+          f"{chunks}, gn_burst 3 x ({n} + {slam.num_replayed_frames}) = {gn_want} [{smi}]",
+          flush=True)
+    if counts != {"fast": chunks, "brief": chunks, "gn_burst": gn_want}:
+        fail(f"sequence launch counts {counts} != fast {chunks}, brief {chunks}, "
+             f"gn_burst {gn_want}")
+    loop_gate(slam, [f.gt_pose for f in loop], "sequence rendered-loop", smi)
+    compare_slam_runs(ref_slam, ref_rows, slam, rows,
+                      "process_sequence vs phase 5's per-frame GraphSLAM", smi)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_sequence(frames, scam, dev, adapt_cfg, config)
+    steady = (time.perf_counter() - t0) / n * 1e3
+    print(f"sequence ms/frame: {steady:.3f} (second pass, process_sequence with the "
+          f"batched adaptor, speculation_depth {SEQ_DEPTH}), first pass "
+          f"{first_pass / n * 1e3:.3f}; phase 5 per-frame GraphSLAM ms/frame {ref_ms:.3f} "
+          f"[{smi}]", flush=True)
+    return counts
+
+
+def phase_shipped(dev, smi, frames_np, frames_gpu):
+    """Phase 7c: kitti_slam.json + kitti_adaptor.json through
+    process_sequence over the 5 KITTI pairs on the card against the CPU,
+    and every shipped SLAM config constructs a GraphSLAM on the card."""
+    import glob
+
+    import torch
+
+    from srrg2_proslam_tpu_torch.io import datasets
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+    from srrg2_proslam_tpu_torch.utils import config as cfg
+
+    conf = os.path.join(ROOT, "configurations")
+    scfg = cfg.load(os.path.join(conf, "kitti_slam.json"))
+    acfg = cfg.load(os.path.join(conf, "kitti_adaptor.json"))
+    cam = datasets.kitti_camera(*frames_np[0].left.shape)
+    stamps = [f.timestamp for f in frames_np]
+    gpu, gpu_rows = run_sequence(list(zip(frames_gpu, stamps)), cam, dev, acfg, scfg)
+    cpu, cpu_rows = run_sequence(
+        [((torch.from_numpy(f.left), torch.from_numpy(f.right)), f.timestamp)
+         for f in frames_np], cam, "cpu", acfg, scfg)
+    compare_slam_runs(gpu, gpu_rows, cpu, cpu_rows,
+                      "KITTI, kitti_slam.json + kitti_adaptor.json, process_sequence, GPU vs CPU",
+                      smi)
+    names = []
+    for path in sorted(glob.glob(os.path.join(conf, "*_slam.json"))):
+        name = os.path.basename(path)[:-len("_slam.json")]
+        model = "rgbd" if name in ("icl", "tum") else "stereo"
+        GraphSLAM(cam, cfg.load(path), model=model, device=dev)
+        names.append(name)
+    print(f"shipped SLAM configs constructed on the card: {names} [{smi}]", flush=True)
+    if len(names) != 6:
+        fail(f"expected 6 shipped SLAM configs, found {names}")
 
 
 def main():
@@ -948,14 +1156,15 @@ def main():
         print(f"CPU run (plain versions) over all {n} frames: {cpu_s:.1f} s [{smi}]",
               flush=True)
         ref_slam, ref_rows = slam, rows
-    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, "rendered loop", smi)
+    compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows,
+                      "rendered loop, GPU vs CPU GraphSLAM", smi)
 
     # the second pass, timing off: GraphSLAM ms/frame
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slam2, _ = run_slam(gpu_frames, scam, dev, adapt_cfg)
-    steady = (time.perf_counter() - t0) / n * 1e3
-    print(f"GraphSLAM ms/frame: {steady:.3f} (second pass, adapt_stereo + process, "
+    slam_ms = (time.perf_counter() - t0) / n * 1e3
+    print(f"GraphSLAM ms/frame: {slam_ms:.3f} (second pass, adapt_stereo + process, "
           f"{slam2.num_maps} maps, no stage timing), first pass {first_pass / n * 1e3:.3f} "
           f"[{smi}]", flush=True)
 
@@ -996,6 +1205,13 @@ def main():
     phase_estimators(dev, smi, report, frames_np, frames_gpu, cam, adapt_cfg)
     print(f"phase 6: {time.perf_counter() - t6:.1f} s [{smi}]", flush=True)
 
+    # ---- 7. the shipped configurations and the sequence API ---------------
+    t7 = time.perf_counter()
+    phase_adaptor_configs(dev, smi, frames_np, frames_gpu)
+    seq_counts = phase_sequence(dev, smi, report, thr, loop, slam, rows, slam_ms, adapt_cfg)
+    phase_shipped(dev, smi, frames_np, frames_gpu)
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s [{smi}]", flush=True)
+
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
                "brief": ("srrg2_proslam_tpu_torch/csrc/brief.cu",
@@ -1007,6 +1223,7 @@ def main():
          "launches": counts[kname], "launches_per_frame": counts[kname] / n,
          "launches_vo": vo_counts[kname], "launches_vo_per_frame": vo_counts[kname] / len(frames_gpu),
          "launches_rgbd": rgbd_counts[kname],
+         "launches_sequence": seq_counts[kname],
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The JAX package ``srrg2_proslam_tpu`` is the reference; this package mirrors
 its layout module for module, so each function has a counterpart of the
 same name:
 
-ops/       SE3, pinhole, triangulation, Hamming, matching, features,
+ops/       SE3, pinhole, triangulation, Hamming, matching, features
+           (upright and oriented BRIEF), sub-pixel disparity refinement,
            Gauss-Newton, EKF, weighted-mean and smoother landmark
            estimators, pose-graph optimization, bundle adjustment — plain
            functions on tensors.
@@ -15,16 +16,19 @@ io/        bundled KITTI and ICL readers with zlib/numpy PNG and PGM
            decoders, quaternions; the rendered room and trajectories
            (stereo or RGB-D).
 metrics/   ATE / RPE trajectory evaluation (numpy).
-utils/     profile_time scoped host timers.
+utils/     profile_time scoped host timers; the config registry and its
+           JSON round trip (loads ``configurations/*.json``).
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
 csrc/      the CUDA C++ sources, built for sm_90a at first use.
 
 Imports torch and numpy only, never jax.  The port covers stereo and
-RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` -> ``track_step``, with the
-EKF, weighted-mean or smoother landmark estimator and the optional
-motion prior) and per-frame GraphSLAM on it (-> ``GraphSLAM.process``,
-with optional local BA).
+RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` and their batched forms ->
+``track_step``, with the EKF, weighted-mean or smoother landmark estimator
+and the optional motion prior) and GraphSLAM on it (->
+``GraphSLAM.process``, speculative or synchronous, with optional local BA,
+or ``GraphSLAM.process_sequence`` over whole image stacks); every shipped
+configuration loads through ``utils.config.load``.
 """
 
 import torch as _torch

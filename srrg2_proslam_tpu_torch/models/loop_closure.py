@@ -24,6 +24,7 @@ from ..ops import se3
 from ..ops.features import _top_k
 from ..ops.gn import gn_iterate_batch, point3_system
 from ..ops.hamming import distance_matrix
+from ..utils import config as cfg
 from .landmarks import DESC_BITS, LandmarkArena
 
 # per-map best-match key = distance * _ROW_SHIFT + flat db row, in int32:
@@ -33,6 +34,7 @@ _DIST_SENTINEL = 300
 _KEY_SENTINEL = torch.iinfo(torch.int32).max
 
 
+@cfg.register
 @dataclass(frozen=True)
 class LoopDetectorConfig:
     """Same fields and defaults as the JAX package's LoopDetectorConfig."""

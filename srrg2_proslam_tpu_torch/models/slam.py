@@ -1,8 +1,7 @@
 """Graph SLAM orchestrator: local maps, loop closing, PGO, relocalisation.
 
-Port of srrg2_proslam_tpu/models/slam.py, per-frame synchronous mode
-(``speculation_depth = 0``) for the stereo and RGB-D models with every
-landmark estimator of the tracker.
+Port of srrg2_proslam_tpu/models/slam.py for the stereo and RGB-D models
+with every landmark estimator of the tracker.
 ``process`` runs one tracker step (models/tracker.py) and reads back the
 frame's small status packet (the one host read per frame) to drive the
 status machine (Initializing / Tracking / Lost) and the viewpoint
@@ -18,16 +17,34 @@ frame's association is kept (the last ``max_keyframes``), and a split
 first refines the finished map's landmarks by bundle adjustment over them
 (ops/ba.py) before the map enters the database.
 
-The speculative frame queue, the chunked sequence mode and the mesh of the
-JAX package are not carried over: with no queue, a split's closure
-decision is taken inside the same ``process`` call, right after the split
-frame's record.  Settings that need them raise NotImplementedError.
+Speculation (``speculation_depth`` > 0): ``process_dispatch`` launches a
+frame's tracker step and starts a non-blocking copy of its status packet
+into pinned host memory, marked by a CUDA event; ``process_finalize``
+consumes queued frames down to the depth.  A split or loss found in a
+consumed frame rolls the tracker back to that frame, runs its handler and
+re-dispatches the frames behind it; a split's closure decision waits in
+the queue as a marker, consumed before any later frame, and a
+relocalisation retires the map opened at the split and replays the
+frames queued behind it.  ``flush`` consumes everything.  The end state
+equals the synchronous run's (``speculation_depth = 0``).
+
+Sequences (``process_sequence``, ``process_meas_sequence``, with
+``chunk_size`` > 0): the stacks are uploaded once, ``chunk_size *
+chunk_group`` frames at a time go through the batched adaptor (one FAST
+and one BRIEF launch per chunk on the card), and each frame then goes
+through the per-frame pipeline above.  The JAX package's fused chunk
+program (models/chunk.py: the adaptor, tracker, status machine and split
+pipeline as one device program per chunk, with rollback in the op) is not
+carried over: its results are pinned to the per-frame loop, which this
+mode runs; on the card its counterpart would be a CUDA graph of a chunk's
+tracker steps.  ``chunk_lag`` has no effect.  The device mesh raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -35,13 +52,16 @@ import torch
 from ..ops import ba as ba_ops
 from ..ops import pgo, se3
 from ..ops.pinhole import Camera
+from ..utils import config as cfg
 from ..utils.profiling import profile_time
 from . import landmarks as lm
 from . import loop_closure
+from .frontend import adapt_rgbd_batch, adapt_stereo_batch
 from .tracker import (TrackerConfig, TrackerState, _check_supported, _robot_sensor,
                       initial_state, track_step)
 
 
+@cfg.register
 @dataclass(frozen=True)
 class SplittingConfig:
     """LocalMapSplittingCriterionViewpoint3D (kitti.conf:542-550)."""
@@ -50,6 +70,7 @@ class SplittingConfig:
     maximum_rotation_rad: float = 0.25
 
 
+@cfg.register
 @dataclass(frozen=True)
 class RelocalizerConfig:
     """MultiRelocalizer3D gates (kitti.conf:91-110)."""
@@ -63,6 +84,7 @@ class RelocalizerConfig:
 BAConfig = ba_ops.BAConfig     # the type of LocalBAConfig.ba, as in the JAX package
 
 
+@cfg.register
 @dataclass(frozen=True)
 class LocalBAConfig:
     """Split-time refinement of the finished local map (ops/ba.py) over its
@@ -77,13 +99,15 @@ class LocalBAConfig:
     max_refine_maturity: int = 0
 
 
+@cfg.register
 @dataclass(frozen=True)
 class GraphSLAMConfig:
     """Same fields and defaults as the JAX package's GraphSLAMConfig.
 
-    ``speculation_depth > 0`` and ``chunk_size > 0`` raise
-    NotImplementedError; ``chunk_lag`` and ``chunk_group`` only
-    matter with ``chunk_size > 0``.
+    ``speculation_depth``: frames dispatched ahead of the host's status
+    machine (0: synchronous).  ``chunk_size * chunk_group``: frames per
+    batched adaptor call of ``process_sequence`` (0: no sequence API).
+    ``chunk_lag`` has no effect (the JAX package's chunk program queue).
     """
 
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
@@ -127,12 +151,50 @@ class FrameRecord(NamedTuple):
     T_lm_robot: np.ndarray  # robot in its local map at this frame
 
 
+class _HostCopy:
+    """A device tensor's copy to the host, started without blocking: a
+    non-blocking copy into pinned memory and a CUDA event recorded after
+    it.  A CPU tensor is its own copy, always ready."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t, None
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        # the pinned buffer holds stale bytes until the copy's event completes
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _PendingFrame(NamedTuple):
+    """A dispatched frame not yet consumed: its measurements (to re-dispatch
+    after a rollback), the tracker state after it (to roll back to), its
+    stats (local BA keyframes) and its status packet's host copy."""
+
+    meas: tuple           # (points, desc, valid)
+    timestamp: float
+    state: TrackerState
+    stats: object
+    packet: _HostCopy
+
+
 @dataclass
 class _ClosureMarker:
-    """A split's loop query: its decision packet (host) and the device
-    tensors the closure and relocalisation need."""
+    """A split's loop query in the frame queue: its decision packet's host
+    copy and the device tensors the closure and relocalisation need."""
 
-    packet: np.ndarray              # [K, 22] (loop_closure.detect_and_validate)
+    packet: _HostCopy               # [K, 22] (loop_closure.detect_and_validate)
     match_row: torch.Tensor         # [K, Q]
     match_mask: torch.Tensor        # [K, Q]
     T_candidates: torch.Tensor      # [K, 4, 4] query map in each candidate
@@ -148,25 +210,29 @@ class _ClosureMarker:
 def _check_graph_config(config: GraphSLAMConfig, model: str, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("the device mesh is not ported yet")
-    if config.speculation_depth > 0:
-        raise NotImplementedError("speculation_depth > 0 is not ported: "
-                                  "the port runs synchronously")
-    if config.chunk_size > 0:
-        raise NotImplementedError("chunked stepping (chunk_size > 0) is not ported yet")
     _check_supported(config.tracker, model)
 
 
 class GraphSLAM:
-    """Per-frame graph SLAM on one device.
+    """Graph SLAM on one device.
 
     ``process(meas_points, meas_desc, meas_valid, timestamp)`` per frame,
-    with the adaptor's tensors on ``device``; read ``robot_in_world()``,
-    ``trajectory()`` and ``status``.  ``device`` defaults to the card and
-    raises without one.  The stages carry the JAX package's
-    ``profile_time`` scopes (utils/profiling.py): tracker_dispatch,
-    status_readback, split, db_insert, loop_detect, closure_decision (the
-    whole decision: agreement, backstop rounds and their PGO), pgo and
-    reloc.
+    with the adaptor's tensors on ``device`` (or ``process_dispatch`` /
+    ``process_finalize``, then ``flush``), or ``process_sequence`` over
+    whole image stacks; read ``robot_in_world()``, ``trajectory()`` and
+    ``status``.  ``device`` defaults to the card and raises without one.
+    The stages carry the JAX package's ``profile_time`` scopes
+    (utils/profiling.py): tracker_dispatch, status_readback, split,
+    db_insert, loop_detect, closure_decision (the whole decision:
+    agreement, backstop rounds and their PGO), pgo and reloc.
+
+    ``num_reloc_rollbacks`` counts relocalisations that found frames
+    dispatched behind the split (speculation) and ``num_reloc_replays``
+    those frames, re-dispatched into the reloaded map; both stay 0 in the
+    synchronous mode.  (In the JAX package's chunk program they count its
+    device rollbacks and chunk replays.)  ``num_replayed_frames`` counts
+    every re-dispatched frame, after splits and losses too: each runs its
+    tracker step again.
     """
 
     def __init__(self, cam: Camera, config: GraphSLAMConfig = GraphSLAMConfig(),
@@ -203,6 +269,12 @@ class GraphSLAM:
         # local-BA keyframes of the active map: (T_lm_sensor, match_idx,
         # GN measurement rows, match_mask), device tensors
         self._ba_keyframes: list = []
+        # dispatched frames and split markers, consumed in order
+        self._queue = deque()
+        self._draining = False
+        self.num_reloc_rollbacks = 0
+        self.num_reloc_replays = 0
+        self.num_replayed_frames = 0
 
     def _initial_state(self) -> TrackerState:
         return initial_state(self.config.arena_capacity,
@@ -298,7 +370,7 @@ class GraphSLAM:
             arena.desc, arena.valid, arena.pos, self.current_map, self.db,
             self.graph.poses, self.config.loop, self.graph.capacity)
         return _ClosureMarker(
-            packet=packet.cpu().numpy(), match_row=result.match_row,
+            packet=_HostCopy(packet), match_row=result.match_row,
             match_mask=result.match_mask, T_candidates=closures.T_query_in_ref,
             query_state=state, query_map=self.current_map, timestamp=timestamp,
             T_split=T_split, frame_record_index=len(self.frames))
@@ -308,7 +380,7 @@ class GraphSLAM:
         geometric backstop.  Returns the relocalisation's (k, candidate,
         T_k) when the best accepted closure passes the relocaliser's gates,
         else None."""
-        pkt = m.packet
+        pkt = m.packet.numpy().reshape(-1, 22)
         accepted = [k for k in range(pkt.shape[0]) if pkt[k, 1] > 0.5 and pkt[k, 0] >= 0]
         if not accepted:
             return None
@@ -402,8 +474,11 @@ class GraphSLAM:
     def _relocalize(self, m: _ClosureMarker, k: int, cand: int, T_k: np.ndarray):
         """Move tracking back into the old local map ``cand``: retire the map
         opened at the split, merge the finished query map into the reloaded
-        arena through the closure correspondences, and re-record the split
-        frame in the old map."""
+        arena through the closure correspondences, re-record the split
+        frame in the old map, and re-dispatch the frames queued behind the
+        marker (tracked into the retired map) against the reloaded one."""
+        rest = list(self._queue)
+        self._queue.clear()
         g = self.graph
         pose_valid, edge_valid = g.pose_valid.clone(), g.edge_valid.clone()
         pose_valid[m.new_map] = False
@@ -431,13 +506,30 @@ class GraphSLAM:
         self._ba_keyframes = []
         # the split frame's record belongs to the reloaded map
         self.frames[m.frame_record_index] = FrameRecord(m.timestamp, cand, T_new)
+        if rest:
+            self.num_reloc_rollbacks += 1
+            self.num_reloc_replays += len(rest)
+        self._redispatch(rest)
 
     # ------------------------------------------------------------------
     # per-frame processing
     # ------------------------------------------------------------------
 
     def process(self, meas_points, meas_desc, meas_valid, timestamp: float = 0.0):
-        """One SLAM step on adapted measurements; returns the frame's stats."""
+        """One SLAM step on adapted measurements; returns the frame's stats.
+
+        With ``speculation_depth == 0`` the frame is consumed before this
+        returns; with a positive depth the status machine runs that many
+        frames behind the dispatch.
+        """
+        stats = self.process_dispatch(meas_points, meas_desc, meas_valid, timestamp)
+        self.process_finalize()
+        return stats
+
+    def process_dispatch(self, meas_points, meas_desc, meas_valid,
+                         timestamp: float = 0.0):
+        """Dispatch the frame's tracker step and queue it, with a
+        non-blocking host copy of its status packet; returns its stats."""
         if self.num_maps == 0:
             self._make_new_map(se3.identity(self.device))
             self.status = INITIALIZING
@@ -447,21 +539,65 @@ class GraphSLAM:
                                          self.model)
         self.tracker_state = state
         self.last_stats = stats
-        marker = self._consume_frame(state, stats, meas_points, timestamp)
-        if marker is not None:
-            with profile_time("closure_decision"):
-                reloc = self._consume_marker(marker)
-            if reloc is not None:
-                with profile_time("reloc"):
-                    self._relocalize(marker, *reloc)
+        self._queue.append(_PendingFrame(
+            meas=(meas_points, meas_desc, meas_valid), timestamp=timestamp,
+            state=state, stats=stats, packet=_HostCopy(stats.host_packet)))
         return stats
 
-    def _consume_frame(self, state: TrackerState, stats, meas_points, timestamp: float):
-        """The status machine on the frame's packet (one host read); returns
-        the split's closure marker, if any."""
+    def process_finalize(self):
+        """Consume queued frames down to the speculation depth."""
+        self._drain(self.config.speculation_depth)
+
+    def flush(self):
+        """Consume everything queued (waiting for the card as needed)."""
+        if self._draining:
+            return  # re-entered from inside a consumption
+        self._draining = True
+        try:
+            self._drain(0, force=True)
+        finally:
+            self._draining = False
+
+    def _drain(self, depth: int, force: bool = False):
+        force = force or depth <= 0
+        # a marker whose packet has not landed may wait, while the queue
+        # runs ahead of it up to this cap
+        hard = depth + max(depth, 4)
+        while len(self._queue) > depth:
+            head = self._queue[0]
+            if isinstance(head, _ClosureMarker):
+                if (not force and len(self._queue) <= hard
+                        and not head.packet.ready()):
+                    return
+                self._queue.popleft()
+                with profile_time("closure_decision"):
+                    reloc = self._consume_marker(head)
+                if reloc is not None:
+                    with profile_time("reloc"):
+                        self._relocalize(head, *reloc)
+            else:
+                self._queue.popleft()
+                self._consume_frame(head)
+
+    def _redispatch(self, frames):
+        for f in frames:
+            self.num_replayed_frames += 1
+            self.process_dispatch(*f.meas, f.timestamp)
+
+    def _rollback_replay(self, e: _PendingFrame, handler):
+        """Roll the tracker back to frame ``e``, run ``handler`` (split or
+        loss), then re-dispatch the frames dispatched after ``e``."""
+        rest = list(self._queue)
+        self._queue.clear()
+        self.tracker_state = e.state
+        handler()
+        self._redispatch(rest)
+
+    def _consume_frame(self, e: _PendingFrame):
+        """The status machine on the frame's packet (one host read)."""
         config = self.config
         with profile_time("status_readback"):
-            pkt = stats.host_packet.cpu().numpy()
+            pkt = e.packet.numpy()
         num_inliers, t_norm, angle = int(pkt[0]), float(pkt[1]), float(pkt[2])
         if self._frames_in_current_map == 0:
             # a fresh map's first frame only populates the arena
@@ -472,29 +608,27 @@ class GraphSLAM:
             self.status = LOST
         self._frames_in_current_map += 1
         if config.local_ba.enabled and self.status == TRACKING:
-            self._record_ba_keyframe(state, stats, meas_points)
+            self._record_ba_keyframe(e)
 
-        marker = None
         T_rec = np.eye(4, dtype=np.float32)
         if self.status == LOST:
-            self._handle_lost(state)
+            self._rollback_replay(e, lambda: self._handle_lost(e))
         elif (t_norm > config.splitting.maximum_translation_m
               or angle > config.splitting.maximum_rotation_rad):
             # splitting criterion (viewpoint distance, kitti.conf:542-550)
             T_split = np.eye(4, dtype=np.float32)
             T_split[:3, :] = pkt[8:20].reshape(3, 4)
             with profile_time("split"):
-                marker = self._handle_split(state, T_split, timestamp)
+                self._rollback_replay(e, lambda: self._handle_split(e, T_split))
         else:
             T_rec[:3, :] = pkt[8:20].reshape(3, 4)
-        self.frames.append(FrameRecord(timestamp, self.current_map, T_rec))
-        return marker
+        self.frames.append(FrameRecord(e.timestamp, self.current_map, T_rec))
 
-    def _handle_lost(self, state: TrackerState):
+    def _handle_lost(self, e: _PendingFrame):
         """Lost: close the map and start a fresh one at the predicted world
         pose, with the motion model reset (app_benchmark.cpp:163-169)."""
         self.num_losses += 1
-        T_world_robot = self.graph.poses[self.current_map] @ state.T_lm_robot
+        T_world_robot = self.graph.poses[self.current_map] @ e.state.T_lm_robot
         with profile_time("db_insert"):
             self._finalize_current_map()
         self._make_new_map(T_world_robot)
@@ -502,29 +636,29 @@ class GraphSLAM:
             velocity=torch.zeros(6, dtype=torch.float32, device=self.device))
         self.status = TRACKING
 
-    def _handle_split(self, state: TrackerState, T_split: np.ndarray,
-                      timestamp: float) -> Optional[_ClosureMarker]:
+    def _handle_split(self, e: _PendingFrame, T_split: np.ndarray):
         """Close the current local map, query the loop database, and open the
-        next map (app_benchmark.cpp:136-161).  With local BA the finished
-        map's landmarks are refined first; the database and the arena store
-        take the refined map, the loop query the frame's own."""
+        next map (app_benchmark.cpp:136-161); the query's marker joins the
+        queue.  With local BA the finished map's landmarks are refined
+        first; the database and the arena store take the refined map, the
+        loop query the frame's own."""
         if self.config.local_ba.enabled:
             with profile_time("local_ba"):
                 self._run_local_ba()
-        T_world_robot = self.graph.poses[self.current_map] @ state.T_lm_robot
+        T_world_robot = self.graph.poses[self.current_map] @ e.state.T_lm_robot
         with profile_time("db_insert"):
             self._finalize_current_map()
         marker = None
         if self.config.enable_loop_closing and self.num_maps >= 2:
             with profile_time("loop_detect"):
-                marker = self._loop_query(state, T_split, timestamp)
+                marker = self._loop_query(e.state, T_split, e.timestamp)
         self._make_new_map(T_world_robot)
         if marker is not None:
             marker.new_map = self.current_map
             marker.odo_edge_slot = self.num_edges - 1
-        return marker
+            self._queue.append(marker)
 
-    def _record_ba_keyframe(self, state: TrackerState, stats, meas_points):
+    def _record_ba_keyframe(self, e: _PendingFrame):
         """Keep every ``keyframe_stride``-th tracked frame's association for
         split-time BA (device tensors; no read back), the last
         ``max_keyframes`` of the active map.  Keyframe poses are sensor
@@ -532,10 +666,11 @@ class GraphSLAM:
         lba = self.config.local_ba
         if self._frames_in_current_map % lba.keyframe_stride != 0:
             return
+        meas_points = e.meas[0]
         gn_meas = meas_points[:, :3] if self.model == "stereo" else meas_points
         T_rs, _ = _robot_sensor(tuple(self.config.tracker.T_robot_sensor), self.device)
-        self._ba_keyframes.append((state.T_lm_robot @ T_rs, stats.match_idx, gn_meas,
-                                   stats.match_mask))
+        self._ba_keyframes.append((e.state.T_lm_robot @ T_rs, e.stats.match_idx, gn_meas,
+                                   e.stats.match_mask))
         if len(self._ba_keyframes) > lba.max_keyframes:
             self._ba_keyframes.pop(0)
 
@@ -571,6 +706,49 @@ class GraphSLAM:
         refined, _ = ba_ops.optimize(problem, self.cam, self.model, lba.ba)
         self.tracker_state = self.tracker_state._replace(
             arena=arena._replace(pos=refined.points))
+
+    # ------------------------------------------------------------------
+    # sequences
+    # ------------------------------------------------------------------
+
+    def process_sequence(self, a_all, b_all, timestamps, adaptor_config,
+                         count: int = None):
+        """Run a whole image sequence: ``a_all``/``b_all`` [T, H, W] stacks
+        (left/right for stereo, intensity/raw depth for RGB-D), uploaded to
+        the device once and adapted ``chunk_size * chunk_group`` frames at
+        a time by the batched adaptor; equal frame for frame to the
+        per-frame ``process`` loop."""
+        T = int(count if count is not None else a_all.shape[0])
+        self._run_sequence("images", (a_all, b_all), timestamps, T, adaptor_config)
+
+    def process_meas_sequence(self, points_all, desc_all, valid_all, timestamps,
+                              count: int = None):
+        """``process_sequence`` over adapted measurement stacks [T, N, ...]."""
+        T = int(count if count is not None else points_all.shape[0])
+        self._run_sequence("meas", (points_all, desc_all, valid_all), timestamps, T)
+
+    def _run_sequence(self, kind: str, stacks, timestamps, T: int, adaptor_config=None):
+        B = self.config.chunk_size * max(1, self.config.chunk_group)   # frames per adaptor call
+        if B <= 0:
+            raise ValueError("sequence processing requires config.chunk_size > 0")
+        if self.config.local_ba.enabled:
+            raise ValueError("local_ba is per-frame-mode only, as in the JAX package "
+                             "(its keyframe ring does not ride the chunk program)")
+        if self._queue:
+            raise RuntimeError("cannot mix per-frame and sequence processing: "
+                               "flush() first")
+        stacks = [torch.as_tensor(x)[:T].to(self.device) for x in stacks]
+        ts = list(timestamps)
+        ts += [float(len(ts) + i) for i in range(T - len(ts))]
+        adapt = adapt_stereo_batch if self.model == "stereo" else adapt_rgbd_batch
+        for start in range(0, T, B):
+            chunk = [x[start:start + B] for x in stacks]
+            if kind == "images":
+                chunk = adapt(*chunk, adaptor_config)
+            for i in range(chunk[0].shape[0]):
+                self.process_dispatch(*(x[i] for x in chunk), ts[start + i])
+                self.process_finalize()
+        self.flush()
 
     # ------------------------------------------------------------------
     # accessors (example_slam_3d.cpp:106-141 parity)

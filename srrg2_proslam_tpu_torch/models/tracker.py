@@ -39,10 +39,12 @@ from ..ops.landmark_estimators import (
 from ..ops.matching import ProjectiveMatcherConfig, match_projective
 from ..ops.pinhole import Camera, project, unproject
 from ..ops.triangulation import triangulate_rectified
+from ..utils import config as cfg
 from . import landmarks as lm
 from .landmarks import LandmarkArena
 
 
+@cfg.register
 @dataclass(frozen=True)
 class MergerConfig:
     target_number_of_merges: int = 100
@@ -52,6 +54,7 @@ class MergerConfig:
     max_additions: int = 512
 
 
+@cfg.register
 @dataclass(frozen=True)
 class TrackerConfig:
     """Same fields and defaults as the JAX package's TrackerConfig.

@@ -23,10 +23,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import config as cfg
 from . import se3
 from .pinhole import Camera
 
 
+@cfg.register
 @dataclass(frozen=True)
 class BAConfig:
     iterations: int = 5

@@ -14,9 +14,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import config as cfg
 from .pinhole import Camera
 
 
+@cfg.register
 @dataclass(frozen=True)
 class LandmarkEKFConfig:
     maximum_covariance_norm_squared: float = 0.25

@@ -14,9 +14,10 @@ DESCRIPTOR_BITS = 256
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """int32 Hamming distances [N, M] from signed descriptors [N,256], [M,256].
+    """int32 Hamming distances [..., N, M] from signed descriptors
+    [..., N, 256], [..., M, 256].
 
     All-zero (invalid) rows yield 128; callers mask with their validity.
     """
-    dot = torch.matmul(desc_a.to(torch.float32), desc_b.to(torch.float32).T)
+    dot = torch.matmul(desc_a.to(torch.float32), desc_b.to(torch.float32).mT)
     return (DESCRIPTOR_BITS - dot.to(torch.int32)) // 2

@@ -23,14 +23,17 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import config as cfg
 from .pinhole import Camera
 
 
+@cfg.register
 @dataclass(frozen=True)
 class WeightedMeanConfig:
     maximum_distance_geometry_m2: float = 25.0
 
 
+@cfg.register
 @dataclass(frozen=True)
 class SmootherConfig:
     maximum_reprojection_error_px2: float = 100.0

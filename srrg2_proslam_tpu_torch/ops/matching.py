@@ -1,9 +1,11 @@
-"""Descriptor matching: epipolar stereo and projective.
+"""Descriptor matching: brute force, epipolar stereo and projective.
 
 Port of srrg2_proslam_tpu/ops/matching.py.  Every matcher is one masked
 Hamming cost matrix reduced by mutual-argmin plus Lowe's ratio test;
 matchers return per-row target indices with a validity mask.  Argmin ties
-take the first index, as in JAX.
+take the first index, as in JAX.  The brute-force and epipolar matchers
+also take a leading batch dimension (one cost matrix per frame); each
+frame's result does not depend on the batch.
 """
 from __future__ import annotations
 
@@ -12,11 +14,21 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import config as cfg
 from .hamming import distance_matrix
 
 _BIG = 1e9
 
 
+@cfg.register
+@dataclass(frozen=True)
+class BruteforceMatcherConfig:
+    maximum_descriptor_distance: float = 50.0
+    lowe_ratio: float = 0.5
+    minimum_matching_ratio: float = 0.25
+
+
+@cfg.register
 @dataclass(frozen=True)
 class EpipolarMatcherConfig:
     epipolar_thickness_px: float = 1.0
@@ -27,6 +39,7 @@ class EpipolarMatcherConfig:
     minimum_matching_ratio: float = 0.3
 
 
+@cfg.register
 @dataclass(frozen=True)
 class ProjectiveMatcherConfig:
     """Staged schedule: stage i uses (radius_stages[i], descriptor_stages[i]);
@@ -42,32 +55,32 @@ class ProjectiveMatcherConfig:
 class Matches(NamedTuple):
     """Row-aligned match set: for each element of set A, a target in set B."""
 
-    idx: torch.Tensor       # [N_a] int32 index into B, -1 if unmatched
-    distance: torch.Tensor  # [N_a] float32 descriptor distance (BIG if unmatched)
-    mask: torch.Tensor      # [N_a] bool
+    idx: torch.Tensor       # [..., N_a] int32 index into B, -1 if unmatched
+    distance: torch.Tensor  # [..., N_a] float32 descriptor distance (BIG if unmatched)
+    mask: torch.Tensor      # [..., N_a] bool
 
     @property
     def count(self) -> torch.Tensor:
-        return self.mask.sum()
+        return self.mask.sum(dim=-1)
 
 
 def _min2(masked_cost: torch.Tensor):
-    """Row-wise (best, second-best, argmin) of a [N, M] masked cost matrix."""
-    best_idx = torch.argmin(masked_cost, dim=1)
-    d1 = masked_cost.amin(dim=1)
-    without_best = masked_cost.scatter(1, best_idx[:, None], _BIG)
-    d2 = without_best.amin(dim=1)
+    """Row-wise (best, second-best, argmin) of a [..., N, M] masked cost matrix."""
+    best_idx = torch.argmin(masked_cost, dim=-1)
+    d1 = masked_cost.amin(dim=-1)
+    without_best = masked_cost.scatter(-1, best_idx[..., None], _BIG)
+    d2 = without_best.amin(dim=-1)
     return d1, d2, best_idx
 
 
 def match_cost_matrix(cost: torch.Tensor, feasible: torch.Tensor,
                       max_distance: float, lowe_ratio: float) -> Matches:
-    """Bijective mutual-best matching with Lowe's ratio test."""
+    """Bijective mutual-best matching with Lowe's ratio test on [..., N, M]."""
     masked = torch.where(feasible, cost, _BIG)
     d1, d2, best_b = _min2(masked)
-    col_best_a = torch.argmin(masked, dim=0)
-    rows = torch.arange(cost.shape[0], device=cost.device)
-    mutual = col_best_a[best_b] == rows
+    col_best_a = torch.argmin(masked, dim=-2)
+    rows = torch.arange(cost.shape[-2], device=cost.device)
+    mutual = torch.gather(col_best_a, -1, best_b) == rows
     lowe_ok = d1 <= lowe_ratio * d2
     ok = (d1 <= max_distance) & lowe_ok & mutual
     return Matches(
@@ -77,16 +90,25 @@ def match_cost_matrix(cost: torch.Tensor, feasible: torch.Tensor,
     )
 
 
+def match_bruteforce(desc_a, valid_a, desc_b, valid_b,
+                     config: BruteforceMatcherConfig) -> Matches:
+    """Exhaustive descriptor matching ([..., N, 256] against [..., M, 256])."""
+    cost = distance_matrix(desc_a, desc_b).to(torch.float32)
+    feasible = valid_a[..., :, None] & valid_b[..., None, :]
+    return match_cost_matrix(cost, feasible, config.maximum_descriptor_distance,
+                             config.lowe_ratio)
+
+
 def match_epipolar(uv_left, desc_left, valid_left, uv_right, desc_right,
                    valid_right, config: EpipolarMatcherConfig) -> Matches:
     """Rectified stereo matching: row band and disparity range gate the
-    Hamming matrix."""
+    Hamming matrix (one pair, or a batch of pairs with a leading dim)."""
     cost = distance_matrix(desc_left, desc_right).to(torch.float32)
-    dv = (uv_left[:, None, 1] - uv_right[None, :, 1]).abs()
-    disparity = uv_left[:, None, 0] - uv_right[None, :, 0]
+    dv = (uv_left[..., :, None, 1] - uv_right[..., None, :, 1]).abs()
+    disparity = uv_left[..., :, None, 0] - uv_right[..., None, :, 0]
     feasible = (
-        valid_left[:, None]
-        & valid_right[None, :]
+        valid_left[..., :, None]
+        & valid_right[..., None, :]
         & (dv <= config.epipolar_thickness_px)
         & (disparity >= config.minimum_disparity_px)
         & (disparity <= config.maximum_disparity_px)

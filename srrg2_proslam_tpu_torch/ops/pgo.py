@@ -22,9 +22,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import config as cfg
 from . import se3
 
 
+@cfg.register
 @dataclass(frozen=True)
 class PGOConfig:
     """Same fields and defaults as the JAX package's PGOConfig."""

@@ -199,6 +199,17 @@ def test_fast_wrapper_path_keeps_valid_keypoints(rng):
 
 
 def test_oriented_is_not_ported(rng):
-    cfg = TF.FeatureExtractorConfig(oriented=True)
-    with pytest.raises(NotImplementedError):
-        TF.extract_features_batch(torch.zeros(1, 40, 40), cfg)
+    """Oriented BRIEF is ported now: the batched frontend with ``oriented``
+    equals JAX's keypoints bit for bit, and its descriptors but for at most
+    8 bits (rotated bilinear samples can tie; tests/test_torch_frontend_options.py)."""
+    imgs = _blobs(rng, (2, 80, 130))
+    kw = dict(max_keypoints=90, oriented=True)
+    got = TF.extract_features_batch(torch.from_numpy(imgs), TF.FeatureExtractorConfig(**kw))
+    ref = JF.extract_features_batch(jnp.asarray(imgs), JF.FeatureExtractorConfig(**kw))
+    for name in ("uv", "response", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert int((got.desc.numpy() != np.asarray(ref.desc)).sum()) <= 8
+    upright = TF.extract_features_batch(torch.from_numpy(imgs),
+                                        TF.FeatureExtractorConfig(max_keypoints=90))
+    assert not torch.equal(upright.desc, got.desc)

@@ -27,6 +27,13 @@ measurements bit for bit, its counts, and its pose within 5e-4 (the GN
 route with no kernel: launches FAST 2, BRIEF 2, GN 0); a smoother step
 (KITTI frames 0 -> 1, stereo) on the card gives the CPU run's counts,
 pose within 5e-4, positions within 1e-3 m and buffers within 1e-3.
+Slice 6: K3 and K1 at B = 32 bit-exact against their plain versions and
+per image against B = 1; the batched stereo adaptor at B = 16 equal to the
+per-frame adaptor on the card; the shipped oriented / sub-pixel adaptors
+on the card against the CPU (keypoints and uL/v bit-exact, u_R within
+2.5e-4 px, oriented descriptor bits within ORIENTED_GPU_BITS per frame);
+``process_meas_sequence`` at speculation depth 8 on the card against the
+CPU's synchronous loop (GN launches 3 per tracker step, replays included).
 """
 import os
 
@@ -331,3 +338,121 @@ def test_smoother_step_on_the_card_matches_cpu():
     assert float((g_state.arena.pos - c_state.arena.pos).abs().max()) <= 1e-3
     for a, b in zip(g_state.meas_buf, c_state.meas_buf):
         assert float((a.double() - b.double()).abs().max()) <= 1e-3
+
+
+# the oriented adaptor on the card against the CPU, under the bound pinned
+# against JAX on the CPU: the card's convolution and atan2/sincos may round
+# otherwise, so a rotated pair can flip where two bilinear samples tie (0
+# bits measured on the H100; chip_smoke.py phase 7 prints the counts)
+ORIENTED_GPU_BITS = 8
+UR_ATOL = 2.5e-4
+
+
+def _kitti_stack(n):
+    frames = list(datasets.iter_bundled_kitti(DATA, "city"))
+    images = [im for f in frames for im in (f.left, f.right)]
+    return torch.from_numpy(np.stack([images[i % len(images)] for i in range(n)])).cuda()
+
+
+def test_fast_and_brief_kernels_at_b32():
+    """K3 and K1 at B = 32 (a chunk of 16 pairs through the batched adaptor):
+    bit-exact against their plain versions, and every image's result equal
+    to the kernel's at B = 1."""
+    from srrg2_proslam_tpu_torch.ops.features import (
+        FeatureExtractorConfig, _keypoint_rows_cols, detect_keypoints_batch)
+
+    images = _kitti_stack(32)
+    cfg = FeatureExtractorConfig()
+    got = fast.fast_scores_kernel(images, cfg.detector_threshold)
+    assert torch.equal(got, fast.fast_scores_plain(images, cfg.detector_threshold))
+    for i in (0, 7, 31):
+        assert torch.equal(got[i:i + 1], fast.fast_scores_kernel(images[i:i + 1].contiguous(),
+                                                                 cfg.detector_threshold))
+    uv, _, valid = detect_keypoints_batch(images, cfg)
+    y, x = _keypoint_rows_cols(uv, *images.shape[1:])
+    smooth = _boxfilter(images, cfg.smoothing_window).contiguous()
+    got = brief.brief_descriptors(smooth, y, x, valid)
+    assert got.shape == (32, 1152, 256) and int(valid.sum()) > 32 * 1000
+    assert torch.equal(got, brief.brief_descriptors_plain(smooth, y, x, valid))
+    for i in (0, 7, 31):
+        one = brief.brief_descriptors(smooth[i:i + 1].contiguous(), y[i:i + 1].contiguous(),
+                                      x[i:i + 1].contiguous(), valid[i:i + 1].contiguous())
+        assert torch.equal(got[i:i + 1], one)
+
+
+@pytest.mark.parametrize("name", ["kitti_adaptor", "euroc_adaptor", "aggressive_motion_adaptor"])
+def test_batched_adaptor_on_the_card_equals_per_frame(name):
+    """adapt_stereo_batch at B = 16 on the card equals 16 adapt_stereo calls
+    on the card bit for bit (the Hamming GEMMs stay exact at any batch),
+    with one FAST and one BRIEF launch (none for oriented descriptors)."""
+    from srrg2_proslam_tpu_torch.models import frontend
+    from srrg2_proslam_tpu_torch.utils import config
+
+    cfg = config.load(os.path.join(DATA, "..", "configurations", f"{name}.json"))
+    images = _kitti_stack(32)
+    lefts, rights = images[0::2].contiguous(), images[1::2].contiguous()
+    reset_launch_counts()
+    batch = frontend.adapt_stereo_batch(lefts, rights, cfg)
+    brief_launches = 0 if cfg.extractor.oriented else 1
+    assert launch_counts() == {"fast": 1, "brief": brief_launches, "gn_burst": 0}
+    for i in range(16):
+        one = frontend.adapt_stereo(lefts[i], rights[i], cfg)
+        for got, ref in zip(batch, one):
+            assert torch.equal(got[i], ref), i
+
+
+@pytest.mark.parametrize("name", ["euroc_adaptor", "aggressive_motion_adaptor"])
+def test_adaptor_options_on_the_card_match_cpu(name):
+    """The 5 KITTI pairs under the shipped oriented / sub-pixel adaptor
+    configs, card vs CPU: keypoints, valid rows and uL/v bit-exact, u_R
+    within UR_ATOL, oriented descriptor bits within ORIENTED_GPU_BITS per
+    frame (upright: bit-exact)."""
+    from srrg2_proslam_tpu_torch.models import frontend
+    from srrg2_proslam_tpu_torch.ops.features import extract_features_batch
+    from srrg2_proslam_tpu_torch.utils import config
+
+    cfg = config.load(os.path.join(DATA, "..", "configurations", f"{name}.json"))
+    for f in datasets.iter_bundled_kitti(DATA, "city"):
+        cpu = [torch.from_numpy(f.left), torch.from_numpy(f.right)]
+        g_feat = extract_features_batch(torch.stack(cpu).cuda(), cfg.extractor)
+        c_feat = extract_features_batch(torch.stack(cpu), cfg.extractor)
+        for key in ("uv", "response", "valid"):
+            assert torch.equal(getattr(g_feat, key).cpu(), getattr(c_feat, key)), key
+        g = [t.cpu() for t in frontend.adapt_stereo(cpu[0].cuda(), cpu[1].cuda(), cfg)]
+        c = frontend.adapt_stereo(*cpu, cfg)
+        assert torch.equal(g[2], c.valid)
+        both = g[2] & c.valid
+        d = (g[0][both] - c.points[both]).abs()
+        assert float(d[:, [0, 1, 3]].max()) == 0.0 and float(d[:, 2].max()) <= UR_ATOL
+        bits = int((g[1][both] != c.desc[both]).sum())
+        assert bits <= (ORIENTED_GPU_BITS if cfg.extractor.oriented else 0), bits
+
+
+def test_sequence_on_the_card_matches_cpu(rng):
+    """The walk of test_graphslam_on_the_card_matches_cpu through
+    process_meas_sequence (chunks of 4, speculation depth 8) on the card
+    against the CPU's synchronous per-frame run."""
+    from srrg2_proslam_tpu_torch.models import slam
+    from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
+
+    cam = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600, baseline_px=225.0)
+    kw = dict(splitting=slam.SplittingConfig(maximum_translation_m=0.6),
+              loop=LoopDetectorConfig(minimum_age_difference=3), arena_capacity=1024,
+              max_local_maps=32, max_edges=64, database_capacity=16384)
+    frames = _walk_frames(rng, cam)
+    c = slam.GraphSLAM(cam, slam.GraphSLAMConfig(**kw), device="cpu")
+    for i, (p, d, ok) in enumerate(frames):
+        c.process(*(torch.from_numpy(a) for a in (p, d, ok)), 0.1 * i)
+    g = slam.GraphSLAM(cam, slam.GraphSLAMConfig(speculation_depth=8, chunk_size=4, **kw),
+                       device="cuda")
+    reset_launch_counts()
+    g.process_meas_sequence(*(np.stack([f[k] for f in frames]) for k in range(3)),
+                            [0.1 * i for i in range(len(frames))])
+    assert launch_counts()["gn_burst"] == 3 * (len(frames) + g.num_replayed_frames)
+    assert g.num_replayed_frames > 0 and g.num_relocalizations >= 1
+    assert [f.local_map_index for f in g.frames] == [f.local_map_index for f in c.frames]
+    keys = ("num_maps", "num_edges", "num_closures", "num_relocalizations", "num_losses")
+    assert {k: getattr(g, k) for k in keys} == {k: getattr(c, k) for k in keys}
+    d_t, d_ang = se3.error_t_and_angle(torch.from_numpy(np.stack(g.trajectory())),
+                                       torch.from_numpy(np.stack(c.trajectory())))
+    assert float(d_t.max()) <= 1e-3 and float(d_ang.max()) <= 1e-3

@@ -72,6 +72,8 @@ def _as_plain(cfg):
     (matching.EpipolarMatcherConfig, jax_matching.EpipolarMatcherConfig),
     (matching.ProjectiveMatcherConfig, jax_matching.ProjectiveMatcherConfig),
     (frontend.StereoAdaptorConfig, jax_frontend.StereoAdaptorConfig),
+    (frontend.DepthAdaptorConfig, jax_frontend.DepthAdaptorConfig),
+    (matching.BruteforceMatcherConfig, jax_matching.BruteforceMatcherConfig),
     (ekf.LandmarkEKFConfig, jax_ekf.LandmarkEKFConfig),
     (landmark_estimators.WeightedMeanConfig, jax_le.WeightedMeanConfig),
     (landmark_estimators.SmootherConfig, jax_le.SmootherConfig),

@@ -231,7 +231,7 @@ def test_backstop_decision_matches_jax(case):
     m.packet, m.query_map = jnp.asarray(pkt), 5
     j._consume_marker(m)
     reloc = t._consume_marker(ts._ClosureMarker(
-        packet=pkt, match_row=None, match_mask=None, T_candidates=None, query_state=None,
+        packet=ts._HostCopy(torch.from_numpy(pkt)), match_row=None, match_mask=None, T_candidates=None, query_state=None,
         query_map=5, timestamp=0.0, T_split=np.eye(4, dtype=np.float32),
         frame_record_index=0))
     assert reloc is None
@@ -256,16 +256,52 @@ def test_backstop_decision_matches_jax(case):
     (dict(local_ba=ts.LocalBAConfig(enabled=True), chunk_size=16), "stereo"),
     (dict(tracker=ts.TrackerConfig(landmark_estimator="smoother"), speculation_depth=8),
      "stereo"),
-    # icl_slam.json's stepping: the sequence API is not ported
+    # icl_slam.json's stepping
     (dict(chunk_size=16, speculation_depth=8), "rgbd"),
     (dict(), "mesh"),
 ])
 def test_unsupported_options_raise(kw, model):
-    with pytest.raises(NotImplementedError):
-        if model == "mesh":
+    """Of the settings refused before the speculative pipeline and the
+    sequence API were ported, only the mesh still raises
+    NotImplementedError, and local BA with a sequence raises ValueError, as
+    in the JAX package.  The others run the Lost stream (on (u, v, depth)
+    rows for RGB-D), per frame with ``process`` and ``flush`` or, with a
+    chunk size, through ``process_meas_sequence``, and equal the
+    synchronous per-frame run exactly: per-frame local maps, counters and
+    every pose."""
+    if model == "mesh":
+        with pytest.raises(NotImplementedError):
             ts.GraphSLAM(CAM, ts.GraphSLAMConfig(), device="cpu", mesh=object())
+        return
+    frames, base = _scenario("lost")
+    if model == "rgbd":
+        frames = [(np.stack([p[:, 0], p[:, 1], CAM.baseline_px / np.maximum(p[:, 0] - p[:, 2],
+                                                                             1e-3)], 1),
+                   d, ok, stamp) for p, d, ok, stamp in frames]
+    base = dict(base, tracker=kw.get("tracker", ts.TrackerConfig()))
+    runs = []
+    for extra in ({}, {k: v for k, v in kw.items() if k != "tracker"}):
+        slam = ts.GraphSLAM(CAM, _config(ts, LoopDetectorConfig, dict(base, **extra)),
+                            model=model, device="cpu")
+        if slam.config.chunk_size > 0:
+            stacks = [np.stack([f[k] for f in frames]) for k in range(3)]
+            if slam.config.local_ba.enabled:
+                with pytest.raises(ValueError):
+                    slam.process_meas_sequence(*stacks, [f[3] for f in frames])
+                return
+            slam.process_meas_sequence(*stacks, [f[3] for f in frames])
         else:
-            ts.GraphSLAM(CAM, ts.GraphSLAMConfig(**kw), model=model, device="cpu")
+            for p, d, ok, stamp in frames:
+                slam.process(torch.from_numpy(p), torch.from_numpy(d), torch.from_numpy(ok),
+                             stamp)
+            slam.flush()
+        runs.append(slam)
+    sync, other = runs
+    assert [f.local_map_index for f in other.frames] == [f.local_map_index
+                                                          for f in sync.frames]
+    assert {k: getattr(other, k) for k in COUNTERS} == {k: getattr(sync, k) for k in COUNTERS}
+    np.testing.assert_array_equal(np.stack(other.trajectory()), np.stack(sync.trajectory()))
+    assert sync.num_maps >= 3 and len(sync.frames) == len(frames)
 
 
 def test_graphslam_defaults_to_the_card():

@@ -168,18 +168,38 @@ def test_carried_state_step(frames, jax_run, k, options):
     assert abs(int(new_state.arena.count) - ref_count) <= 1
 
 
-def test_unsupported_options_raise():
-    """Oriented BRIEF and the sub-pixel disparity refinement are not ported."""
-    oriented = frontend.FeatureExtractorConfig(oriented=True)
-    img = torch.zeros(40, 60)
-    for adapt in (lambda: frontend.adapt_stereo(img, img, frontend.StereoAdaptorConfig(
-                      extractor=oriented)),
-                  lambda: frontend.adapt_rgbd(img, img, frontend.DepthAdaptorConfig(
-                      extractor=oriented)),
-                  lambda: frontend.adapt_stereo(img, img, frontend.StereoAdaptorConfig(
-                      subpixel_refinement=True))):
-        with pytest.raises(NotImplementedError):
-            adapt()
+def test_unsupported_options_raise(frames):
+    """Oriented BRIEF and the sub-pixel disparity refinement are ported now:
+    frame 0 through the stereo adaptor with each, and through the RGB-D
+    adaptor with oriented BRIEF (KITTI's right image as raw depth), equals
+    JAX's adaptor: the valid mask, uL and v bit-exact, u_R within 2.5e-4 px
+    and at most 8 descriptor bits apart
+    (tests/test_torch_frontend_options.py pins these bounds)."""
+    fr = frames[0]
+    left, right = torch.from_numpy(fr.left), torch.from_numpy(fr.right)
+    oriented = dict(oriented=True)
+    cases = [
+        (frontend.adapt_stereo, (left, right), frontend.StereoAdaptorConfig(
+            extractor=frontend.FeatureExtractorConfig(**oriented)),
+         jfe.adapt_stereo, jfe.StereoAdaptorConfig(extractor=jfe.FeatureExtractorConfig(
+             **oriented))),
+        (frontend.adapt_rgbd, (left, right * 40.0), frontend.DepthAdaptorConfig(
+            extractor=frontend.FeatureExtractorConfig(**oriented)),
+         jfe.adapt_rgbd, jfe.DepthAdaptorConfig(extractor=jfe.FeatureExtractorConfig(
+             **oriented))),
+        (frontend.adapt_stereo, (left, right),
+         frontend.StereoAdaptorConfig(subpixel_refinement=True),
+         jfe.adapt_stereo, jfe.StereoAdaptorConfig(subpixel_refinement=True)),
+    ]
+    for adapt, args, cfg, j_adapt, j_cfg in cases:
+        got = adapt(*args, cfg)
+        ref = j_adapt(*(jnp.asarray(a.numpy()) for a in args), j_cfg)
+        np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+        assert int(got.valid.sum()) > 300
+        d = np.abs(got.points.numpy() - np.asarray(ref.points))
+        np.testing.assert_array_equal(d[:, :2], 0.0)
+        assert d.max() <= 2.5e-4
+        assert int((got.desc.numpy() != np.asarray(ref.desc)).sum()) <= 8
 
 
 def test_entry_points_default_to_the_card():
