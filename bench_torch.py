@@ -35,6 +35,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REFERENCE_FRAME_HZ = 100.0   # bench.py's reference-class anchor
+N_FRAMES = 253               # bench.py's sequence: the whole loop
+CHUNK = 16                   # chunk_size of the headline, as the shipped configs
+SPEC_DEPTH = 12              # speculation depth of bench.py's per-frame diagnostic
 
 
 def _err(*a):
@@ -124,32 +127,29 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
     acfg = StereoAdaptorConfig()
-    n_frames = int(os.environ.get("BENCH_FRAMES", "253"))
-    depth = int(os.environ.get("BENCH_SPECULATION_DEPTH", "12"))
-    chunk = int(os.environ.get("BENCH_CHUNK_SIZE", "16"))
 
     t0 = time.perf_counter()
-    cam, images = render_sequence(n_frames, dev)
+    cam, images = render_sequence(N_FRAMES, dev)
     left_all = torch.stack([im[0] for im in images])
     right_all = torch.stack([im[1] for im in images])
-    _err(f"rendered {n_frames} frames on the card in {time.perf_counter() - t0:.2f} s "
+    _err(f"rendered {N_FRAMES} frames on the card in {time.perf_counter() - t0:.2f} s "
          f"[{card}]")
 
-    warm, _ = run_sequence(cam, left_all, right_all, acfg, chunk, dev)  # builds the kernels
+    warm, _ = run_sequence(cam, left_all, right_all, acfg, CHUNK, dev)  # builds the kernels
     times = []
     for _ in range(3):
-        dt, slam_c = run_sequence(cam, left_all, right_all, acfg, chunk, dev)
+        dt, slam_c = run_sequence(cam, left_all, right_all, acfg, CHUNK, dev)
         times.append(dt)
-    hz = n_frames / float(np.median(times))
-    _err(f"process_sequence (chunk_size {chunk}): {hz:.2f} frames/s, passes "
+    hz = N_FRAMES / float(np.median(times))
+    _err(f"process_sequence (chunk_size {CHUNK}): {hz:.2f} frames/s, passes "
          f"{[round(t, 3) for t in times]} s (warm-up {warm:.3f} s); {describe(slam_c)} "
          f"[{card}]")
 
-    dt_spec, slam_p = run_per_frame(cam, images, acfg, depth, dev)
-    _err(f"per-frame speculative (depth {depth}): {n_frames / dt_spec:.2f} frames/s "
+    dt_spec, slam_p = run_per_frame(cam, images, acfg, SPEC_DEPTH, dev)
+    _err(f"per-frame speculative (depth {SPEC_DEPTH}): {N_FRAMES / dt_spec:.2f} frames/s "
          f"({dt_spec:.3f} s); {describe(slam_p)} [{card}]")
     dt_sync, slam_s = run_per_frame(cam, images, acfg, 0, dev)
-    _err(f"per-frame synchronous (depth 0): {n_frames / dt_sync:.2f} frames/s "
+    _err(f"per-frame synchronous (depth 0): {N_FRAMES / dt_sync:.2f} frames/s "
          f"({dt_sync:.3f} s); {describe(slam_s)} [{card}]")
 
     print(json.dumps({
@@ -159,10 +159,10 @@ def main():
         "vs_baseline": round(hz / REFERENCE_FRAME_HZ, 3),
         "mean_frame_hz": hz,
         "card": card,
-        "frames": n_frames,
+        "frames": N_FRAMES,
         "sequence_pass_s": times,
-        "speculative_frame_hz": n_frames / dt_spec,
-        "synchronous_frame_hz": n_frames / dt_sync,
+        "speculative_frame_hz": N_FRAMES / dt_spec,
+        "synchronous_frame_hz": N_FRAMES / dt_sync,
         "maps": slam_c.num_maps, "closures": slam_c.num_closures,
         "relocalisations": slam_c.num_relocalizations,
     }), flush=True)

@@ -64,7 +64,8 @@ Phases, any failure exits non-zero:
      disparities) and aggressive_motion_adaptor.json (sub-pixel) on the
      card against the port's CPU run (keypoints, valid rows and uL/v
      bit-exact, u_R within UR_ATOL, oriented descriptor bits within
-     ORIENTED_GPU_BITS per frame; launches FAST 5 / BRIEF 0 oriented, FAST 5 / BRIEF 5 upright);
+     ORIENTED_BITS per frame, both from tests/torch_bounds.py; launches
+     FAST 5 / BRIEF 0 oriented, FAST 5 / BRIEF 5 upright);
      the rendered loop of phase 5 through GraphSLAM.process_sequence with
      speculation_depth 8 and chunk_size 16: FAST and BRIEF bit-exact and
      timed at the first chunk's inputs ([32, 480, 640], 32 x 1152
@@ -80,6 +81,7 @@ times, bounds); the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
+import runpy
 import subprocess
 import sys
 import time
@@ -98,12 +100,6 @@ E2E_MIN_FRAMES, E2E_MIN_MAPS = 120, 10
 E2E_T_RMSE, E2E_ROT_DEG, E2E_ATE = 0.30, 3.0, 0.5
 SLAM_POSE_TOL_M = 1e-3       # every frame's pose, GPU vs CPU GraphSLAM run
 SLAM_POSE_TOL_RAD = 1e-3
-# phase 7: the oriented adaptor on the card against the port's CPU run,
-# under the bound pinned against JAX on the CPU (cuDNN's convolution and
-# the card's atan2/sincos may round otherwise than the CPU's, so a rotated
-# pair can flip where two bilinear samples tie; 0 bits measured on the H100)
-ORIENTED_GPU_BITS = 8        # differing descriptor bits per frame, card vs CPU
-UR_ATOL = 2.5e-4             # px, u_R card vs CPU (sub-pixel refinement)
 SEQ_CHUNK = 16               # phase 7: chunk_size of the sequence run
 SEQ_DEPTH = 8                # phase 7: speculation_depth of the sequence run
 CPU_BUDGET_S = 240.0         # the CPU reference stops after this once >= 3 splits ran
@@ -759,6 +755,12 @@ def phase_adaptor_configs(dev, smi, frames_np, frames_gpu):
     from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
     from srrg2_proslam_tpu_torch.ops.features import extract_features_batch
     from srrg2_proslam_tpu_torch.utils import config as cfg
+    # oriented descriptor bits per frame and u_R px, card vs CPU: the bounds
+    # pinned against JAX on the CPU (0 bits and 0 px measured on the H100);
+    # read by path, as an installed package named ``tests`` may shadow the
+    # repo's directory
+    bounds = runpy.run_path(os.path.join(ROOT, "tests", "torch_bounds.py"))
+    ORIENTED_BITS, UR_ATOL = bounds["ORIENTED_BITS"], bounds["UR_ATOL"]
 
     for name in ("euroc_adaptor", "aggressive_motion_adaptor"):
         acfg = cfg.load(os.path.join(ROOT, "configurations", f"{name}.json"))
@@ -785,14 +787,14 @@ def phase_adaptor_configs(dev, smi, frames_np, frames_gpu):
         print(f"KITTI adaptor {name}.json (oriented {oriented}, sub-pixel "
               f"{acfg.subpixel_refinement}), card vs CPU: keypoints bit-exact {kp_exact}; "
               f"valid rows differing per frame {valid_diff}; descriptor bits differing per "
-              f"frame {bits} (bound {ORIENTED_GPU_BITS if oriented else 0}); u_R max diff "
+              f"frame {bits} (bound {ORIENTED_BITS if oriented else 0}); u_R max diff "
               f"{max(u for u, _ in ur):.3e} px (bound {UR_ATOL}), uL/v max diff "
               f"{max(o for _, o in ur):.3e}; launches {counts} [{smi}]", flush=True)
         if counts != want:
             fail(f"{name}: launches {counts} != {want}")
         if not kp_exact or max(u for u, _ in ur) > UR_ATOL or max(o for _, o in ur) > 0:
             fail(f"{name}: the card's adaptor disagrees with the CPU run")
-        if max(bits) > (ORIENTED_GPU_BITS if oriented else 0) or max(valid_diff) > 0:
+        if max(bits) > (ORIENTED_BITS if oriented else 0) or max(valid_diff) > 0:
             fail(f"{name}: descriptor bits {bits} / valid rows {valid_diff} past the bound")
 
 

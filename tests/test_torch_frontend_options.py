@@ -54,12 +54,11 @@ from srrg2_proslam_tpu_torch.ops import subpixel as TS  # noqa: E402
 from srrg2_proslam_tpu_torch.utils import config as tcfg  # noqa: E402
 from tests.test_oriented_features import _rotate, _texture  # noqa: E402
 from tests.test_stereo_quality import _evaluate  # noqa: E402
+from tests.torch_bounds import ORIENTED_BITS, UR_ATOL  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DATA = os.path.join(ROOT, "test_data")
 CONFIGS = os.path.join(ROOT, "configurations")
-ORIENTED_BITS = 8
-UR_ATOL = 2.5e-4
 UR_MAX_DIFF = 2
 THETA_ATOL = 1e-4
 

@@ -27,6 +27,7 @@ from srrg2_proslam_tpu.ops import se3 as jse3  # noqa: E402
 from srrg2_proslam_tpu_torch.io import datasets  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend, landmarks, tracker  # noqa: E402
 from srrg2_proslam_tpu_torch.ops import se3  # noqa: E402
+from tests.torch_bounds import ORIENTED_BITS, UR_ATOL  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "test_data")
 CAPACITY = 4096
@@ -172,9 +173,8 @@ def test_unsupported_options_raise(frames):
     """Oriented BRIEF and the sub-pixel disparity refinement are ported now:
     frame 0 through the stereo adaptor with each, and through the RGB-D
     adaptor with oriented BRIEF (KITTI's right image as raw depth), equals
-    JAX's adaptor: the valid mask, uL and v bit-exact, u_R within 2.5e-4 px
-    and at most 8 descriptor bits apart
-    (tests/test_torch_frontend_options.py pins these bounds)."""
+    JAX's adaptor: the valid mask, uL and v bit-exact, u_R within UR_ATOL px
+    and at most ORIENTED_BITS descriptor bits apart (tests/torch_bounds.py)."""
     fr = frames[0]
     left, right = torch.from_numpy(fr.left), torch.from_numpy(fr.right)
     oriented = dict(oriented=True)
@@ -198,8 +198,8 @@ def test_unsupported_options_raise(frames):
         assert int(got.valid.sum()) > 300
         d = np.abs(got.points.numpy() - np.asarray(ref.points))
         np.testing.assert_array_equal(d[:, :2], 0.0)
-        assert d.max() <= 2.5e-4
-        assert int((got.desc.numpy() != np.asarray(ref.desc)).sum()) <= 8
+        assert d.max() <= UR_ATOL
+        assert int((got.desc.numpy() != np.asarray(ref.desc)).sum()) <= ORIENTED_BITS
 
 
 def test_entry_points_default_to_the_card():
