@@ -2,8 +2,9 @@
 """GPU smoke run of the PyTorch + CUDA port: stereo VO on full-size KITTI
 frames, per-frame GraphSLAM over a rendered closed loop, then RGB-D
 GraphSLAM (ICL and the loop as RGB-D, with local BA), the other landmark
-estimators and the motion prior on KITTI, and the shipped configurations
-through the sequence API.
+estimators and the motion prior on KITTI, the shipped configurations
+through the sequence API, and the host surface (the apps, checkpoints,
+the trace, entry() and the native decoder).
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -75,10 +76,29 @@ Phases, any failure exits non-zero:
      every pose within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD), ms/frame from a
      second pass beside phase 5's; kitti_slam.json + kitti_adaptor.json
      through process_sequence over the 5 KITTI pairs equal to the CPU run,
-     and every shipped SLAM config constructs a GraphSLAM on the card.
+     and every shipped SLAM config constructs a GraphSLAM on the card;
+  8. the host surface, through the port's apps in this process: 8a
+     app_benchmark --dataset kitti on a KITTI-odometry folder written from
+     the 5 bundled pairs (launches FAST 5 / BRIEF 5 / GN 15, the exit code
+     and regression flag of the same invocation with --device cpu, the
+     trajectory within APP_POSE_TOL_M of it, both trajectory files
+     written); 8b the folder converted to a BOSS log by convert_dataset
+     and run with --dataset boss (the trajectory equal to 8a's); 8c
+     --dataset synthetic --count 145 --chunked 16 (the synthetic gate,
+     launches FAST 10 / BRIEF 10, mean_frame_hz beside phase 5's rate);
+     8d phase 5's loop on the card to frame 72, checkpoint.save, load into
+     a fresh card GraphSLAM and continue (status, map, counts and closure
+     events equal phase 5's, poses within CKPT_POSE_TOL_M), and the same
+     checkpoint continued on the CPU on the card's measurements for up to
+     CKPT_CPU_BUDGET_S (poses within APP_POSE_TOL_M); 8e 8a with
+     --trace-dir (the trace names the three kernels); 8f entry() on the
+     card (3 GN launches, pose within ENTRY_TOL of the CPU's); the native
+     decoder built with g++ equal to the plain decoder on every bundled
+     image, and its prefetcher in order.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
+import glob
 import json
 import os
 import runpy
@@ -930,6 +950,234 @@ def phase_shipped(dev, smi, frames_np, frames_gpu):
         fail(f"expected 6 shipped SLAM configs, found {names}")
 
 
+# phase 8's files, in the git-ignored build directory, removed at its end
+HOST_DIR = os.path.join(ROOT, "srrg2_proslam_tpu_torch", "build", "host_surface")
+APP_POSE_TOL_M = 1e-3        # 8a: the app's trajectory, card vs --device cpu
+CKPT_POSE_TOL_M = 1e-4       # 8d: resumed card run vs phase 5's (as phase 7's card runs)
+CKPT_CPU_BUDGET_S = 60.0     # 8d: the CPU continuation stops after this
+ENTRY_TOL = 5e-4             # 8f: entry()'s step, card vs CPU (tests/test_gn_pallas.py)
+KERNEL_NAMES = ("fast_scores_kernel", "brief_descriptors_kernel", "gn_burst_stereo_kernel")
+
+
+def run_app(module: str, argv, tag: str):
+    """An app's ``main(argv)`` in this process -> (exit code, stdout lines);
+    its output is echoed with ``tag``."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"srrg2_proslam_tpu_torch.apps.{module}").main
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            main(argv)
+        except SystemExit as e:
+            code = e.code or 0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  [{tag}] {line}", flush=True)
+    return code, lines
+
+
+def app_result(lines) -> dict:
+    return json.loads(lines[-1])
+
+
+def kitti_traj(prefix: str):
+    import numpy as np
+
+    return np.loadtxt(prefix + "_kitti.txt").reshape(-1, 3, 4)
+
+
+def phase_host(dev, smi, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg):
+    """Phase 8, the host surface on the card: the port's apps, checkpoints,
+    trace, entry() and the native decoder.  Returns the app runs' launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.entry import entry
+    from srrg2_proslam_tpu_torch.io import checkpoint, datasets, native, synthetic
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    shutil.rmtree(HOST_DIR, ignore_errors=True)
+    seq = os.path.join(HOST_DIR, "kitti_city")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, sub))
+    for i, f in enumerate(frames_np):
+        datasets.save_gray(os.path.join(seq, "image_0", f"{i:06d}.png"), f.left)
+        datasets.save_gray(os.path.join(seq, "image_1", f"{i:06d}.png"), f.right)
+    np.savetxt(os.path.join(seq, "times.txt"), [f.timestamp for f in frames_np])
+    poses = os.path.join(seq, "poses.txt")
+    np.savetxt(poses, np.stack([f.gt_pose[:3].reshape(-1) for f in frames_np]))
+    launches = {}
+
+    # ---- 8a: app_benchmark on the KITTI folder, card and CPU ----
+    kitti = ["--dataset", "kitti", "--sequence", seq, "--gt", poses]
+    out_gpu, out_cpu = os.path.join(HOST_DIR, "kitti_gpu"), os.path.join(HOST_DIR, "kitti_cpu")
+    kernels.reset_launch_counts()
+    code, lines = run_app("app_benchmark", kitti + ["--output", out_gpu], "8a card")
+    launches["app_kitti"] = kernels.launch_counts()
+    res = app_result(lines)
+    code_cpu, lines_cpu = run_app("app_benchmark", kitti + ["--output", out_cpu,
+                                                            "--device", "cpu"], "8a cpu")
+    res_cpu = app_result(lines_cpu)
+    t_gpu, t_cpu = kitti_traj(out_gpu), kitti_traj(out_cpu)
+    dt = float(np.abs(t_gpu[:, :, 3] - t_cpu[:, :, 3]).max())
+    print(f"8a app_benchmark --dataset kitti: exit {code}, regression {res['regression']}, "
+          f"mean_frame_hz {res['mean_frame_hz']:.3f}, launches {launches['app_kitti']}; "
+          f"--device cpu: exit {code_cpu}, regression {res_cpu['regression']}; trajectory "
+          f"card vs cpu max |dt| {dt:.3e} m (tolerance {APP_POSE_TOL_M}) [{smi}]", flush=True)
+    if launches["app_kitti"] != {"fast": 5, "brief": 5, "gn_burst": 15}:
+        fail(f"8a launches {launches['app_kitti']} != fast 5, brief 5, gn_burst 15")
+    # the JAX app reports regression true and exits 1 on these 5 frames
+    # (tests/test_torch_app.py holds the port's CPU run to it): the card's
+    # run must report what the CPU run reports
+    if (code, res["regression"]) != (code_cpu, res_cpu["regression"]) or dt > APP_POSE_TOL_M:
+        fail("8a: the card's app run disagrees with the CPU's")
+    for path in (out_gpu + "_kitti.txt", out_gpu + "_tum.txt"):
+        if not os.path.getsize(path):
+            fail(f"8a: {path} is empty")
+
+    # ---- 8b: the folder as a BOSS log, through --dataset boss ----
+    log = os.path.join(HOST_DIR, "boss", "messages.json")
+    os.makedirs(os.path.dirname(log))
+    code, _ = run_app("convert_dataset", ["--dataset", "kitti", "--sequence", seq, "--gt",
+                                          poses, "--format", "boss", "--output", log],
+                      "8b convert")
+    out_boss = os.path.join(HOST_DIR, "boss_gpu")
+    kernels.reset_launch_counts()
+    code_b, lines = run_app("app_benchmark", ["--dataset", "boss", "--sequence", log,
+                                              "--output", out_boss], "8b card")
+    launches["app_boss"] = kernels.launch_counts()
+    t_boss = kitti_traj(out_boss)
+    same = t_boss.shape == t_gpu.shape and bool((t_boss == t_gpu).all())
+    print(f"8b --dataset boss: convert exit {code}, app exit {code_b}, launches "
+          f"{launches['app_boss']}, trajectory equal to 8a's frame for frame: {same} [{smi}]",
+          flush=True)
+    if code != 0 or not same:
+        fail("8b: the BOSS log's run differs from the folder's")
+
+    # ---- 8c: the rendered loop through --chunked ----
+    kernels.reset_launch_counts()
+    code, lines = run_app("app_benchmark", ["--dataset", "synthetic", "--count", "145",
+                                            "--chunked", "16"], "8c card")
+    launches["app_chunked"] = kernels.launch_counts()
+    res = app_result(lines)
+    print(f"8c --dataset synthetic --count 145 --chunked 16: exit {code}, regression "
+          f"{res['regression']}, mean_frame_hz {res['mean_frame_hz']:.3f} (phase 5 per-frame "
+          f"GraphSLAM {1e3 / ref_ms:.3f} frames/s in this call), launches "
+          f"{launches['app_chunked']} [{smi}]", flush=True)
+    if code != 0 or res["regression"]:
+        fail("8c: the synthetic regression gate failed")
+    if (launches["app_chunked"]["fast"], launches["app_chunked"]["brief"]) != (10, 10):
+        fail(f"8c launches {launches['app_chunked']}: not fast 10, brief 10")
+
+    # ---- 8d: checkpoint at frame 72 of phase 5's loop, card and CPU ----
+    scam = synthetic.synthetic_camera()
+    half = len(loop) // 2
+    meas = []
+    first = GraphSLAM(scam, slam_config(), device=dev)
+    rows = []
+    for f in loop:
+        m = adapt_stereo(f.left, f.right, adapt_cfg)
+        meas.append((m.points, m.desc, m.valid, f.timestamp))
+    for p, d, ok, stamp in meas[:half]:
+        first.process(p, d, ok, stamp)
+        rows.append((first.status, first.current_map))
+    path = os.path.join(HOST_DIR, "loop_ckpt.npz")
+    checkpoint.save(first, path)
+    resumed = checkpoint.load(GraphSLAM(scam, slam_config(), device=dev), path)
+    for p, d, ok, stamp in meas[half:]:
+        resumed.process(p, d, ok, stamp)
+        rows.append((resumed.status, resumed.current_map))
+    torch.cuda.synchronize()
+    if rows != ref_rows or slam_counts(resumed) != slam_counts(ref_slam) \
+            or resumed.closure_events != ref_slam.closure_events:
+        fail(f"8d: the resumed card run differs from phase 5's: {slam_counts(resumed)} "
+             f"{resumed.closure_events} vs {slam_counts(ref_slam)} {ref_slam.closure_events}")
+    A, B = (torch.from_numpy(np.stack(s.trajectory())) for s in (resumed, ref_slam))
+    d_res = float(se3.error_t_and_angle(A, B)[0].max())
+    print(f"8d checkpoint at frame {half} of {len(loop)} ({os.path.getsize(path)} bytes), "
+          f"loaded into a fresh card GraphSLAM: per-frame status and map, counts and closure "
+          f"events equal phase 5's, max |dt| {d_res:.3e} m (tolerance {CKPT_POSE_TOL_M}) "
+          f"[{smi}]", flush=True)
+    if d_res > CKPT_POSE_TOL_M:
+        fail("8d: the resumed card run's poses differ from phase 5's")
+    cpu = checkpoint.load(GraphSLAM(scam, slam_config(), device="cpu"), path)
+    t0 = time.perf_counter()
+    n_cpu = 0
+    for p, d, ok, stamp in meas[half:]:
+        cpu.process(p.cpu(), d.cpu(), ok.cpu(), stamp)
+        n_cpu += 1
+        if time.perf_counter() - t0 > CKPT_CPU_BUDGET_S:
+            break
+    A = torch.from_numpy(np.stack(cpu.trajectory()))
+    B = torch.from_numpy(np.stack(resumed.trajectory()[:len(cpu.frames)]))
+    d_cpu = float(se3.error_t_and_angle(A, B)[0].max())
+    cpu_maps = [f.local_map_index for f in cpu.frames]
+    print(f"8d the same checkpoint continued on the CPU over frames {half}-{half + n_cpu - 1} "
+          f"(the card's measurements; {time.perf_counter() - t0:.1f} s): maps equal "
+          f"{cpu_maps == [f.local_map_index for f in resumed.frames[:len(cpu.frames)]]}, "
+          f"max |dt| vs the card {d_cpu:.3e} m (tolerance {APP_POSE_TOL_M}) [{smi}]", flush=True)
+    if d_cpu > APP_POSE_TOL_M or cpu_maps != [f.local_map_index for f in
+                                              resumed.frames[:len(cpu.frames)]]:
+        fail("8d: the CPU continuation differs from the card's")
+
+    # ---- 8e: 8a under --trace-dir ----
+    trace_dir = os.path.join(HOST_DIR, "trace")
+    run_app("app_benchmark", kitti + ["--trace-dir", trace_dir], "8e card")
+    trace = os.path.join(trace_dir, "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in KERNEL_NAMES}
+    print(f"8e trace {trace}: {len(text)} bytes, kernel name counts {named} [{smi}]",
+          flush=True)
+    if not all(named.values()):
+        fail(f"8e: the trace does not name every kernel: {named}")
+
+    # ---- 8f: entry() ----
+    fn, args = entry(device=dev)
+    kernels.reset_launch_counts()
+    state, stats, _ = fn(*args)
+    torch.cuda.synchronize()
+    launches["entry"] = kernels.launch_counts()
+    fn_cpu, args_cpu = entry(device="cpu")
+    state_cpu, stats_cpu, _ = fn_cpu(*args_cpu)
+    d_entry = float((state.T_lm_robot.cpu() - state_cpu.T_lm_robot).abs().max())
+    print(f"8f entry(): inliers {int(stats.num_inliers)} (cpu {int(stats_cpu.num_inliers)}), "
+          f"launches {launches['entry']}, pose vs cpu max |d| {d_entry:.3e} (tolerance "
+          f"{ENTRY_TOL}) [{smi}]", flush=True)
+    if launches["entry"] != {"fast": 0, "brief": 0, "gn_burst": 3} or d_entry > ENTRY_TOL:
+        fail("8f: entry()'s step on the card is off")
+
+    # ---- the native decoder and its prefetcher ----
+    t0 = time.perf_counter()
+    so = native.build()
+    files = sorted(glob.glob(os.path.join(ROOT, "test_data", "kitti", "*", "*.png"))
+                   + glob.glob(os.path.join(ROOT, "test_data", "icl", "*"))
+                   + glob.glob(os.path.join(ROOT, "test_data", "xtion", "*"))
+                   + glob.glob(os.path.join(ROOT, "test_data", "scene_flow", "*.png")))
+    for fpath in files:
+        a, b = native.decode(fpath), datasets.decode_plain(fpath)
+        if a.dtype != b.dtype or a.shape != b.shape or not (a == b).all():
+            fail(f"native decoder differs from the plain one on {fpath}")
+    with native.Prefetcher(files) as pf:
+        for fpath, arr in zip(files, pf):
+            if not np.array_equal(arr, datasets.decode_plain(fpath)):
+                fail(f"the prefetcher's {fpath} differs")
+    print(f"native library {os.path.basename(so)} built and checked in "
+          f"{time.perf_counter() - t0:.2f} s: {len(files)} bundled images equal to the plain "
+          f"decoder, the prefetcher in order [{smi}]", flush=True)
+    shutil.rmtree(HOST_DIR)
+    return launches
+
+
 def main():
     import torch
 
@@ -1214,6 +1462,11 @@ def main():
     phase_shipped(dev, smi, frames_np, frames_gpu)
     print(f"phase 7: {time.perf_counter() - t7:.1f} s [{smi}]", flush=True)
 
+    # ---- 8. the host surface: apps, checkpoints, trace, entry(), decoder ---
+    t8 = time.perf_counter()
+    app_counts = phase_host(dev, smi, frames_np, loop, slam, rows, slam_ms, adapt_cfg)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s [{smi}]", flush=True)
+
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
                "brief": ("srrg2_proslam_tpu_torch/csrc/brief.cu",
@@ -1226,6 +1479,7 @@ def main():
          "launches_vo": vo_counts[kname], "launches_vo_per_frame": vo_counts[kname] / len(frames_gpu),
          "launches_rgbd": rgbd_counts[kname],
          "launches_sequence": seq_counts[kname],
+         **{f"launches_{path}": c[kname] for path, c in app_counts.items()},
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,20 @@ ops/       SE3, pinhole, triangulation, Hamming, matching, features
 models/    stereo and RGB-D adaptors, landmark arena, frame-to-map tracker,
            loop closure database and validation, the GraphSLAM
            orchestrator (with split-time local BA).
-io/        bundled KITTI and ICL readers with zlib/numpy PNG and PGM
-           decoders, quaternions; the rendered room and trajectories
+io/        dataset readers and writers (bundled KITTI and ICL, KITTI
+           odometry, TUM, EuRoC with rectification, Malaga; trajectories,
+           PFM, PNG/PGM), the native C++ decoder and prefetcher (built
+           with g++ at first use), BOSS message logs, GraphSLAM
+           checkpoints, quaternions; the rendered room and trajectories
            (stereo or RGB-D).
 metrics/   ATE / RPE trajectory evaluation (numpy).
-utils/     profile_time scoped host timers; the config registry and its
-           JSON round trip (loads ``configurations/*.json``).
+utils/     profile_time scoped host timers and device_trace; the config
+           registry and its JSON round trip (loads
+           ``configurations/*.json``).
+apps/      app_benchmark, convert_dataset, compute_sparse_stereo_gt
+           (``python -m srrg2_proslam_tpu_torch.apps.<name>``).
+entry.py   ``entry()``: one stereo tracker step on the card.
+viz.py     the live viewer (snapshot, LiveViewer).
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
 csrc/      the CUDA C++ sources, built for sm_90a at first use.
@@ -28,7 +36,8 @@ RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` and their batched forms ->
 and the optional motion prior) and GraphSLAM on it (->
 ``GraphSLAM.process``, speculative or synchronous, with optional local BA,
 or ``GraphSLAM.process_sequence`` over whole image stacks); every shipped
-configuration loads through ``utils.config.load``.
+configuration loads through ``utils.config.load``; the apps start it as
+the JAX package's apps start that one.
 """
 
 import torch as _torch

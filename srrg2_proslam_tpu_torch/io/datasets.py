@@ -1,13 +1,22 @@
-"""Bundled KITTI and ICL readers emitting numpy arrays, with zlib/numpy
-PNG and PGM decoders.
+"""Dataset readers and writers emitting host numpy arrays.
 
-Port of the stereo and RGB-D parts of srrg2_proslam_tpu/io/datasets.py.
-The decoders need neither PIL nor the JAX package: PNG reads 8- and 16-bit
-gray, gray+alpha, RGB and RGBA non-interlaced images with all five
-scanline filters; PGM reads binary P5 with 8- or 16-bit (big-endian)
-samples.  Colour becomes gray as the JAX package's native decoder makes
-it (io/native.py ``to_gray_f32``): 0.299 R + 0.587 G + 0.114 B in
-float64, then float32.
+Port of srrg2_proslam_tpu/io/datasets.py, needing neither PIL nor the JAX
+package.  Images decode through the native library (io/native.py, the
+repo's C++ decoder built at first use); the readers of dataset folders
+take their files through its in-order prefetcher.  ``decode_plain`` is the
+plain Python decoder the native one is held to: PNG 8- and 16-bit gray,
+gray+alpha, RGB and RGBA non-interlaced with all five scanline filters,
+binary P5 PGM with 8- or 16-bit (big-endian) samples.  Colour becomes gray
+as 0.299 R + 0.587 G + 0.114 B in float64, then float32.  ``save_gray``
+writes 8-bit PNG (zlib) or PGM.
+
+Layouts: the bundled test data (``test_data/kitti/*``, ``test_data/icl``);
+KITTI odometry (``image_0/ image_1/ times.txt``); TUM RGB-D (``rgb.txt
+depth.txt``, nearest-timestamp pairing, 16-bit PNG depth); EuRoC ASL
+(``mav0/cam{0,1}/data``, rectified through io/rectify.py when the
+``sensor.yaml`` files are present); Malaga extracts (``Images/*_left*``,
+PNG or PGM: JPEG has no decoder here).  Trajectories are written in the
+KITTI and TUM formats.
 """
 from __future__ import annotations
 
@@ -16,11 +25,12 @@ import re
 import struct
 import zlib
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from ..ops.pinhole import Camera
+from . import native
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples per pixel
@@ -123,8 +133,9 @@ def _decode_pgm(blob: bytes, path: str) -> np.ndarray:
     return pix.astype(np.uint16 if maxval > 255 else np.uint8)
 
 
-def decode(path: str) -> np.ndarray:
-    """A PNG or binary PGM file -> its samples, [H, W] or [H, W, C]."""
+def decode_plain(path: str) -> np.ndarray:
+    """A PNG or binary PGM file -> its samples, [H, W] or [H, W, C] (the
+    plain Python decoder)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] == _PNG_SIGNATURE:
@@ -136,26 +147,71 @@ def decode(path: str) -> np.ndarray:
 
 def load_gray(path: str) -> np.ndarray:
     """Image -> float32 gray [H, W] in 0..255 (16-bit samples / 256)."""
-    arr = decode(path)
-    scale_16 = arr.dtype == np.uint16
+    return native.to_gray_f32(native.decode(path))
+
+
+def _depth_f32(arr: np.ndarray) -> np.ndarray:
     if arr.ndim == 3:
-        if arr.shape[2] >= 3:
-            arr = 0.299 * arr[:, :, 0] + 0.587 * arr[:, :, 1] + 0.114 * arr[:, :, 2]
-        else:
-            arr = arr[:, :, 0]
-    arr = np.asarray(arr, np.float32)
-    if scale_16:
-        arr = arr / 256.0
-    return np.ascontiguousarray(arr)
+        arr = arr[:, :, 0]
+    return np.ascontiguousarray(arr, dtype=np.float32)
 
 
 def load_depth(path: str) -> np.ndarray:
     """16-bit depth image (binary PGM or PNG) -> float32 raw units [H, W];
     the adaptor scales to metres."""
-    arr = decode(path)
-    if arr.ndim == 3:
-        arr = arr[:, :, 0]
-    return np.ascontiguousarray(arr, dtype=np.float32)
+    return _depth_f32(native.decode(path))
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def save_gray(path: str, image) -> None:
+    """Write a gray [H, W] image (0..255, clipped, truncated to uint8) as an
+    8-bit PNG, or a binary PGM when ``path`` ends in ``.pgm``."""
+    arr = np.clip(np.asarray(image), 0, 255).astype(np.uint8)
+    rows, cols = arr.shape
+    if path.lower().endswith(".pgm"):
+        blob = f"P5\n{cols} {rows}\n255\n".encode() + arr.tobytes()
+    else:
+        lines = np.zeros((rows, cols + 1), np.uint8)   # filter byte 0 (None)
+        lines[:, 1:] = arr
+        blob = (_PNG_SIGNATURE
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", cols, rows, 8, 0, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(lines.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(blob)
+
+
+def read_pfm(path: str) -> np.ndarray:
+    """SceneFlow PFM: 'Pf'/'PF' header, 'W H', a scale whose sign gives the
+    byte order, float32 rows bottom-up -> the first channel, top-down,
+    [H, W] float32."""
+    with open(path, "rb") as f:
+        header = f.readline().decode("latin-1").strip()
+        if header not in ("Pf", "PF"):
+            raise ValueError(f"not a PFM file: {path} (header {header!r})")
+        dims = f.readline().decode("latin-1").strip()
+        while dims.startswith("#"):
+            dims = f.readline().decode("latin-1").strip()
+        w, h = map(int, re.split(r"\s+", dims))
+        scale = float(f.readline().decode("latin-1").strip())
+        count = w * h * (3 if header == "PF" else 1)
+        data = np.frombuffer(f.read(count * 4), "<f4" if scale < 0 else ">f4")
+    img = data.reshape(h, w, -1)[..., 0]
+    return np.ascontiguousarray(img[::-1]).astype(np.float32)
+
+
+def write_pfm(path: str, image: np.ndarray) -> None:
+    """Write a [H, W] float32 image as a little-endian gray PFM."""
+    arr = np.asarray(image, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n")
+        f.write(f"{arr.shape[1]} {arr.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        f.write(np.ascontiguousarray(arr[::-1]).astype("<f4").tobytes())
 
 
 def kitti_camera(rows: int = 376, cols: int = 1241) -> Camera:
@@ -169,6 +225,26 @@ def icl_camera() -> Camera:
     """ICL-NUIM intrinsics (note the negated fy)."""
     return Camera(fx=481.2, fy=-481.0, cx=319.5, cy=239.5,
                   rows=480, cols=640, range_min=0.1, range_max=20.0)
+
+
+def tum_camera() -> Camera:
+    """TUM RGB-D (freiburg1) default pinhole intrinsics."""
+    return Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
+                  rows=480, cols=640, range_min=0.1, range_max=20.0)
+
+
+def euroc_camera() -> Camera:
+    """EuRoC MAV cam0 intrinsics (rectified model)."""
+    return Camera(fx=458.654, fy=457.296, cx=367.215, cy=248.375,
+                  rows=480, cols=752, baseline_px=458.654 * 0.11,
+                  range_min=0.1, range_max=100.0)
+
+
+def malaga_camera() -> Camera:
+    """Malaga urban dataset rectified stereo intrinsics."""
+    return Camera(fx=795.11588, fy=795.11588, cx=517.12973, cy=395.59665,
+                  rows=768, cols=1024, baseline_px=795.11588 * 0.119571,
+                  range_min=0.1, range_max=300.0)
 
 
 @dataclass
@@ -220,3 +296,141 @@ def iter_bundled_icl(root: str) -> Iterator[RGBDFrame]:
             intensity=load_gray(os.path.join(folder, f"image_rgb_{frame_id}.png")),
             depth=load_depth(os.path.join(folder, f"image_depth_{frame_id}.pgm")),
         )
+
+
+def _decoded(paths: List[str]) -> Iterator[np.ndarray]:
+    """The decoded samples of ``paths``, in order, through the prefetcher."""
+    if not paths:
+        return
+    with native.Prefetcher(paths) as pf:
+        yield from pf
+
+
+def _pairs(pairs, to_a, to_b) -> Iterator[tuple]:
+    """Decode (path_a, path_b) pairs in order -> (to_a(a), to_b(b))."""
+    it = _decoded([p for pair in pairs for p in pair])
+    for _ in pairs:
+        yield to_a(next(it)), to_b(next(it))
+
+
+def iter_kitti_odometry(sequence_dir: str, gt_file: Optional[str] = None,
+                        start: int = 0, count: Optional[int] = None) -> Iterator[StereoFrame]:
+    """A KITTI odometry sequence folder (image_0/, image_1/, times.txt)."""
+    left_dir = os.path.join(sequence_dir, "image_0")
+    right_dir = os.path.join(sequence_dir, "image_1")
+    names = sorted(os.listdir(left_dir))
+    times_path = os.path.join(sequence_dir, "times.txt")
+    times = (np.loadtxt(times_path) if os.path.exists(times_path)
+             else np.arange(len(names), dtype=np.float64) * 0.1)
+    gt = _kitti_pose_lines(gt_file) if gt_file else None
+    end = len(names) if count is None else min(len(names), start + count)
+    pairs = [(os.path.join(left_dir, names[i]), os.path.join(right_dir, names[i]))
+             for i in range(start, end)]
+    for i, (left, right) in zip(range(start, end),
+                                _pairs(pairs, native.to_gray_f32, native.to_gray_f32)):
+        yield StereoFrame(timestamp=float(times[i]), left=left, right=right,
+                          gt_pose=gt[i] if gt is not None and i < len(gt) else None)
+
+
+def _tum_list(path: str) -> list:
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ts, name = line.split()[:2]
+            out.append((float(ts), name))
+    return out
+
+
+def iter_tum_rgbd(sequence_dir: str, max_dt: float = 0.02,
+                  count: Optional[int] = None) -> Iterator[RGBDFrame]:
+    """A TUM RGB-D folder: each rgb.txt entry pairs with the nearest
+    depth.txt entry within ``max_dt`` seconds."""
+    rgb = _tum_list(os.path.join(sequence_dir, "rgb.txt"))
+    depth = _tum_list(os.path.join(sequence_dir, "depth.txt"))
+    d_times = np.array([t for t, _ in depth])
+    frames = []
+    for ts, rgb_name in rgb:
+        j = int(np.argmin(np.abs(d_times - ts)))
+        if abs(d_times[j] - ts) > max_dt:
+            continue
+        frames.append((ts, rgb_name, depth[j][1]))
+        if count is not None and len(frames) >= count:
+            break
+    pairs = [(os.path.join(sequence_dir, r), os.path.join(sequence_dir, d))
+             for _, r, d in frames]
+    for (ts, _, _), (intensity, dep) in zip(frames,
+                                            _pairs(pairs, native.to_gray_f32, _depth_f32)):
+        yield RGBDFrame(timestamp=ts, intensity=intensity, depth=dep)
+
+
+def iter_euroc_stereo(sequence_dir: str, count: Optional[int] = None,
+                      rectify: bool = True) -> Iterator[StereoFrame]:
+    """EuRoC ASL layout: mav0/cam0/data, mav0/cam1/data (ns timestamps).
+
+    With ``mav0/cam{0,1}/sensor.yaml`` present the raw radtan-distorted,
+    non-coplanar images are undistorted and rectified (io/rectify.py);
+    ``euroc_rectified_camera`` gives the matching pinhole model.
+    """
+    from .rectify import find_euroc_rectification, remap
+
+    cam0 = os.path.join(sequence_dir, "mav0", "cam0", "data")
+    cam1 = os.path.join(sequence_dir, "mav0", "cam1", "data")
+    rect = find_euroc_rectification(sequence_dir) if rectify else None
+    names1 = set(os.listdir(cam1))
+    names = [n for n in sorted(os.listdir(cam0)) if n in names1][:count]
+    pairs = [(os.path.join(cam0, n), os.path.join(cam1, n)) for n in names]
+    for name, (left, right) in zip(names, _pairs(pairs, native.to_gray_f32,
+                                                 native.to_gray_f32)):
+        if rect is not None:
+            left, right = remap(left, rect.map0), remap(right, rect.map1)
+        yield StereoFrame(timestamp=float(os.path.splitext(name)[0]) * 1e-9,
+                          left=left, right=right)
+
+
+def euroc_rectified_camera(sequence_dir: str) -> Camera:
+    """The pinhole model matching ``iter_euroc_stereo(rectify=True)``."""
+    from .rectify import find_euroc_rectification
+
+    rect = find_euroc_rectification(sequence_dir)
+    return rect.camera if rect is not None else euroc_camera()
+
+
+def iter_malaga_stereo(sequence_dir: str, count: Optional[int] = None) -> Iterator[StereoFrame]:
+    """Malaga urban extract: an ``Images/`` folder of rectified pairs named
+    ``img_CAMERA1_<timestamp>_{left,right}.<ext>``."""
+    img_dir = os.path.join(sequence_dir, "Images")
+    if not os.path.isdir(img_dir):
+        img_dir = sequence_dir
+    names = [n for n in sorted(f for f in os.listdir(img_dir) if "_left" in f)
+             if os.path.exists(os.path.join(img_dir, n.replace("_left", "_right")))][:count]
+    pairs = [(os.path.join(img_dir, n), os.path.join(img_dir, n.replace("_left", "_right")))
+             for n in names]
+    for i, (name, (left, right)) in enumerate(zip(names, _pairs(pairs, native.to_gray_f32,
+                                                                native.to_gray_f32))):
+        stamp = re.findall(r"\d+\.\d+", name)
+        yield StereoFrame(timestamp=float(stamp[0]) if stamp else float(i),
+                          left=left, right=right)
+
+
+def write_kitti_trajectory(path: str, poses: List[np.ndarray]) -> None:
+    """Rows of row-major 3x4 [R|t]: the KITTI benchmark format."""
+    with open(path, "w") as f:
+        for T in poses:
+            f.write(" ".join(f"{v:.9e}" for v in np.asarray(T)[:3, :].reshape(-1)))
+            f.write("\n")
+
+
+def write_tum_trajectory(path: str, stamps: List[float], poses: List[np.ndarray]) -> None:
+    """Rows of ``timestamp tx ty tz qx qy qz qw``: the TUM format."""
+    from .quaternions import rotation_to_quaternion
+
+    with open(path, "w") as f:
+        for ts, T in zip(stamps, poses):
+            T = np.asarray(T)
+            q = rotation_to_quaternion(T[:3, :3])
+            t = T[:3, 3]
+            f.write(f"{ts:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                    f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")

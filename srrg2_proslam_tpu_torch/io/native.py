@@ -1,0 +1,155 @@
+"""ctypes bindings of the native image decoder and in-order prefetcher.
+
+Port of srrg2_proslam_tpu/io/native.py.  The library is the repo's own C++
+(``native/src/image_decode.cpp`` and ``prefetcher.cpp``: a PNG (zlib) and
+PGM/PPM decoder and a threaded prefetcher that decodes a file list in
+order a few files ahead).  It is compiled at first use with
+``g++ -O3 -shared -fPIC ... -lz -pthread`` into the git-ignored
+``srrg2_proslam_tpu_torch/build/``, named by a hash of the sources and
+flags; nothing is written into ``native/``.  A failed build raises with
+the compiler's output: there is no silent fallback.  ``datasets.decode_plain``
+is the plain Python decoder the native one is held to.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterator, List
+
+import numpy as np
+
+from ..kernels._build import BUILD_DIR
+
+SOURCES = [Path(__file__).resolve().parents[2] / "native" / "src" / name
+           for name in ("image_decode.cpp", "prefetcher.cpp")]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+LIBS = ["-lz", "-pthread"]
+
+_lib = None
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler for the native IO library: set CXX or install g++")
+    return cxx
+
+
+def build() -> Path:
+    """Compile the library unless one of the same sources and flags exists;
+    returns its path.  Raises with the compiler's output on failure."""
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(CXX_FLAGS + LIBS).encode())
+    so = BUILD_DIR / f"libproslam_io_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building the native IO library failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)   # atomic: concurrent builds each write their own tmp
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded native library, compiling it first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ints = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.psl_decode_file.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.psl_decode_file.argtypes = [ctypes.c_char_p] + ints
+        lib.psl_free.argtypes = [ctypes.c_void_p]
+        lib.psl_prefetch_create.restype = ctypes.c_void_p
+        lib.psl_prefetch_create.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int]
+        lib.psl_prefetch_next.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.psl_prefetch_next.argtypes = [ctypes.c_void_p] + ints
+        lib.psl_prefetch_destroy.argtypes = [ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def _to_array(ptr, w: int, h: int, channels: int, bitdepth: int, lib) -> np.ndarray:
+    dtype = np.uint16 if bitdepth == 16 else np.uint8
+    count = w * h * channels * np.dtype(dtype).itemsize
+    buf = ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8 * count)).contents
+    arr = np.frombuffer(buf, dtype=dtype).reshape(h, w, channels).copy()
+    lib.psl_free(ptr)
+    return arr[:, :, 0] if channels == 1 else arr
+
+
+def decode(path: str) -> np.ndarray:
+    """One PNG/PGM/PPM file -> its samples, [H, W] or [H, W, C] uint8/uint16."""
+    lib = library()
+    w, h, c, d = (ctypes.c_int() for _ in range(4))
+    ptr = lib.psl_decode_file(os.fsencode(path), ctypes.byref(w), ctypes.byref(h),
+                              ctypes.byref(c), ctypes.byref(d))
+    if not ptr:
+        raise ValueError(f"native decoder cannot read {path} (PNG, PGM and PPM only)")
+    return _to_array(ptr, w.value, h.value, c.value, d.value, lib)
+
+
+def to_gray_f32(arr: np.ndarray) -> np.ndarray:
+    """Decoded samples -> float32 gray 0..255: colour as 0.299 R + 0.587 G +
+    0.114 B in float64, 16-bit samples / 256 (by dtype, not by data)."""
+    scale_16 = arr.dtype == np.uint16
+    if arr.ndim == 3:
+        if arr.shape[2] >= 3:
+            arr = 0.299 * arr[:, :, 0] + 0.587 * arr[:, :, 1] + 0.114 * arr[:, :, 2]
+        else:
+            arr = arr[:, :, 0]
+    arr = np.asarray(arr, np.float32)
+    if scale_16:
+        arr = arr / 256.0
+    return np.ascontiguousarray(arr)
+
+
+class Prefetcher:
+    """In-order decoder over a list of files: ``n_threads`` native threads
+    keep up to ``window`` files decoded ahead of the consumer."""
+
+    def __init__(self, paths: List[str], n_threads: int = 4, window: int = 8):
+        self._lib = library()
+        self._paths = [os.fsencode(p) for p in paths]
+        arr = (ctypes.c_char_p * len(self._paths))(*self._paths)
+        self._handle = self._lib.psl_prefetch_create(arr, len(self._paths), n_threads, window)
+        self._consumed = 0
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self
+
+    def __next__(self) -> np.ndarray:
+        if self._consumed >= len(self._paths):
+            raise StopIteration
+        w, h, c, d = (ctypes.c_int() for _ in range(4))
+        ptr = self._lib.psl_prefetch_next(self._handle, ctypes.byref(w), ctypes.byref(h),
+                                          ctypes.byref(c), ctypes.byref(d))
+        self._consumed += 1
+        if not ptr:
+            raise ValueError("native decoder cannot read "
+                             f"{os.fsdecode(self._paths[self._consumed - 1])}")
+        return _to_array(ptr, w.value, h.value, c.value, d.value, self._lib)
+
+    def close(self):
+        if getattr(self, "_handle", None):
+            self._lib.psl_prefetch_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        self.close()

@@ -263,3 +263,12 @@ def iter_rendered_loop_rgbd(count: Optional[int] = None, seed: int = 0, rows: in
         image, depth = render_view(cam, torch.as_tensor(T_wc, device=device), planes, 2)
         yield RGBDFrame(timestamp=0.1 * i, intensity=image, depth=depth_to_raw_mm(depth),
                         gt_pose=np.linalg.inv(T_wc).astype(np.float32))
+
+
+def sparse_stereo_gt(cam: Camera, depth: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """Exact disparity per keypoint from the rendered left depth [H, W]:
+    baseline_px / depth at the rounded pixel of each uv [N, 2] -> [N]
+    float32 (inf where there is no surface)."""
+    y = np.clip(np.round(uv[:, 1]).astype(int), 0, depth.shape[0] - 1)
+    x = np.clip(np.round(uv[:, 0]).astype(int), 0, depth.shape[1] - 1)
+    return (cam.baseline_px / depth[y, x]).astype(np.float32)

@@ -1,5 +1,5 @@
-"""Per-landmark EKF updates, batched over the whole arena (stereo and
-projective-depth models).
+"""Per-landmark EKF updates, batched over the whole arena (projective,
+projective-depth and stereo models).
 
 Port of srrg2_proslam_tpu/ops/ekf.py.  Each landmark's update is an
 iterated EKF (two Gauss-Newton sweeps) whose correction is a sequence of
@@ -31,6 +31,20 @@ class EKFResult(NamedTuple):
     position: torch.Tensor    # [M, 3]
     covariance: torch.Tensor  # [M, 3, 3]
     accepted: torch.Tensor    # [M] bool
+
+
+def _measurement_model_projective(p_s: torch.Tensor, cam: Camera):
+    """(u, v) and its [M, 2, 3] Jacobian at sensor points [M, 3]."""
+    x, y, z = p_s.unbind(-1)
+    iz = 1.0 / torch.clamp_min(z, 1e-3)
+    iz2 = iz * iz
+    h = torch.stack([cam.fx * x * iz + cam.cx, cam.fy * y * iz + cam.cy], dim=-1)
+    zero = torch.zeros_like(x)
+    H = torch.stack([
+        torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], dim=-1),
+        torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], dim=-1),
+    ], dim=-2)
+    return h, H
 
 
 def _measurement_model_stereo(p_s: torch.Tensor, cam: Camera):
@@ -67,6 +81,7 @@ def _measurement_model_projective_depth(p_s: torch.Tensor, cam: Camera):
 
 
 _MODELS = {
+    "projective": _measurement_model_projective,
     "projective_depth": _measurement_model_projective_depth,
     "stereo": _measurement_model_stereo,
 }
@@ -83,11 +98,12 @@ def ekf_update_batch(positions, covariances, measurements, valid,
 
     positions [M, 3] and covariances [M, 3, 3] in the local-map frame;
     measurements [M, D] rows of the model ("stereo": D = 4, uL vL uR vR;
-    "projective_depth": D = 3, u v depth); valid [M] marks rows that
+    "projective_depth": D = 3, u v depth; "projective": D = 2, u v); valid [M] marks rows that
     observed the landmark.
     """
     if model not in _MODELS:
-        raise NotImplementedError(f"EKF measurement model {model!r} is not ported yet")
+        raise NotImplementedError(f"EKF measurement model {model!r} is not one of "
+                                  f"{tuple(_MODELS)}")
     model_fn = _MODELS[model]
     R = T_world_in_sensor[:3, :3]
     t = T_world_in_sensor[:3, 3]

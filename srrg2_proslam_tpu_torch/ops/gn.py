@@ -126,6 +126,11 @@ def point3_system(X, pts_moving, pts_fixed, weights, mask,
     return _reduce_system(J, r, weights, mask, chi_threshold, kernel)
 
 
+def gn_step(X, H, b, damping: float = 1e-6):
+    """One damped GN update X <- exp(-(H + damping I)^-1 b) X."""
+    return gn_step_dx(X, H, b, damping)[0]
+
+
 def gn_step_dx(X, H, b, damping: float = 1e-6):
     """One damped step: (exp(dx) X, dx) with dx = -(H + damping I)^-1 b.
 

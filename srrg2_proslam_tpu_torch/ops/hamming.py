@@ -11,6 +11,31 @@ from __future__ import annotations
 import torch
 
 DESCRIPTOR_BITS = 256
+DESCRIPTOR_WORDS = DESCRIPTOR_BITS // 32
+
+
+def bits_to_signed(bits: torch.Tensor) -> torch.Tensor:
+    """{0, 1} bits [..., 256] -> {-1, +1} int8."""
+    return (bits.to(torch.int8) * 2 - 1).to(torch.int8)
+
+
+def signed_to_bits(signed: torch.Tensor) -> torch.Tensor:
+    return (signed > 0).to(torch.uint8)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """{0, 1} bits [..., 256] -> packed uint32 words [..., 8], bit k of word
+    w = bit 32 w + k."""
+    b = bits.reshape(bits.shape[:-1] + (DESCRIPTOR_WORDS, 32)).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (b << shifts).sum(-1).to(torch.uint32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """Packed uint32 words [..., 8] -> {0, 1} uint8 bits [..., 256]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., :, None] >> shifts) & 1
+    return bits.reshape(words.shape[:-1] + (DESCRIPTOR_BITS,)).to(torch.uint8)
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -21,3 +46,9 @@ def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """
     dot = torch.matmul(desc_a.to(torch.float32), desc_b.to(torch.float32).mT)
     return (DESCRIPTOR_BITS - dot.to(torch.int32)) // 2
+
+
+def pairwise_distance(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Row-wise Hamming distances of two aligned sets [N, 256] -> [N] int32."""
+    dot = (desc_a.to(torch.int32) * desc_b.to(torch.int32)).sum(-1, dtype=torch.int32)
+    return (DESCRIPTOR_BITS - dot) // 2

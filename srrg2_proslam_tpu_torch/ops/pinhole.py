@@ -56,6 +56,16 @@ def project(cam: Camera, pts_cam: torch.Tensor):
     return torch.stack([u, v], dim=-1), in_view
 
 
+def project_stereo(cam: Camera, pts_cam: torch.Tensor):
+    """Rectified stereo coordinates (uL, vL, uR) [..., N, 3], uR = uL -
+    baseline_px / z, and in_view that also needs uR >= 0."""
+    uv, in_view = project(cam, pts_cam)
+    z = pts_cam[..., 2]
+    z_safe = torch.where(z.abs() < 1e-9, 1e-9, z)
+    u_r = uv[..., 0] - cam.baseline_px / z_safe
+    return torch.cat([uv, u_r[..., None]], dim=-1), in_view & (u_r >= 0.0)
+
+
 def unproject(cam: Camera, uvd: torch.Tensor):
     """(u, v, depth_m) [..., N, 3] -> (camera-frame points, depth-in-range)."""
     u, v, d = uvd[..., 0], uvd[..., 1], uvd[..., 2]

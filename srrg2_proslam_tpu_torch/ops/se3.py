@@ -24,10 +24,22 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def translation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     t = T[..., :3, 3]
     return from_rt(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -139,3 +151,11 @@ def error_t_and_angle(A: torch.Tensor, B: torch.Tensor):
     t_err = E[..., :3, 3].abs()
     w = log_so3(E[..., :3, :3])
     return t_err, torch.sqrt(torch.sum(w * w, dim=-1))
+
+
+def normalize(T: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize the rotation block (SVD projection onto SO(3))."""
+    u, _, vt = torch.linalg.svd(T[..., :3, :3])
+    d = torch.ones(T.shape[:-2] + (3,), dtype=T.dtype, device=T.device)
+    d[..., 2] = torch.linalg.det(u @ vt)
+    return from_rt((u * d[..., None, :]) @ vt, T[..., :3, 3])

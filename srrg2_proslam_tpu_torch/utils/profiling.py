@@ -1,4 +1,4 @@
-"""Profiling: scoped host timers.
+"""Profiling: scoped host timers and device traces.
 
 Port of srrg2_proslam_tpu/utils/profiling.py (the PROFILE_TIME scoped
 timers of the reference, enabled globally): a process-global registry of
@@ -14,10 +14,15 @@ Usage:
     with profiling.profile_time("loop_detect"):
         ...
     print(profiling.report())
+
+A device trace (torch.profiler; Chrome trace format, viewable in Perfetto):
+    with profiling.device_trace("traces/run"):
+        run_pipeline()
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -76,3 +81,18 @@ def report() -> str:
             f"total {s['total_s']:8.3f} s"
         )
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Trace the host and, with a card, its kernels under torch.profiler,
+    and write the Chrome trace to ``log_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

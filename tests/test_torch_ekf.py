@@ -110,4 +110,4 @@ def test_unknown_model_is_not_ported():
     a = tlm.empty_arena(4, "cpu")
     with pytest.raises(NotImplementedError):
         tekf.ekf_update_batch(a.pos, a.cov, torch.zeros(4, 2), a.valid, torch.eye(4),
-                              CAM, "projective", tekf.LandmarkEKFConfig())
+                              CAM, "fisheye", tekf.LandmarkEKFConfig())

@@ -54,7 +54,7 @@ CASES = [
 def test_plain_burst_matches_jax(rng, eps, outliers, n_valid, w_range):
     pts, meas, w, mask = _problem(rng, outliers=outliers, n_valid=n_valid, w_range=w_range)
     kw = dict(damping=1e-6, min_inliers=6, epsilon=eps)
-    X_t, s_t = gn_burst_stereo(tse3.identity(), *map(torch.from_numpy, (pts, meas, w, mask)),
+    X_t, s_t = gn_burst_stereo(tse3.identity("cpu"), *map(torch.from_numpy, (pts, meas, w, mask)),
                                CAM, iterations=5, chi_threshold=25.0, **kw)
     jp = tuple(map(jnp.asarray, (pts, meas, w, mask)))
     system = lambda X: jgn.stereo_projective_system(X, *jp, JCAM, 25.0)
@@ -99,7 +99,7 @@ def test_system_and_step_match_jax(rng):
 
 def test_degenerate_solve_gives_zero_step():
     H = torch.full((6, 6), float("nan"))
-    X, dx = tgn.gn_step_dx(tse3.identity(), H, torch.ones(6))
+    X, dx = tgn.gn_step_dx(tse3.identity("cpu"), H, torch.ones(6))
     assert torch.equal(dx, torch.zeros(6))
     assert torch.equal(X, torch.eye(4))
 
@@ -107,12 +107,12 @@ def test_degenerate_solve_gives_zero_step():
 def test_burst_converges_and_checks_inputs(rng):
     pts, meas, w, mask = _problem(rng)
     args = tuple(map(torch.from_numpy, (pts, meas, w, mask)))
-    X, s = gn_burst_stereo(tse3.identity(), *args, CAM, iterations=10)
+    X, s = gn_burst_stereo(tse3.identity("cpu"), *args, CAM, iterations=10)
     X_gt = jse3.exp(jnp.asarray(np.array([0.2, -0.1, 0.35, 0.02, -0.01, 0.03], np.float32)))
     t_err, ang = tse3.error_t_and_angle(X, torch.from_numpy(np.array(X_gt)))
     assert float(t_err.max()) < 1e-3 and float(ang) < 1e-4
     assert int(s.num_inliers) == pts.shape[0]
     with pytest.raises(ValueError):
-        gn_burst_stereo(tse3.identity(), args[0][:, :2], *args[1:], CAM, iterations=1)
+        gn_burst_stereo(tse3.identity("cpu"), args[0][:, :2], *args[1:], CAM, iterations=1)
     with pytest.raises(ValueError):
-        gn_burst_stereo(tse3.identity(), *args[:3], args[3].float(), CAM, iterations=1)
+        gn_burst_stereo(tse3.identity("cpu"), *args[:3], args[3].float(), CAM, iterations=1)
