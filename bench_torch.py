@@ -17,9 +17,10 @@ are bench.py's sequence (its ``_render_sequence``: the 253-frame loop of
 ``loop_trajectory()`` in a 22 x 32 m room, 480x640, rendered on the card
 before timing) and the GraphSLAM config is bench.py's ``_slam_config``.
 
-Headline: ``process_sequence`` with ``chunk_size`` 16 (and bench.py's
-speculation depth 0 for that mode), the median of 3 passes after a
-warm-up pass.  Diagnostics: the per-frame ``adapt_stereo -> process``
+Headline: ``process_sequence`` with ``chunk_size`` 16, the chunk program
+(models/chunk.py: the batched adaptor and one CUDA graph replay of the
+chunk's tracker steps per chunk, chunk_lag 2), the median of 3 passes
+after a warm-up pass (which builds the kernels and captures the graphs).  Diagnostics: the per-frame ``adapt_stereo -> process``
 loop at speculation depth 12 and synchronously, one pass each after the
 headline.  Each pass ends in a synchronize, so its wall time holds all
 its device work.
@@ -111,7 +112,7 @@ def run_per_frame(cam, images, acfg, depth, device):
 def describe(slam) -> str:
     return (f"{slam.num_maps} maps, {slam.num_closures} closures, "
             f"{slam.num_relocalizations} relocalisations, {slam.num_replayed_frames} "
-            f"frames replayed")
+            f"frames replayed; chunk program {slam.chunk_stats}")
 
 
 def main():

@@ -3,8 +3,8 @@
 frames, per-frame GraphSLAM over a rendered closed loop, then RGB-D
 GraphSLAM (ICL and the loop as RGB-D, with local BA), the other landmark
 estimators and the motion prior on KITTI, the shipped configurations
-through the sequence API, and the host surface (the apps, checkpoints,
-the trace, entry() and the native decoder).
+and the speculative queue, the host surface (the apps, checkpoints, the
+trace, entry() and the native decoder), and the chunk program.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -67,16 +67,18 @@ Phases, any failure exits non-zero:
      bit-exact, u_R within UR_ATOL, oriented descriptor bits within
      ORIENTED_BITS per frame, both from tests/torch_bounds.py; launches
      FAST 5 / BRIEF 0 oriented, FAST 5 / BRIEF 5 upright);
-     the rendered loop of phase 5 through GraphSLAM.process_sequence with
-     speculation_depth 8 and chunk_size 16: FAST and BRIEF bit-exact and
-     timed at the first chunk's inputs ([32, 480, 640], 32 x 1152
-     keypoints), launches FAST and BRIEF once per chunk and GN 3 per
-     tracker step (frames replayed after splits and losses included), phase
-     5's gates, phase 5's per-frame run equal frame for frame (status, map,
-     every pose within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD), ms/frame from a
-     second pass beside phase 5's; kitti_slam.json + kitti_adaptor.json
-     through process_sequence over the 5 KITTI pairs equal to the CPU run,
-     and every shipped SLAM config constructs a GraphSLAM on the card;
+     the rendered loop of phase 5 through the speculative per-frame queue
+     (the batched adaptor over each 16 frames, then process_dispatch /
+     process_finalize per frame at speculation_depth 8, then flush): FAST
+     and BRIEF bit-exact and timed at the first chunk's inputs ([32, 480,
+     640], 32 x 1152 keypoints), launches FAST and BRIEF once per chunk
+     and GN 3 per tracker step (frames replayed after splits and losses
+     included), phase 5's gates, phase 5's per-frame run equal frame for
+     frame (status, map, every pose within SLAM_POSE_TOL_M /
+     SLAM_POSE_TOL_RAD), ms/frame from a second pass beside phase 5's;
+     kitti_slam.json + kitti_adaptor.json through process_sequence (the
+     chunk program) over the 5 KITTI pairs equal to the CPU run, and every
+     shipped SLAM config constructs a GraphSLAM on the card;
   8. the host surface, through the port's apps in this process: 8a
      app_benchmark --dataset kitti on a KITTI-odometry folder written from
      the 5 bundled pairs (launches FAST 5 / BRIEF 5 / GN 15, the exit code
@@ -84,8 +86,11 @@ Phases, any failure exits non-zero:
      trajectory within APP_POSE_TOL_M of it, both trajectory files
      written); 8b the folder converted to a BOSS log by convert_dataset
      and run with --dataset boss (the trajectory equal to 8a's); 8c
-     --dataset synthetic --count 145 --chunked 16 (the synthetic gate,
-     launches FAST 10 / BRIEF 10, mean_frame_hz beside phase 5's rate);
+     --dataset synthetic --count 145 --chunked 16 through the chunk
+     program (the synthetic gate, launches FAST = BRIEF = the chunks
+     through the batched adaptor and GN 3 per tracker step with the
+     graph's warm-up, a chunk graph replayed, mean_frame_hz beside phase
+     5's rate);
      8d phase 5's loop on the card to frame 72, checkpoint.save, load into
      a fresh card GraphSLAM and continue (status, map, counts and closure
      events equal phase 5's, poses within CKPT_POSE_TOL_M), and the same
@@ -94,7 +99,27 @@ Phases, any failure exits non-zero:
      --trace-dir (the trace names the three kernels); 8f entry() on the
      card (3 GN launches, pose within ENTRY_TOL of the CPU's); the native
      decoder built with g++ equal to the plain decoder on every bundled
-     image, and its prefetcher in order.
+     image, and its prefetcher in order;
+  9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
+     runs this phase alone): 9a the rendered loop through
+     GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
+     graph replay per full chunk): phase 5's gates, phase 5's per-frame
+     run equal frame for frame, launches equal to the prediction from the
+     run's chunk_stats and, over a 48-frame window, to the kernel events
+     torch.profiler sees (at most one dropped per kernel), each captured
+     graph's capture and instantiate ms and nodes, dispatches, replays,
+     eager frames, packet reads, rollbacks and replays, ms/frame from a
+     second pass beside phases 5 and 7, stage times from a third pass
+     under profile_time (chunk_dispatch, chunk_readback, closure_decision,
+     pgo, reloc); 9b three chunks of the loop
+     through the chunk graph and eagerly from the same state, and each
+     of their split branches through its graph and eagerly: counts,
+     maps, split heads and database slots equal, floats within
+     CHUNK_EAGER_TOL; 9c the measurement streams of the CPU tests
+     (rebuilt with numpy) per frame and chunked (STREAM_CHUNKS, the
+     rollback stream also in chunks of 20) on the card, each equal, with
+     at least one relocalisation rollback; 9d the loop as RGB-D (local BA
+     off) through process_sequence equal to its per-frame run.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -173,6 +198,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# windows device_ms takes before it gives up on a kernel's events: three
+# in a row came back without K1's events once (phase 6, ICL frame 0)
+PROFILER_WINDOWS = 6
+
+
 def device_ms(fn, reps: int = 20, kernel: str = None) -> float:
     """Device time per call under torch.profiler over ``reps`` calls, after
     warm-up: the mean duration of the launches of ``kernel`` (the profiler
@@ -186,7 +216,7 @@ def device_ms(fn, reps: int = 20, kernel: str = None) -> float:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):   # a window can come back without device events: take another
+    for _ in range(PROFILER_WINDOWS):   # a window can come back without device events
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
@@ -196,7 +226,8 @@ def device_ms(fn, reps: int = 20, kernel: str = None) -> float:
         if events:
             break
     else:
-        fail(f"profiler saw no device time for {kernel or 'a plain version'} in 3 windows")
+        fail(f"profiler saw no device time for {kernel or 'a plain version'} in "
+             f"{PROFILER_WINDOWS} windows")
     calls = reps if kernel is None else len(events)
     return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
 
@@ -567,7 +598,7 @@ def compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, tag: str, smi: str
     """Two GraphSLAM runs over the same frames (the card's and the CPU's, or
     two modes): per-frame (status, map) rows, counts and closure events
     equal, every pose within SLAM_POSE_TOL_M / SLAM_POSE_TOL_RAD; fail
-    otherwise."""
+    otherwise.  Returns the largest |dt| (m)."""
     import numpy as np
     import torch
 
@@ -593,6 +624,7 @@ def compare_slam_runs(ref_slam, ref_rows, cpu_slam, cpu_rows, tag: str, smi: str
     if not (float(worst_t.max()) <= SLAM_POSE_TOL_M
             and float(dang.max()) <= SLAM_POSE_TOL_RAD):
         fail(f"{tag}: the trajectories disagree")
+    return float(worst_t.max())
 
 
 def phase_rgbd(dev, smi, report, thr):
@@ -818,23 +850,33 @@ def phase_adaptor_configs(dev, smi, frames_np, frames_gpu):
             fail(f"{name}: descriptor bits {bits} / valid rows {valid_diff} past the bound")
 
 
-def run_sequence(frames, cam, device, adapt_cfg, config):
-    """GraphSLAM.process_sequence over stacked (left, right) images; returns
-    (slam, per-frame (status, map) rows): each frame's status as it is
-    consumed (whatever the speculation depth) and its local map."""
+def watch_statuses(slam) -> list:
+    """The status after each frame the host consumes, in order: the
+    per-frame queue's ``_consume_frame`` and the chunk program's mirror
+    ``_consume_chunk_frame`` are wrapped to record it."""
+    statuses = []
+    for name in ("_consume_frame", "_consume_chunk_frame"):
+        consume = getattr(slam, name)
+
+        def consume_and_record(*args, consume=consume):
+            out = consume(*args)
+            statuses.append(slam.status)
+            return out
+
+        setattr(slam, name, consume_and_record)
+    return statuses
+
+
+def run_sequence(frames, cam, device, adapt_cfg, config, model="stereo"):
+    """GraphSLAM.process_sequence (the chunk program) over stacked image
+    pairs ((left, right), or (intensity, raw depth) with ``model="rgbd"``);
+    returns (slam, per-frame (status, map) rows)."""
     import torch
 
     from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
 
-    slam = GraphSLAM(cam, config, device=device)
-    statuses = []
-    consume = slam._consume_frame
-
-    def consume_and_record(e):
-        consume(e)
-        statuses.append(slam.status)
-
-    slam._consume_frame = consume_and_record
+    slam = GraphSLAM(cam, config, model=model, device=device)
+    statuses = watch_statuses(slam)
     lefts = torch.stack([a for (a, _), _ in frames])
     rights = torch.stack([b for (_, b), _ in frames])
     slam.process_sequence(lefts, rights, [t for _, t in frames], adapt_cfg)
@@ -843,11 +885,40 @@ def run_sequence(frames, cam, device, adapt_cfg, config):
     return slam, list(zip(statuses, (f.local_map_index for f in slam.frames)))
 
 
+def run_speculative(frames, cam, device, adapt_cfg, config):
+    """Phase 7's loop: the batched adaptor over each ``chunk_size`` frames
+    (one K3 and one K1 launch), then every frame through
+    ``process_dispatch`` / ``process_finalize`` at the config's
+    speculation depth, then ``flush``: the per-frame speculative queue.
+    Returns (slam, per-frame (status, map) rows)."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo_batch
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+
+    slam = GraphSLAM(cam, config, device=device)
+    statuses = watch_statuses(slam)
+    lefts = torch.stack([a for (a, _), _ in frames])
+    rights = torch.stack([b for (_, b), _ in frames])
+    B = config.chunk_size
+    for start in range(0, len(frames), B):
+        meas = adapt_stereo_batch(lefts[start:start + B], rights[start:start + B], adapt_cfg)
+        for i in range(meas.points.shape[0]):
+            slam.process_dispatch(meas.points[i], meas.desc[i], meas.valid[i],
+                                  frames[start + i][1])
+            slam.process_finalize()
+    slam.flush()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return slam, list(zip(statuses, (f.local_map_index for f in slam.frames)))
+
+
 def phase_sequence(dev, smi, report, thr, loop, ref_slam, ref_rows, ref_ms, adapt_cfg):
-    """Phase 7b: the rendered loop through GraphSLAM.process_sequence at
-    phase 5's config with speculation_depth 8 and chunk_size 16: K3 and K1
-    at the first chunk's inputs, launches, the gates, phase 5's per-frame
-    run frame for frame, and ms/frame.  Returns the launches."""
+    """Phase 7b: the rendered loop through the speculative per-frame queue
+    at phase 5's config with speculation_depth 8, the batched adaptor over
+    chunks of 16 (``run_speculative``): K3 and K1 at the first chunk's
+    inputs, launches, the gates, phase 5's per-frame run frame for frame,
+    and ms/frame.  Returns (the launches, ms/frame)."""
     import dataclasses
 
     import torch
@@ -886,12 +957,12 @@ def phase_sequence(dev, smi, report, thr, loop, ref_slam, ref_rows, ref_ms, adap
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    slam, rows = run_sequence(frames, scam, dev, adapt_cfg, config)
+    slam, rows = run_speculative(frames, scam, dev, adapt_cfg, config)
     first_pass = time.perf_counter() - t0
     counts = kernels.launch_counts()
     chunks = -(-n // SEQ_CHUNK)
     gn_want = 3 * (n + slam.num_replayed_frames)
-    print(f"process_sequence (speculation_depth {SEQ_DEPTH}, chunk_size {SEQ_CHUNK}): {n} "
+    print(f"speculative queue (speculation_depth {SEQ_DEPTH}, adaptor per {SEQ_CHUNK}): {n} "
           f"frames, {slam_counts(slam)}, {slam.num_replayed_frames} frames replayed "
           f"({slam.num_reloc_rollbacks} relocalisation rollbacks, {slam.num_reloc_replays} "
           f"frames replayed there); launches {counts}, predicted fast {chunks}, brief "
@@ -900,19 +971,19 @@ def phase_sequence(dev, smi, report, thr, loop, ref_slam, ref_rows, ref_ms, adap
     if counts != {"fast": chunks, "brief": chunks, "gn_burst": gn_want}:
         fail(f"sequence launch counts {counts} != fast {chunks}, brief {chunks}, "
              f"gn_burst {gn_want}")
-    loop_gate(slam, [f.gt_pose for f in loop], "sequence rendered-loop", smi)
+    loop_gate(slam, [f.gt_pose for f in loop], "speculative rendered-loop", smi)
     compare_slam_runs(ref_slam, ref_rows, slam, rows,
-                      "process_sequence vs phase 5's per-frame GraphSLAM", smi)
+                      "speculative queue vs phase 5's per-frame GraphSLAM", smi)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_sequence(frames, scam, dev, adapt_cfg, config)
+    run_speculative(frames, scam, dev, adapt_cfg, config)
     steady = (time.perf_counter() - t0) / n * 1e3
-    print(f"sequence ms/frame: {steady:.3f} (second pass, process_sequence with the "
+    print(f"sequence ms/frame: {steady:.3f} (second pass, the speculative queue with the "
           f"batched adaptor, speculation_depth {SEQ_DEPTH}), first pass "
           f"{first_pass / n * 1e3:.3f}; phase 5 per-frame GraphSLAM ms/frame {ref_ms:.3f} "
           f"[{smi}]", flush=True)
-    return counts
+    return counts, steady
 
 
 def phase_shipped(dev, smi, frames_np, frames_gpu):
@@ -1063,20 +1134,37 @@ def phase_host(dev, smi, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg)
     if code != 0 or not same:
         fail("8b: the BOSS log's run differs from the folder's")
 
-    # ---- 8c: the rendered loop through --chunked ----
+    # ---- 8c: the rendered loop through --chunked (the chunk program) ----
+    from srrg2_proslam_tpu_torch.models import slam as slam_mod
+    from srrg2_proslam_tpu_torch.utils import graphs
+
+    apps_slam = []
+    real_seq = slam_mod.GraphSLAM.process_sequence
+
+    def recording(self, *args, **kw):
+        apps_slam.append(self)
+        return real_seq(self, *args, **kw)
+
+    before = set(graphs.programs())
     kernels.reset_launch_counts()
-    code, lines = run_app("app_benchmark", ["--dataset", "synthetic", "--count", "145",
-                                            "--chunked", "16"], "8c card")
+    slam_mod.GraphSLAM.process_sequence = recording
+    try:
+        code, lines = run_app("app_benchmark", ["--dataset", "synthetic", "--count", "145",
+                                                "--chunked", "16"], "8c card")
+    finally:
+        slam_mod.GraphSLAM.process_sequence = real_seq
     launches["app_chunked"] = kernels.launch_counts()
     res = app_result(lines)
+    want, warm = chunk_launches_wanted(apps_slam[0], before)
     print(f"8c --dataset synthetic --count 145 --chunked 16: exit {code}, regression "
           f"{res['regression']}, mean_frame_hz {res['mean_frame_hz']:.3f} (phase 5 per-frame "
           f"GraphSLAM {1e3 / ref_ms:.3f} frames/s in this call), launches "
-          f"{launches['app_chunked']} [{smi}]", flush=True)
+          f"{launches['app_chunked']}, predicted {want} (chunk program: "
+          f"{apps_slam[0].chunk_stats}, {warm} warm-up frames) [{smi}]", flush=True)
     if code != 0 or res["regression"]:
         fail("8c: the synthetic regression gate failed")
-    if (launches["app_chunked"]["fast"], launches["app_chunked"]["brief"]) != (10, 10):
-        fail(f"8c launches {launches['app_chunked']}: not fast 10, brief 10")
+    if launches["app_chunked"] != want or apps_slam[0].chunk_stats["graph_replays"] == 0:
+        fail(f"8c launches {launches['app_chunked']} != {want}, or no chunk graph replayed")
 
     # ---- 8d: checkpoint at frame 72 of phase 5's loop, card and CPU ----
     scam = synthetic.synthetic_camera()
@@ -1176,6 +1264,352 @@ def phase_host(dev, smi, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg)
           f"decoder, the prefetcher in order [{smi}]", flush=True)
     shutil.rmtree(HOST_DIR)
     return launches
+
+
+# ---- phase 9: the chunk program (models/chunk.py) ----------------------------
+CHUNK_EAGER_TOL = 1e-4       # 9b: graph vs eager on the card, poses (m) and floats
+STREAM_CHUNKS = ((4, 1), (5, 1), (16, 1), (4, 2))   # 9c: (chunk_size, chunk_group)
+PROFILED_FRAMES = 48         # 9a: the profiler's window, three chunks
+
+
+def chunk_launches_wanted(slam, before: set, rounds: int = 3):
+    """The launches a chunk-program run should have made: one K3 and one K1
+    per chunk through the batched adaptor, and ``rounds`` K2 per tracker
+    step (0 for RGB-D): the frames of every chunk graph replay, the frames
+    stepped eagerly, and the warm-up pass of each chunk graph captured in
+    the run (``before``: the captured programs' keys before it).  Returns
+    (launches, warm-up frames)."""
+    from srrg2_proslam_tpu_torch.utils import graphs
+
+    st = slam.chunk_stats
+    warm = sum(key[2][0] for key in graphs.programs()
+               if key[0] == "chunk" and key not in before)
+    return ({"fast": st["adapted_chunks"], "brief": st["adapted_chunks"],
+             "gn_burst": rounds * (st["tracker_steps"] + warm)}, warm)
+
+
+def print_captures(before: set, tag: str, smi: str):
+    """The CUDA graphs captured since ``before``: capture and instantiate
+    ms, nodes, launches per replay, replays."""
+    from srrg2_proslam_tpu_torch.utils import graphs
+
+    for key, prog in graphs.programs().items():
+        if key in before:
+            continue
+        shape = key[2] if key[0] == "chunk" else key[2:7]
+        print(f"  {tag}: captured {key[0]} graph {shape}: capture "
+              f"{prog.capture_ms:.1f} ms, instantiate {prog.instantiate_ms:.1f} ms, "
+              f"{prog.num_nodes} nodes, launches per replay {prog.launches}, "
+              f"{prog.replays} replays [{smi}]", flush=True)
+
+
+def profiler_launches(fn):
+    """(the wrappers' launch counts over ``fn()``, K3/K1/K2 kernel events
+    torch.profiler saw on the card over it, graph replays included)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from srrg2_proslam_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    seen = dict.fromkeys(after, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key, kname in zip(("fast", "brief", "gn_burst"), KERNEL_NAMES):
+                seen[key] += kname in e.name
+    return {k: after[k] - before[k] for k in after}, seen
+
+
+def chunk_graph_vs_eager(dev, smi, loop, scam, adapt_cfg, config, chunks: int = 3):
+    """9b: the loop's first ``chunks`` chunks through the chunk graph and
+    through ``chunk_frames`` eagerly from the same state, and every split
+    branch of them through its graph and eagerly from the same carry:
+    integer packet columns, finish codes, arena masks and counts, split
+    heads, database slots and correspondences equal; poses, positions and
+    the other floats within CHUNK_EAGER_TOL."""
+    import torch
+
+    from srrg2_proslam_tpu_torch.models import chunk
+    from srrg2_proslam_tpu_torch.models.frontend import adapt_stereo_batch
+    from srrg2_proslam_tpu_torch.models.loop_closure import empty_database
+    from srrg2_proslam_tpu_torch.models.tracker import initial_state
+    from srrg2_proslam_tpu_torch.ops import pgo, se3
+
+    B, sp = config.chunk_size, config.splitting
+    args = (scam, config.tracker, "stereo", config.min_track_inliers,
+            sp.maximum_translation_m, sp.maximum_rotation_rad)
+    exact_cols = [chunk.PKT_INLIERS, chunk.PKT_MATCHES, chunk.PKT_MERGES,
+                  chunk.PKT_ADDITIONS, chunk.PKT_STAGE, chunk.PKT_FINISH, chunk.PKT_ACTIVE]
+
+    def scalar(v):
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    state, fim = initial_state(config.arena_capacity, device=dev), scalar(0)
+    graph = pgo.add_pose(pgo.empty_graph(config.max_local_maps, config.max_edges, dev), 0,
+                         se3.identity(dev))
+    db = empty_database(config.database_capacity, config.max_db_descriptors_per_map, dev)
+    ec, cur, nm, nm_h = scalar(0), scalar(0), scalar(1), 1
+    worst = {"T": 0.0, "pos": 0.0, "packet": 0.0, "split": 0.0}
+    n_splits = n_loops = 0
+
+    def check(ok, what):
+        if not ok:
+            fail(f"9b: graph and eager runs differ: {what}")
+
+    for c in range(chunks):
+        lefts = torch.stack([f.left for f in loop[c * B:(c + 1) * B]])
+        rights = torch.stack([f.right for f in loop[c * B:(c + 1) * B]])
+        m = adapt_stereo_batch(lefts, rights, adapt_cfg)
+        inp = (state, fim, m.points, m.desc, m.valid)
+        g_state, g_fim, g = chunk.run_chunk(*inp, 0, B, *args)
+        _, e_fim, e = chunk.chunk_frames(*inp, 0, B, *args)
+        check(torch.equal(g.packet[:, exact_cols], e.packet[:, exact_cols])
+              and int(g_fim) == int(e_fim), f"chunk {c} packet counts")
+        check(torch.equal(g.arenas.valid, e.arenas.valid)
+              and torch.equal(g.arenas.num_updates, e.arenas.num_updates), f"chunk {c} maps")
+        valid = g.arenas.valid
+        worst["T"] = max(worst["T"], float((g.T_lm_robot - e.T_lm_robot).abs().max()))
+        worst["pos"] = max(worst["pos"], float(
+            (g.arenas.pos - e.arenas.pos).abs()[valid].max()))
+        worst["packet"] = max(worst["packet"], float((g.packet - e.packet).abs().max()))
+        pkt = g.packet.cpu().numpy()
+        for i in range(B):
+            if pkt[i, chunk.PKT_FINISH] < 0.5:
+                continue
+            do_loop = nm_h >= 2 and pkt[i, chunk.PKT_FINISH] != chunk.FINISH_LOST
+            sin = (graph, ec, db, cur, nm, g.T_lm_robot[i], chunk.take_frame(g.arenas, i))
+            sargs = (config.max_db_descriptors_per_map, config.loop, True, do_loop)
+            gs = chunk.run_split(*sin, *sargs)
+            es = chunk.split_branch(*sin, *sargs)
+            check(torch.equal(gs[5].meta[:chunk.SM_CP], es[5].meta[:chunk.SM_CP]),
+                  f"split head {gs[5].meta[:chunk.SM_CP].tolist()} vs "
+                  f"{es[5].meta[:chunk.SM_CP].tolist()}")
+            check(all(torch.equal(a, b) for a, b in zip(gs[2], es[2])), "split database")
+            check(torch.equal(gs[5].loop_mask, es[5].loop_mask), "split correspondences")
+            worst["split"] = max(worst["split"],
+                                 float((gs[5].meta - es[5].meta).abs().max()),
+                                 float((gs[0].poses - es[0].poses).abs().max()))
+            graph, ec, db, cur, nm = gs[:5]
+            nm_h += 1
+            n_splits += 1
+            n_loops += do_loop
+        state, fim = g_state, g_fim
+    print(f"9b graph vs eager on the card, {chunks} chunks of {B} and their {n_splits} "
+          f"splits ({n_loops} with the loop query): packet counts, finish codes, maps, "
+          f"split heads, database slots and correspondences equal; max |dT| "
+          f"{worst['T']:.3e}, max |d pos| {worst['pos']:.3e} m, max packet diff "
+          f"{worst['packet']:.3e}, max split-row / pose diff {worst['split']:.3e} "
+          f"(tolerance {CHUNK_EAGER_TOL}) [{smi}]", flush=True)
+    if max(worst.values()) > CHUNK_EAGER_TOL or n_loops == 0:
+        fail(f"9b: graph vs eager beyond {CHUNK_EAGER_TOL}, or no split with a loop query")
+
+
+def measurement_stream(name: str):
+    """tests/test_torch_slam.py's measurement streams (a random world of
+    400 or 500 points projected into a stereo rig walking along z),
+    rebuilt with numpy here (those tests import JAX): "lost" (a frame with
+    nothing measured), "closure" (out and back), "relocalize" (a longer
+    out-and-back with relocalisations), "eviction" (closure with a two-slot
+    ring, as tests/test_torch_sequence.py builds it) and "rollback"
+    (relocalize with frames 16 and 17 blanked, tests/test_torch_chunk_reloc.py).
+    Returns (camera, frames [(points, desc, valid, timestamp)], config)."""
+    import numpy as np
+
+    from srrg2_proslam_tpu_torch.io.datasets import kitti_camera
+    from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAMConfig, SplittingConfig
+
+    cam = kitti_camera(rows=400, cols=600)._replace(fx=450.0, fy=450.0, cx=300.0, cy=200.0,
+                                                    baseline_px=225.0)
+    base = {"eviction": "closure", "rollback": "relocalize"}.get(name, name)
+    rng = np.random.RandomState(0)
+    n = 400 if base == "lost" else 500
+    pts_w = np.stack([rng.uniform(-15, 15, n), rng.uniform(-5, 5, n),
+                      rng.uniform(2, 40, n)], axis=1).astype(np.float32)
+    desc = rng.choice(np.array([-1, 1], np.int8), size=(n, 256))
+    kw = dict(arena_capacity=1024, max_local_maps=32, max_edges=64)
+    if base == "lost":
+        zs = [0.4 * i for i in range(12)]
+        kw.update(splitting=SplittingConfig(maximum_translation_m=1.0),
+                  enable_loop_closing=False)
+    elif base == "closure":
+        zs = list(np.arange(0, 3.0, 0.3)) + list(np.arange(3.0, -0.01, -0.3))
+        kw.update(splitting=SplittingConfig(maximum_translation_m=1.0),
+                  database_capacity=8192,
+                  loop=LoopDetectorConfig(minimum_age_difference=2, minimum_matches=25))
+    else:
+        zs = list(np.arange(0, 3.5, 0.25)) + list(np.arange(3.5, -0.01, -0.25))
+        kw.update(splitting=SplittingConfig(maximum_translation_m=0.6),
+                  database_capacity=16384, max_device_map_arenas=2,
+                  loop=LoopDetectorConfig(minimum_age_difference=3, minimum_matches=25))
+    if name == "eviction":
+        kw.update(database_capacity=1024, max_db_descriptors_per_map=512)
+    blank = {"lost": (6,), "rollback": (16, 17)}.get(name, ())
+    frames = []
+    for i, z in enumerate(zs):
+        # the rig at (0, 0, z): camera coordinates are the world's moved by -z
+        T_wc = np.eye(4, dtype=np.float32)
+        T_wc[2, 3] = -z
+        p_c = pts_w @ T_wc[:3, :3].T + T_wc[:3, 3]
+        zc = p_c[:, 2]
+        zsafe = np.maximum(zc, 0.5)
+        u = cam.fx * p_c[:, 0] / zsafe + cam.cx
+        v = cam.fy * p_c[:, 1] / zsafe + cam.cy
+        ur = u - cam.baseline_px / zsafe
+        ok = ((zc > 0.5) & (u >= 0) & (u < cam.cols) & (v >= 0) & (v < cam.rows)
+              & (ur >= 0))
+        if i in blank:
+            ok[:] = False
+        frames.append((np.stack([u, v, ur, v], axis=1).astype(np.float32), desc, ok, 0.1 * i))
+    return cam, frames, GraphSLAMConfig(**kw)
+
+
+def stream_runs(dev, smi):
+    """9c: each measurement stream per frame on the card and through the
+    chunk program at every STREAM_CHUNKS setting (the rollback stream also
+    in chunks of 20), each equal to the per-frame run, and at least one
+    relocalisation rollback over them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from srrg2_proslam_tpu_torch.models.slam import GraphSLAM
+
+    totals = {"runs": 0, "rollbacks": 0, "replays": 0, "relocalisations": 0}
+    for name in ("lost", "closure", "relocalize", "eviction", "rollback"):
+        cam, frames, config = measurement_stream(name)
+        ref = GraphSLAM(cam, config, device=dev)
+        ref_rows = []
+        for p, d, ok, stamp in frames:
+            ref.process(*(torch.from_numpy(a).to(dev) for a in (p, d, ok)), stamp)
+            ref_rows.append((ref.status, ref.current_map))
+        settings = STREAM_CHUNKS + (((20, 1),) if name == "rollback" else ())
+        stacks = [np.stack([f[k] for f in frames]) for k in range(3)]
+        for size, group in settings:
+            slam = GraphSLAM(cam, dataclasses.replace(config, chunk_size=size,
+                                                      chunk_group=group), device=dev)
+            statuses = watch_statuses(slam)
+            slam.process_meas_sequence(*stacks, [f[3] for f in frames])
+            rows = list(zip(statuses, (f.local_map_index for f in slam.frames)))
+            tag = f"9c {name} stream, chunk {size} x group {group} vs per frame on the card"
+            compare_slam_runs(ref, ref_rows, slam, rows, tag, smi)
+            print(f"  {tag}: rollbacks {slam.num_reloc_rollbacks}, replays "
+                  f"{slam.num_reloc_replays}, relocalisations {slam.num_relocalizations}, "
+                  f"{slam.chunk_stats}", flush=True)
+            totals["runs"] += 1
+            totals["rollbacks"] += slam.num_reloc_rollbacks
+            totals["replays"] += slam.num_reloc_replays
+            totals["relocalisations"] += slam.num_relocalizations
+    print(f"9c: {totals['runs']} chunked runs equal to their per-frame runs; "
+          f"{totals['relocalisations']} relocalisations, {totals['rollbacks']} rollbacks, "
+          f"{totals['replays']} replays [{smi}]", flush=True)
+    if totals["rollbacks"] < 1:
+        fail("9c: no run took the relocalisation rollback")
+
+
+def phase_chunk(dev, smi, loop, ref_slam, ref_rows, ref_ms, seq_ms, adapt_cfg):
+    """Phase 9, the chunk program (process_sequence at chunk_size 16,
+    chunk_lag 2): 9a the rendered loop (gate, phase 5's run frame for
+    frame, launches predicted and seen by the profiler, graphs, reads,
+    ms/frame); 9b graph against eager; 9c the measurement streams; 9d the
+    loop as RGB-D.  Returns 9a's launches."""
+    import dataclasses
+
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import synthetic
+    from srrg2_proslam_tpu_torch.models.frontend import DepthAdaptorConfig
+    from srrg2_proslam_tpu_torch.utils import graphs, profiling
+
+    scam = synthetic.synthetic_camera()
+    frames = [((f.left, f.right), f.timestamp) for f in loop]
+    n = len(frames)
+    config = dataclasses.replace(slam_config(), speculation_depth=SEQ_DEPTH,
+                                 chunk_size=SEQ_CHUNK)
+    # ---- 9a
+    before = set(graphs.programs())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, rows = run_sequence(frames, scam, dev, adapt_cfg, config)
+    first_pass = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want, warm = chunk_launches_wanted(slam, before)
+    st = slam.chunk_stats
+    print_captures(before, "9a", smi)
+    consumed = st["packet_reads"] - st["splits"]
+    print(f"9a process_sequence (chunk_size {SEQ_CHUNK}, chunk_lag {config.chunk_lag}): {n} "
+          f"frames, {slam_counts(slam)}; {st['dispatches']} dispatches ({consumed} consumed), "
+          f"{st['graph_replays']} chunk graph replays ({st['graph_replays'] / st['dispatches']:.3f}"
+          f" per dispatch), {st['eager_frames']} eager frames, {st['splits']} split branches, "
+          f"{st['packet_reads']} packet reads ({st['packet_reads'] / consumed:.3f} per consumed "
+          f"chunk), {st['tracker_steps']} tracker steps + {warm} warm-up; relocalisation "
+          f"rollbacks {slam.num_reloc_rollbacks}, replays {slam.num_reloc_replays}; launches "
+          f"{counts}, predicted {want} [{smi}]", flush=True)
+    if counts != want or st["graph_replays"] == 0:
+        fail(f"9a launches {counts} != {want}, or no chunk graph replayed")
+    loop_gate(slam, [f.gt_pose for f in loop], "chunk-program rendered-loop", smi)
+    compare_slam_runs(ref_slam, ref_rows, slam, rows,
+                      "9a process_sequence (chunk program) vs phase 5's per-frame GraphSLAM",
+                      smi)
+    counted, seen = profiler_launches(
+        lambda: run_sequence(frames[:PROFILED_FRAMES], scam, dev, adapt_cfg, config))
+    print(f"9a profiler window ({PROFILED_FRAMES} frames through process_sequence): wrappers "
+          f"counted {counted}, kernel events seen {seen} [{smi}]", flush=True)
+    if any(not 0 <= counted[k] - seen[k] <= 1 for k in counted) or seen["gn_burst"] == 0:
+        fail(f"9a: the profiler saw {seen}, the counts say {counted} (at most one event "
+             "per kernel may drop)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_sequence(frames, scam, dev, adapt_cfg, config)
+    steady = (time.perf_counter() - t0) / n * 1e3
+    print(f"chunk program ms/frame: {steady:.3f} (second pass, process_sequence), first pass "
+          f"{first_pass / n * 1e3:.3f}; phase 5 per-frame {ref_ms:.3f}, phase 7 speculative "
+          f"{seq_ms:.3f} in this call [{smi}]", flush=True)
+    # a third pass under profile_time, each scope synchronized: where it goes
+    profiling.reset()
+    profiling.enable()
+    try:
+        run_sequence(frames, scam, dev, adapt_cfg, config)
+    finally:
+        profiling.enable(False)
+    for stage, stat in profiling.stats().items():
+        print(f"  9a stage {stage}: {stat['calls']} calls, mean {stat['mean_ms']:.3f} ms, "
+              f"total {stat['total_s'] * 1e3:.3f} ms (third pass, profile_time, synchronized) "
+              f"[{smi}]", flush=True)
+    # ---- 9b
+    chunk_graph_vs_eager(dev, smi, loop, scam, adapt_cfg, config)
+    # ---- 9c
+    t9c = time.perf_counter()
+    stream_runs(dev, smi)
+    print(f"9c: {time.perf_counter() - t9c:.1f} s [{smi}]", flush=True)
+    # ---- 9d
+    dcfg = DepthAdaptorConfig()
+    rgbd = list(synthetic.iter_rendered_loop_rgbd(side_a=10.0, side_b=6.0, step_m=0.4,
+                                                  turn_frames=10, device=dev))
+    rframes = [((f.intensity, f.depth), f.timestamp) for f in rgbd]
+    ref_rgbd, ref_rgbd_rows = run_slam(rframes, scam, dev, dcfg, model="rgbd")
+    before = set(graphs.programs())
+    kernels.reset_launch_counts()
+    rslam, rrows = run_sequence(rframes, scam, dev, dcfg, config, model="rgbd")
+    rcounts = kernels.launch_counts()
+    rwant, _ = chunk_launches_wanted(rslam, before, rounds=0)
+    print_captures(before, "9d", smi)
+    print(f"9d the loop as RGB-D (local BA off) through process_sequence: "
+          f"{slam_counts(rslam)}, {rslam.chunk_stats}, launches {rcounts}, predicted {rwant} "
+          f"[{smi}]", flush=True)
+    if rcounts != rwant or rslam.chunk_stats["graph_replays"] == 0:
+        fail(f"9d launches {rcounts} != {rwant}, or no chunk graph replayed")
+    compare_slam_runs(ref_rgbd, ref_rgbd_rows, rslam, rrows,
+                      "9d RGB-D process_sequence vs per-frame RGB-D GraphSLAM", smi)
+    return counts
 
 
 def main():
@@ -1458,7 +1892,8 @@ def main():
     # ---- 7. the shipped configurations and the sequence API ---------------
     t7 = time.perf_counter()
     phase_adaptor_configs(dev, smi, frames_np, frames_gpu)
-    seq_counts = phase_sequence(dev, smi, report, thr, loop, slam, rows, slam_ms, adapt_cfg)
+    seq_counts, seq_ms = phase_sequence(dev, smi, report, thr, loop, slam, rows, slam_ms,
+                                        adapt_cfg)
     phase_shipped(dev, smi, frames_np, frames_gpu)
     print(f"phase 7: {time.perf_counter() - t7:.1f} s [{smi}]", flush=True)
 
@@ -1466,6 +1901,11 @@ def main():
     t8 = time.perf_counter()
     app_counts = phase_host(dev, smi, frames_np, loop, slam, rows, slam_ms, adapt_cfg)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s [{smi}]", flush=True)
+
+    # ---- 9. the chunk program ------------------------------------------------
+    t9 = time.perf_counter()
+    chunk_counts = phase_chunk(dev, smi, loop, slam, rows, slam_ms, seq_ms, adapt_cfg)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s [{smi}]", flush=True)
 
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
@@ -1479,6 +1919,7 @@ def main():
          "launches_vo": vo_counts[kname], "launches_vo_per_frame": vo_counts[kname] / len(frames_gpu),
          "launches_rgbd": rgbd_counts[kname],
          "launches_sequence": seq_counts[kname],
+         "launches_chunk": chunk_counts[kname],
          **{f"launches_{path}": c[kname] for path, c in app_counts.items()},
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)

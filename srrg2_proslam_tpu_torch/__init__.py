@@ -11,7 +11,7 @@ ops/       SE3, pinhole, triangulation, Hamming, matching, features
            functions on tensors.
 models/    stereo and RGB-D adaptors, landmark arena, frame-to-map tracker,
            loop closure database and validation, the GraphSLAM
-           orchestrator (with split-time local BA).
+           orchestrator (with split-time local BA) and its chunk program.
 io/        dataset readers and writers (bundled KITTI and ICL, KITTI
            odometry, TUM, EuRoC with rectification, Malaga; trajectories,
            PFM, PNG/PGM), the native C++ decoder and prefetcher (built
@@ -21,7 +21,8 @@ io/        dataset readers and writers (bundled KITTI and ICL, KITTI
 metrics/   ATE / RPE trajectory evaluation (numpy).
 utils/     profile_time scoped host timers and device_trace; the config
            registry and its JSON round trip (loads
-           ``configurations/*.json``).
+           ``configurations/*.json``); CUDA graphs captured once and
+           replayed (``graphs.py``).
 apps/      app_benchmark, convert_dataset, compute_sparse_stereo_gt
            (``python -m srrg2_proslam_tpu_torch.apps.<name>``).
 entry.py   ``entry()``: one stereo tracker step on the card.
@@ -35,7 +36,8 @@ RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` and their batched forms ->
 ``track_step``, with the EKF, weighted-mean or smoother landmark estimator
 and the optional motion prior) and GraphSLAM on it (->
 ``GraphSLAM.process``, speculative or synchronous, with optional local BA,
-or ``GraphSLAM.process_sequence`` over whole image stacks); every shipped
+or ``GraphSLAM.process_sequence`` over whole image stacks through the
+chunk program, ``models/chunk.py``, CUDA graphs on the card); every shipped
 configuration loads through ``utils.config.load``; the apps start it as
 the JAX package's apps start that one.
 """

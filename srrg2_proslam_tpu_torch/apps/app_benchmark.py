@@ -7,7 +7,7 @@ folder, a BOSS log, the rendered closed loop (``synthetic``) or, with no
 ``--sequence``, the bundled 5-frame KITTI sequence; they go through
 ``adapt_stereo`` / ``adapt_rgbd`` and ``GraphSLAM.process`` one by one, or
 with ``--chunked B`` through ``GraphSLAM.process_sequence`` in chunks of
-B.  ``mean_frame_hz`` is frames over the summed compute time: each timed
+B (the chunk program, models/chunk.py).  ``mean_frame_hz`` is frames over the summed compute time: each timed
 window (a frame's upload, adaptor and SLAM step; with ``--chunked`` the
 whole ``process_sequence`` call) ends in a synchronize of the card, so
 the device work queued inside it is counted.

@@ -10,7 +10,9 @@
 A wrapper given a CPU tensor computes its plain PyTorch version; given a
 CUDA tensor it launches its kernel (building the library on first use) or
 raises.  Each wrapper counts its launches in a plain integer, ``launches``,
-on its module.
+on its module.  A CUDA graph's replay runs the launches recorded at its
+capture without calling the wrappers: utils/graphs.py adds them with
+``add_launches``.
 """
 from . import brief, fast, gn
 
@@ -24,3 +26,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    for name, n in counts.items():
+        KERNELS[name].launches = n
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({kernel: launches}) to the counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

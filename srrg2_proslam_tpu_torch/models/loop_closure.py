@@ -319,18 +319,21 @@ def compact_arena(arena: LandmarkArena, budget: int):
 PACKET_WIDTH = 22
 
 
-def detect_and_validate(query_desc, query_valid, query_pos, query_map_id: int,
+def detect_and_validate(query_desc, query_valid, query_pos, query_map_id,
                         db: DescriptorDatabase, poses, config: LoopDetectorConfig,
                         num_maps: int):
     """Split-time loop detection: query + batched validation + one packet.
 
     query_pos [Q, 3] (query-map frame); poses [N, 4, 4] the graph's current
-    estimates, which seed each candidate's alignment.  Returns (result,
+    estimates, which seed each candidate's alignment; ``query_map_id`` an
+    int or a 0-dim integer tensor on the device (the chunk program's map
+    counter: indexing with it reads nothing back).  Returns (result,
     closures, packet [K, 22] float32).
     """
     result = query(query_desc, query_valid, query_map_id, db, config, num_maps)
     cand = result.candidate_maps.clamp_min(0).long()
-    T_init = se3.inverse(poses[cand]) @ poses[query_map_id]
+    q = torch.as_tensor(query_map_id, device=poses.device).reshape(1).long()
+    T_init = se3.inverse(poses[cand]) @ poses.index_select(0, q)
     closures = validate_batch(query_pos, result, T_init, config)
     active = result.candidate_maps >= 0
     packet = torch.cat([

@@ -29,16 +29,23 @@ frames queued behind it.  ``flush`` consumes everything.  The end state
 equals the synchronous run's (``speculation_depth = 0``).
 
 Sequences (``process_sequence``, ``process_meas_sequence``, with
-``chunk_size`` > 0): the stacks are uploaded once, ``chunk_size *
-chunk_group`` frames at a time go through the batched adaptor (one FAST
-and one BRIEF launch per chunk on the card), and each frame then goes
-through the per-frame pipeline above.  The JAX package's fused chunk
-program (models/chunk.py: the adaptor, tracker, status machine and split
-pipeline as one device program per chunk, with rollback in the op) is not
-carried over: its results are pinned to the per-frame loop, which this
-mode runs; on the card its counterpart would be a CUDA graph of a chunk's
-tracker steps.  ``chunk_lag`` has no effect.  The device mesh raises
-NotImplementedError.
+``chunk_size`` > 0) run the chunk program (models/chunk.py), the JAX
+package's chunked mode: the stacks are uploaded once; ``chunk_size``
+frames at a time go through the batched adaptor (one FAST and one BRIEF
+launch per chunk on the card) and then through the chunk's tracker steps
+and on-device status machine, one CUDA graph replay per chunk;
+``chunk_group`` chunks are dispatched together and share one packet read;
+``chunk_lag`` dispatches stay in flight before the oldest is consumed.
+Consuming a dispatch reads its packet, runs the split branch of each
+finished frame (a graph replay and a read of its split-meta row, then the
+closure decision where a candidate was accepted), and mirrors status,
+maps, database, events and counters on the host.  A relocalisation drops
+the dispatches in flight and rewinds the sequence to the frame after the
+finish; later finishes of its chunk are undone on the device
+(``num_reloc_rollbacks``), or, where one of them kept a closure, the
+chunk's split branches are replayed up to the finish
+(``num_reloc_replays``), as the JAX package replays its chunk.  ``speculation_depth`` has no effect there.  The device mesh
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -53,9 +60,11 @@ from ..ops import ba as ba_ops
 from ..ops import pgo, se3
 from ..ops.pinhole import Camera
 from ..utils import config as cfg
+from ..utils import graphs
 from ..utils.profiling import profile_time
 from . import landmarks as lm
 from . import loop_closure
+from . import chunk as chunk_ops
 from .frontend import adapt_rgbd_batch, adapt_stereo_batch
 from .tracker import (TrackerConfig, TrackerState, _check_supported, _robot_sensor,
                       initial_state, track_step)
@@ -105,9 +114,10 @@ class GraphSLAMConfig:
     """Same fields and defaults as the JAX package's GraphSLAMConfig.
 
     ``speculation_depth``: frames dispatched ahead of the host's status
-    machine (0: synchronous).  ``chunk_size * chunk_group``: frames per
-    batched adaptor call of ``process_sequence`` (0: no sequence API).
-    ``chunk_lag`` has no effect (the JAX package's chunk program queue).
+    machine in per-frame mode (0: synchronous).  ``chunk_size``: frames
+    per chunk of the sequence API's chunk program (0: no sequence API),
+    ``chunk_group`` chunks per dispatch and packet read, ``chunk_lag``
+    dispatches in flight before the oldest is consumed.
     """
 
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
@@ -189,6 +199,15 @@ class _PendingFrame(NamedTuple):
     packet: _HostCopy
 
 
+class _ChunkEntry(NamedTuple):
+    """A dispatched chunk not yet consumed: its tracker outputs, its first
+    frame and its packet's host copy."""
+
+    ys: object            # chunk.ChunkYs
+    start: int
+    packet: _HostCopy
+
+
 @dataclass
 class _ClosureMarker:
     """A split's loop query in the frame queue: its decision packet's host
@@ -213,6 +232,19 @@ def _check_graph_config(config: GraphSLAMConfig, model: str, mesh) -> None:
     _check_supported(config.tracker, model)
 
 
+def _edge_added(graph: pgo.PoseGraph, num_edges: int, i: int, j: int, Z):
+    """Factor insertion at slot ``num_edges``, with double-and-copy growth:
+    (graph, num_edges + 1)."""
+    if num_edges >= graph.edge_capacity:
+        graph = pgo.grow(graph, graph.capacity, 2 * graph.edge_capacity)
+    return pgo.add_edge(graph, num_edges, i, j, Z), num_edges + 1
+
+
+def _packet_Z(pkt: np.ndarray, k: int) -> np.ndarray:
+    """Candidate ``k``'s validated closure transform from [K, 22] decision rows."""
+    return pkt[k, 6:22].reshape(4, 4).astype(np.float32)
+
+
 class GraphSLAM:
     """Graph SLAM on one device.
 
@@ -226,13 +258,18 @@ class GraphSLAM:
     db_insert, loop_detect, closure_decision (the whole decision:
     agreement, backstop rounds and their PGO), pgo and reloc.
 
-    ``num_reloc_rollbacks`` counts relocalisations that found frames
-    dispatched behind the split (speculation) and ``num_reloc_replays``
-    those frames, re-dispatched into the reloaded map; both stay 0 in the
-    synchronous mode.  (In the JAX package's chunk program they count its
-    device rollbacks and chunk replays.)  ``num_replayed_frames`` counts
-    every re-dispatched frame, after splits and losses too: each runs its
-    tracker step again.
+    The chunk program adds chunk_dispatch and chunk_readback (the packet
+    read, and each split's meta row); ``chunk_stats`` counts what it ran.
+
+    ``num_reloc_rollbacks`` and ``num_reloc_replays`` count, as in the JAX
+    package, the chunk program's relocalisations whose chunk held later
+    finishes: undone on the device, or (a later finish kept a closure)
+    recovered by replaying its split branches.  In per-frame mode they count
+    relocalisations that found frames dispatched behind the split
+    (speculation) and those frames, re-dispatched into the reloaded map;
+    both stay 0 in the synchronous mode.  ``num_replayed_frames`` counts
+    every frame the speculative queue re-dispatched, after splits and
+    losses too: each runs its tracker step again.
     """
 
     def __init__(self, cam: Camera, config: GraphSLAMConfig = GraphSLAMConfig(),
@@ -275,6 +312,19 @@ class GraphSLAM:
         self.num_reloc_rollbacks = 0
         self.num_reloc_replays = 0
         self.num_replayed_frames = 0
+        # the chunk program: dispatches not yet consumed, the active
+        # sequence and the carry (models/chunk.py)
+        self._cqueue = deque()
+        self._seq = None
+        self._seq_cursor = 0
+        self._seq_lo = 0
+        self._carry = None
+        # what the chunk program ran: dispatches, chunk graph replays,
+        # frames stepped eagerly (short windows), tracker steps in all,
+        # chunks through the batched adaptor, split branches, packet reads
+        self.chunk_stats = dict.fromkeys(
+            ("dispatches", "graph_replays", "eager_frames", "tracker_steps",
+             "adapted_chunks", "splits", "packet_reads"), 0)
 
     def _initial_state(self) -> TrackerState:
         return initial_state(self.config.arena_capacity,
@@ -307,12 +357,7 @@ class GraphSLAM:
         self._ba_keyframes = []
 
     def _add_graph_edge(self, i: int, j: int, Z):
-        """Factor insertion with double-and-copy growth."""
-        if self.num_edges >= self.graph.edge_capacity:
-            self.graph = pgo.grow(self.graph, self.graph.capacity,
-                                  2 * self.graph.edge_capacity)
-        self.graph = pgo.add_edge(self.graph, self.num_edges, i, j, Z)
-        self.num_edges += 1
+        self.graph, self.num_edges = _edge_added(self.graph, self.num_edges, i, j, Z)
 
     def _get_map_arena(self, mid: int) -> lm.LandmarkArena:
         """A finalized map's arena on the device (reloaded if it was moved)."""
@@ -384,22 +429,44 @@ class GraphSLAM:
         accepted = [k for k in range(pkt.shape[0]) if pkt[k, 1] > 0.5 and pkt[k, 0] >= 0]
         if not accepted:
             return None
-        # pre_graph stays valid: pgo's functions return new tensors
-        pre_graph, pre_edges = self.graph, self.num_edges
+        self.graph, self.num_edges, kept = self._closure_decision(
+            self.graph, self.num_edges, pkt, list(accepted), m.query_map)
+        n_rej = len(accepted) - len(kept)
+        if n_rej > 0:
+            self.num_backstop_rejections += n_rej
+            print(f"[slam] closure backstop: rejected {n_rej} "
+                  f"candidate(s) into map {m.query_map}")
+        if not kept:
+            return None
+        best_k = max(kept, key=lambda k: pkt[k, 2])
+        for k in kept:
+            self.num_closures += 1
+            self.closure_events.append((int(pkt[k, 0]), m.query_map))
+        row = pkt[best_k]
+        if self._reloc_gates(row):
+            return best_k, int(row[0]), _packet_Z(pkt, best_k)
+        return None
 
-        def Z_of(k):
-            return pkt[k, 6:22].reshape(4, 4).astype(np.float32)
+    def _closure_decision(self, graph: pgo.PoseGraph, num_edges: int, pkt: np.ndarray,
+                          accepted: list, query_map: int):
+        """The candidates ``accepted`` by the reference's gates (rows of the
+        [K, 22] decision ``pkt``) become factors of ``graph`` and PGO runs,
+        under the geometric backstop.  Returns (graph, num_edges, the
+        candidates kept); with none kept, the graph as it came."""
+        config = self.config
+        pre_graph, pre_edges = graph, num_edges
 
         def insert_and_optimize(ks):
+            g, n = pre_graph, pre_edges
             for k in ks:
-                self._add_graph_edge(int(pkt[k, 0]), m.query_map,
-                                     torch.as_tensor(Z_of(k), device=self.device))
+                g, n = _edge_added(g, n, int(pkt[k, 0]), query_map,
+                                   torch.as_tensor(_packet_Z(pkt, k), device=self.device))
             with profile_time("pgo"):
-                self.graph, _ = pgo.optimize(self.graph, self.config.pgo)
+                g, _ = pgo.optimize(g, config.pgo)
+            return g, n
 
-        thr = self.config.loop.backstop_max_edge_residual
-        tol = self.config.loop.backstop_agreement_tolerance
-        n_pre_agree = len(accepted)
+        thr = config.loop.backstop_max_edge_residual
+        tol = config.loop.backstop_agreement_tolerance
         poses_np = pre_graph.poses.cpu().numpy()
         if thr > 0 and tol > 0 and len(accepted) >= 2:
             # candidate agreement: the implied query positions must form a
@@ -411,56 +478,37 @@ class GraphSLAM:
                      for a in accepted}
             mx = max(score.values())
             accepted = [k for k in accepted if score[k] == mx and mx >= 2]
-        if thr > 0:
-            # greedy outlier pruning: while a closure edge's own post-PGO
-            # residual, or the held-out pre-existing factors' mean residual
-            # worsening, exceeds the bound, drop the candidate with the
-            # largest pre-insertion residual and re-optimize
-            def held_out():
-                # tracks the current edge capacity (insertion can grow it)
-                return torch.arange(self.graph.edge_capacity, device=self.device) < pre_edges
+        if thr <= 0:
+            g, n = insert_and_optimize(accepted)
+            return g, n, accepted
+        # greedy outlier pruning: while a closure edge's own post-PGO
+        # residual, or the held-out pre-existing factors' mean residual
+        # worsening, exceeds the bound, drop the candidate with the largest
+        # pre-insertion residual and re-optimize from the graph as it came
+        def held_out(g):
+            # tracks the current edge capacity (insertion can grow it)
+            return torch.arange(g.edge_capacity, device=self.device) < pre_edges
 
-            base_chain = float(pgo.mean_edge_residual(self.graph, held_out()))
-            pre_r = {}
-            for k in accepted:
-                M = (np.linalg.inv(Z_of(k)) @ np.linalg.inv(poses_np[int(pkt[k, 0])])
-                     @ poses_np[m.query_map])
-                pre_r[k] = float(np.linalg.norm(M[:3, 3]))
-            n_initial = len(accepted)
-            for _ in range(n_initial + 1):
-                self.graph, self.num_edges = pre_graph, pre_edges
-                if not accepted:
-                    break
-                insert_and_optimize(accepted)
-                # one read: every edge's residual and the held-out mean
-                r = torch.cat([pgo.edge_t_residuals(self.graph),
-                               pgo.mean_edge_residual(self.graph, held_out())[None]]
-                              ).cpu().numpy()
-                chain_bad = float(r[-1]) > base_chain + thr
-                self_r = [r[pre_edges + j] for j in range(len(accepted))]
-                if not chain_bad and max(self_r) <= thr:
-                    break
-                accepted.remove(max(accepted, key=lambda k: pre_r[k]))
-            else:
-                accepted = []  # budget exhausted while still inconsistent
-                self.graph, self.num_edges = pre_graph, pre_edges
-            n_rej = n_pre_agree - len(accepted)
-            if n_rej > 0:
-                self.num_backstop_rejections += n_rej
-                print(f"[slam] closure backstop: rejected {n_rej} "
-                      f"candidate(s) into map {m.query_map}")
-            if not accepted:
-                return None
-        else:
-            insert_and_optimize(accepted)
-        best_k = max(accepted, key=lambda k: pkt[k, 2])
+        base_chain = float(pgo.mean_edge_residual(pre_graph, held_out(pre_graph)))
+        pre_r = {}
         for k in accepted:
-            self.num_closures += 1
-            self.closure_events.append((int(pkt[k, 0]), m.query_map))
-        row = pkt[best_k]
-        if self._reloc_gates(row):
-            return best_k, int(row[0]), Z_of(best_k)
-        return None
+            M = (np.linalg.inv(_packet_Z(pkt, k)) @ np.linalg.inv(poses_np[int(pkt[k, 0])])
+                 @ poses_np[query_map])
+            pre_r[k] = float(np.linalg.norm(M[:3, 3]))
+        for _ in range(len(accepted) + 1):
+            if not accepted:
+                break
+            g, n = insert_and_optimize(accepted)
+            # one read: every edge's residual and the held-out mean
+            r = torch.cat([pgo.edge_t_residuals(g),
+                           pgo.mean_edge_residual(g, held_out(g))[None]]).cpu().numpy()
+            chain_bad = float(r[-1]) > base_chain + thr
+            self_r = [r[pre_edges + j] for j in range(len(accepted))]
+            if not chain_bad and max(self_r) <= thr:
+                return g, n, accepted
+            accepted.remove(max(accepted, key=lambda k: pre_r[k]))
+        # budget exhausted while still inconsistent
+        return pre_graph, pre_edges, []
 
     def _reloc_gates(self, row: np.ndarray) -> bool:
         """MultiRelocalizer3D gates (kitti.conf:91-110) on a packet row."""
@@ -479,26 +527,14 @@ class GraphSLAM:
         marker (tracked into the retired map) against the reloaded one."""
         rest = list(self._queue)
         self._queue.clear()
-        g = self.graph
-        pose_valid, edge_valid = g.pose_valid.clone(), g.edge_valid.clone()
-        pose_valid[m.new_map] = False
-        edge_valid[m.odo_edge_slot] = False
-        self.graph = g._replace(pose_valid=pose_valid, edge_valid=edge_valid)
-        merged = lm.merge_closure(
-            self._get_map_arena(cand), m.query_state.arena, m.T_candidates[k],
-            m.match_row[k], m.match_mask[k], self.config.closure_merge_max_insertions)
-        self._map_arenas[cand] = merged
-        self._note_device_arena(cand)
-        buf = m.query_state.meas_buf
-        if buf is not None:
-            # the buffers belong to the abandoned query map: the reloaded
-            # map starts with zeroed ones (T_world_to_cam slots 0, not
-            # identity, as in the JAX package)
-            buf = type(buf)(*(torch.zeros_like(t) for t in buf))
         T_new = (T_k @ m.T_split).astype(np.float32)
-        self.tracker_state = TrackerState(
-            arena=merged, T_lm_robot=torch.as_tensor(T_new, device=self.device),
-            velocity=m.query_state.velocity, meas_buf=buf)
+        qs = m.query_state
+        self.graph, self.tracker_state = chunk_ops.reloc_op(
+            self.graph, self._get_map_arena(cand), qs.arena, m.T_candidates, m.match_row,
+            m.match_mask, k, torch.as_tensor(T_new, device=self.device), qs.velocity,
+            qs.meas_buf, m.new_map, m.odo_edge_slot, self.config.closure_merge_max_insertions)
+        self._map_arenas[cand] = self.tracker_state.arena
+        self._note_device_arena(cand)
         self.num_relocalizations += 1
         self._frames_in_current_map = 1  # the arena is populated
         self.current_map = cand
@@ -708,28 +744,38 @@ class GraphSLAM:
             arena=arena._replace(pos=refined.points))
 
     # ------------------------------------------------------------------
-    # sequences
+    # sequences: the chunk program (models/chunk.py)
     # ------------------------------------------------------------------
 
     def process_sequence(self, a_all, b_all, timestamps, adaptor_config,
                          count: int = None):
-        """Run a whole image sequence: ``a_all``/``b_all`` [T, H, W] stacks
-        (left/right for stereo, intensity/raw depth for RGB-D), uploaded to
-        the device once and adapted ``chunk_size * chunk_group`` frames at
-        a time by the batched adaptor; equal frame for frame to the
-        per-frame ``process`` loop."""
+        """Run a whole image sequence through the chunk program: ``a_all`` /
+        ``b_all`` [T, H, W] stacks (left/right for stereo, intensity/raw
+        depth for RGB-D) are uploaded to the device once; each chunk of
+        ``chunk_size`` frames goes through the batched adaptor and then the
+        chunk's tracker steps.  Equal frame for frame to the per-frame
+        ``process`` loop."""
         T = int(count if count is not None else a_all.shape[0])
-        self._run_sequence("images", (a_all, b_all), timestamps, T, adaptor_config)
+        self._start_sequence(dict(kind="images", stacks=(a_all, b_all),
+                                  acfg=adaptor_config), timestamps, T)
+        self._run_sequence()
 
     def process_meas_sequence(self, points_all, desc_all, valid_all, timestamps,
                               count: int = None):
         """``process_sequence`` over adapted measurement stacks [T, N, ...]."""
         T = int(count if count is not None else points_all.shape[0])
-        self._run_sequence("meas", (points_all, desc_all, valid_all), timestamps, T)
+        self._start_sequence(dict(kind="meas", stacks=(points_all, desc_all, valid_all)),
+                             timestamps, T)
+        self._run_sequence()
 
-    def _run_sequence(self, kind: str, stacks, timestamps, T: int, adaptor_config=None):
-        B = self.config.chunk_size * max(1, self.config.chunk_group)   # frames per adaptor call
-        if B <= 0:
+    @property
+    def _chunk_span(self) -> int:
+        """Frames per dispatch and packet read: chunk_size * chunk_group."""
+        return self.config.chunk_size * max(1, self.config.chunk_group)
+
+    def _start_sequence(self, seq: dict, timestamps, T: int):
+        span = self._chunk_span
+        if span <= 0:
             raise ValueError("sequence processing requires config.chunk_size > 0")
         if self.config.local_ba.enabled:
             raise ValueError("local_ba is per-frame-mode only, as in the JAX package "
@@ -737,18 +783,364 @@ class GraphSLAM:
         if self._queue:
             raise RuntimeError("cannot mix per-frame and sequence processing: "
                                "flush() first")
-        stacks = [torch.as_tensor(x)[:T].to(self.device) for x in stacks]
+        # padded to whole dispatches: the tail's frames are inactive
+        Tp = -(-T // span) * span
+        stacks = []
+        for x in seq["stacks"]:
+            x = torch.as_tensor(x)[:T].to(self.device)
+            pad = torch.zeros((Tp - T,) + x.shape[1:], dtype=x.dtype, device=self.device)
+            stacks.append(torch.cat([x, pad]))
+        seq["stacks"] = stacks
         ts = list(timestamps)
-        ts += [float(len(ts) + i) for i in range(T - len(ts))]
-        adapt = adapt_stereo_batch if self.model == "stereo" else adapt_rgbd_batch
-        for start in range(0, T, B):
-            chunk = [x[start:start + B] for x in stacks]
-            if kind == "images":
-                chunk = adapt(*chunk, adaptor_config)
-            for i in range(chunk[0].shape[0]):
-                self.process_dispatch(*(x[i] for x in chunk), ts[start + i])
-                self.process_finalize()
-        self.flush()
+        seq["ts"] = ts + [float(len(ts) + i) for i in range(T - len(ts))]
+        seq["T"] = T
+        self._seq = seq
+        self._seq_cursor = 0
+        self._seq_lo = 0
+        if self.num_maps == 0:
+            self._make_new_map(se3.identity(self.device))
+            self.status = INITIALIZING
+
+        def scalar(v):
+            return torch.full((), v, dtype=torch.int32, device=self.device)
+
+        self._carry = chunk_ops.ChunkCarry(
+            state=self.tracker_state, frames_in_map=scalar(self._frames_in_current_map),
+            graph=self.graph, edge_count=scalar(self.num_edges), db=self.db,
+            current_map=scalar(self.current_map), num_maps=scalar(self.num_maps))
+
+    def _run_sequence(self):
+        span = self._chunk_span
+        T = self._seq["T"]
+        while self._seq_cursor < T or self._cqueue:
+            if self._seq_cursor < T:
+                start, lo = self._seq_cursor, self._seq_lo
+                self._seq_lo = 0
+                self._dispatch_chunk(start, lo, min(span, T - start))
+                self._seq_cursor = start + span
+                self._drain_chunk_queue(self.config.chunk_lag)
+            else:
+                # the tail: consume everything; a relocalisation here can
+                # rewind the cursor into the dispatch branch
+                self._drain_chunk_queue(0, force=True)
+        self._seq = None
+
+    def _chunk_inputs(self, start: int):
+        """The measurements of the ``chunk_size`` frames from ``start``: the
+        batched adaptor over the images (one FAST and one BRIEF launch on
+        the card), or slices of the measurement stacks."""
+        B = self.config.chunk_size
+        seq = self._seq
+        chunk = [x[start:start + B] for x in seq["stacks"]]
+        if seq["kind"] == "images":
+            adapt = adapt_stereo_batch if self.model == "stereo" else adapt_rgbd_batch
+            meas = adapt(*chunk, seq["acfg"])
+            self.chunk_stats["adapted_chunks"] += 1
+            return meas.points, meas.desc, meas.valid
+        return chunk
+
+    def _invoke_chunk(self, state: TrackerState, frames_in_map, start: int, lo: int,
+                      hi: int):
+        """The tracker half of one dispatch: ``chunk_group`` chunks from
+        ``start``, frames [lo, hi) active (dispatch coordinates).  Returns
+        (state, frames_in_map, ChunkYs of chunk_size * chunk_group rows)."""
+        config = self.config
+        B = config.chunk_size
+        sp = config.splitting
+        args = (self.cam, config.tracker, self.model, config.min_track_inliers,
+                sp.maximum_translation_m, sp.maximum_rotation_rad)
+        parts = []
+        st = self.chunk_stats
+        for g in range(max(1, config.chunk_group)):
+            # a chunk of the group with no active frame (the padded tail, a
+            # rewind) still gets its rows, as each chunk of JAX's group scan
+            lo_g = min(max(lo - g * B, 0), B)
+            hi_g = max(min(max(hi - g * B, 0), B), lo_g)
+            pts, desc, valid = self._chunk_inputs(start + g * B)
+            state, frames_in_map, ys = chunk_ops.run_chunk(
+                state, frames_in_map, pts, desc, valid, lo_g, hi_g, *args)
+            st["tracker_steps"] += hi_g - lo_g
+            if pts.is_cuda and (lo_g, hi_g) == (0, B):
+                st["graph_replays"] += 1
+            else:
+                st["eager_frames"] += hi_g - lo_g
+            parts.append(ys)
+        if len(parts) == 1:
+            return state, frames_in_map, parts[0]
+        ys = graphs.unflatten(graphs.flatten(parts[0])[1],
+                              [torch.cat(ts) for ts in zip(*(graphs.flatten(p)[0]
+                                                              for p in parts))])
+        return state, frames_in_map, ys
+
+    def _dispatch_chunk(self, start: int, lo: int, hi: int):
+        with profile_time("chunk_dispatch"):
+            state, fim, ys = self._invoke_chunk(self._carry.state, self._carry.frames_in_map,
+                                                start, lo, hi)
+            packet = _HostCopy(ys.packet)
+        self._carry = self._carry._replace(state=state, frames_in_map=fim)
+        self.tracker_state = state
+        self.chunk_stats["dispatches"] += 1
+        self._cqueue.append(_ChunkEntry(ys=ys, start=start, packet=packet))
+
+    def _drain_chunk_queue(self, lag: int, force: bool = False):
+        while self._cqueue and (force or len(self._cqueue) > lag):
+            self._consume_chunk(self._cqueue.popleft())
+
+    def _consume_chunk(self, entry: "_ChunkEntry"):
+        """Read the dispatch's packet (one host read), run the split branch
+        of every finished frame, then mirror status, maps, database, events
+        and counters frame by frame; a relocalisation ends the dispatch."""
+        with profile_time("chunk_readback"):
+            pkt = entry.packet.numpy()
+        self.chunk_stats["packet_reads"] += 1
+        # the map half of the carry before this dispatch's splits, with the
+        # host's counts of maps and edges: what a replay starts from
+        pre = (self._carry, self.num_maps, self.num_edges)
+        finished = [i for i in range(pkt.shape[0])
+                    if pkt[i, chunk_ops.PKT_ACTIVE] > 0.5 and pkt[i, chunk_ops.PKT_FINISH] > 0.5]
+        self._carry, meta, splits = self._split_pass(entry.ys, pkt, finished, *pre)
+        self.graph, self.db = self._carry.graph, self._carry.db
+        for i in range(pkt.shape[0]):
+            if pkt[i, chunk_ops.PKT_ACTIVE] > 0.5 and self._consume_chunk_frame(
+                    entry, pre, i, pkt, meta, splits):
+                return
+
+    def _split_pass(self, ys: chunk_ops.ChunkYs, pkt: np.ndarray, finished: list,
+                    carry: chunk_ops.ChunkCarry, num_maps: int, num_edges: int):
+        """The split branch of every finished frame in order, from ``carry``
+        (map half) with ``num_maps`` maps and ``num_edges`` edges: a graph
+        replay on the card, the read of its split-meta row, and where a
+        candidate passed the reference's gates the closure decision (PGO),
+        whose backstop rejections the row then reports as -1.  Returns
+        (carry, meta [rows, SM] float32, {frame: (SplitYs, arena)})."""
+        P = chunk_ops
+        config = self.config
+        K = config.loop.max_candidates
+        meta = np.zeros((pkt.shape[0], P.split_meta_size(K)), np.float32)
+        splits = {}
+        for i in finished:
+            graph = self._ensure_chunk_capacity(carry.graph, num_maps, num_edges)
+            do_loop = (config.enable_loop_closing and num_maps >= 2
+                       and pkt[i, P.PKT_FINISH] != P.FINISH_LOST)
+            arena = P.take_frame(ys.arenas, i)
+            graph, ec, db, cur, nm, sy = P.run_split(
+                graph, carry.edge_count, carry.db, carry.current_map, carry.num_maps,
+                ys.T_lm_robot[i], arena, config.max_db_descriptors_per_map, config.loop,
+                config.enable_loop_closing, do_loop)
+            with profile_time("chunk_readback"):
+                m = sy.meta.cpu().numpy()
+            self.chunk_stats["splits"] += 1
+            self.chunk_stats["packet_reads"] += 1
+            num_edges, num_maps = int(m[P.SM_EDGES]), int(m[P.SM_NEW]) + 1
+            cp = m[P.SM_CP:].reshape(K, 22)
+            accepted = [k for k in range(K) if cp[k, 1] > 0.5 and cp[k, 0] >= 0]
+            if accepted:
+                with profile_time("closure_decision"):
+                    graph, num_edges, kept = self._closure_decision(
+                        graph, num_edges, cp, list(accepted), int(m[P.SM_PREV]))
+                ec = torch.full((), num_edges, dtype=torch.int32, device=self.device)
+                m[P.SM_EDGES] = num_edges
+                for k in accepted:
+                    if k not in kept:
+                        cp[k, 1] = -1.0
+                m[P.SM_CP:] = cp.reshape(-1)
+            meta[i] = m
+            splits[i] = (sy, arena)
+            carry = carry._replace(graph=graph, edge_count=ec, db=db, current_map=cur,
+                                   num_maps=nm)
+        return carry, meta, splits
+
+    def _consume_chunk_frame(self, entry: "_ChunkEntry", pre: tuple, i: int,
+                             pkt: np.ndarray, meta: np.ndarray, splits: dict) -> bool:
+        """Mirror frame ``i`` of the dispatch: its status and record, and at
+        a finish the split the device ran and its closure decision.
+        Returns True when it relocalised (the rest of the dispatch and the
+        queue are dropped)."""
+        P = chunk_ops
+        config = self.config
+        row = pkt[i]
+        g = entry.start + i
+        ts = self._seq["ts"][g]
+        if self._frames_in_current_map == 0:
+            self.status = INITIALIZING
+        elif row[P.PKT_INLIERS] >= config.min_track_inliers:
+            self.status = TRACKING
+        else:
+            self.status = LOST
+        self._frames_in_current_map += 1
+        fin = row[P.PKT_FINISH]
+        if fin == P.FINISH_NONE:
+            T_rec = np.eye(4, dtype=np.float32)
+            T_rec[:3, :] = row[P.PKT_T:P.PKT_T + 12].reshape(3, 4)
+            self.frames.append(FrameRecord(ts, self.current_map, T_rec))
+            return False
+        sm = meta[i]
+        sy, arena = splits[i]
+        prev, new = int(sm[P.SM_PREV]), int(sm[P.SM_NEW])
+        self._map_arenas[prev] = arena
+        self._note_device_arena(prev)
+        if sm[P.SM_INS] > 0.5:
+            ev = int(sm[P.SM_EVICTED])
+            if ev >= 0:
+                # the ring slot write overwrote the oldest stored map
+                self._db_maps.pop(ev, None)
+                self.num_db_evictions += 1
+                print(f"[slam] loop database ring full: evicted map {ev} "
+                      f"({self.num_db_evictions} evictions total)")
+            # the stored rows, kept to restore the slot in a rollback
+            self._db_maps[prev] = (sy.desc, sy.pos, sy.rows, int(sm[P.SM_DBN]))
+        self.num_edges = int(sm[P.SM_EDGES])
+        self.num_maps = new + 1
+        self.current_map = new
+        self._frames_in_current_map = 0
+        self.frames.append(FrameRecord(ts, new, np.eye(4, dtype=np.float32)))
+        if fin == P.FINISH_LOST:
+            self.num_losses += 1
+            self.status = TRACKING
+        K = config.loop.max_candidates
+        cp = sm[P.SM_CP:].reshape(K, 22)
+        accepted = [k for k in range(K) if cp[k, 1] > 0.5 and cp[k, 0] >= 0]
+        rejected = [k for k in range(K) if cp[k, 1] < -0.5]
+        if rejected:
+            self.num_backstop_rejections += len(rejected)
+            print(f"[slam] closure backstop: rejected {len(rejected)} "
+                  f"candidate(s) into map {prev}")
+        if not accepted:
+            return False
+        self.num_closures += len(accepted)
+        for k in accepted:
+            self.closure_events.append((int(cp[k, 0]), prev))
+        best_k = max(accepted, key=lambda k: cp[k, 2])
+        if not self._reloc_gates(cp[best_k]):
+            return False
+        with profile_time("reloc"):
+            self._fused_relocalize(entry, pre, i, best_k, int(cp[best_k, 0]),
+                                   _packet_Z(cp, best_k), pkt, meta, splits)
+        return True
+
+    def _fused_relocalize(self, entry: "_ChunkEntry", pre: tuple, i: int, k: int,
+                          cand: int, T_k: np.ndarray, pkt: np.ndarray, meta: np.ndarray,
+                          splits: dict):
+        """Reload old map ``cand`` at frame ``i``'s finish: drop the
+        dispatches in flight, recover the map half of the carry exactly at
+        the finish, run ``reloc_op``, and rewind the sequence to the frame
+        after the finish.
+
+        Later finishes of the dispatch ran their split branches already.
+        Where none kept a closure they are undone on the device (their pose
+        and odometry factor invalidated, their ring slot restored from the
+        host's mirror, the counters reset from frame ``i``'s split-meta
+        row): ``num_reloc_rollbacks``.  A later closure's PGO rewrote every
+        pose, which invalidation cannot undo: the dispatch's split branches
+        are replayed up to the finish from the map half they started from
+        instead (``num_reloc_replays``).  The tracker rows up to the finish
+        are the dispatch's own: the JAX package's replay recomputes them, to
+        the same values, because its program fuses both halves."""
+        P = chunk_ops
+        K = self.config.loop.max_candidates
+        self._cqueue.clear()
+        sm = meta[i]
+        later = [j for j in range(i + 1, pkt.shape[0])
+                 if pkt[j, P.PKT_ACTIVE] > 0.5 and pkt[j, P.PKT_FINISH] > 0.5]
+        carry = self._carry
+        if later:
+            later_closure = any(meta[j, P.SM_CP + 22 * c + 1] > 0.5
+                                for j in later for c in range(K))
+            try:
+                if later_closure:
+                    raise KeyError("a later finish kept a closure")
+                carry = self._rollback_later_finishes(carry, sm, [meta[j] for j in later])
+                self.num_reloc_rollbacks += 1
+            except KeyError:
+                # a later closure, or an evicted map's rows not mirrored:
+                # with a small ring a later finish can evict a map another
+                # later finish of this dispatch stored, and a database
+                # restored from a checkpoint mirrors no rows: replay
+                self.num_reloc_replays += 1
+                finished = [j for j in range(i + 1)
+                            if pkt[j, P.PKT_ACTIVE] > 0.5 and pkt[j, P.PKT_FINISH] > 0.5]
+                carry, _, splits = self._split_pass(entry.ys, pkt, finished, *pre)
+        row = pkt[i]
+        T_split = np.eye(4, dtype=np.float32)
+        T_split[:3, :] = row[P.PKT_T:P.PKT_T + 12].reshape(3, 4)
+        T_new = (T_k @ T_split).astype(np.float32)
+        sy, query_arena = splits[i]
+        velocity = torch.as_tensor(row[P.PKT_VEL:P.PKT_VEL + 6].copy(), device=self.device)
+        graph, state = P.reloc_op(
+            carry.graph, self._get_map_arena(cand), query_arena, sy.loop_T, sy.loop_row,
+            sy.loop_mask, k, torch.as_tensor(T_new, device=self.device), velocity,
+            carry.state.meas_buf, int(sm[P.SM_NEW]), int(sm[P.SM_ODO]),
+            self.config.closure_merge_max_insertions)
+        self._carry = carry._replace(
+            state=state, frames_in_map=torch.full((), 1, dtype=torch.int32, device=self.device),
+            graph=graph, current_map=torch.full((), cand, dtype=torch.int32, device=self.device))
+        self.tracker_state, self.graph, self.db = state, graph, carry.db
+        self._map_arenas[cand] = state.arena
+        self._note_device_arena(cand)
+        self.current_map = cand
+        self._frames_in_current_map = 1
+        self.num_relocalizations += 1
+        # the finish frame's record belongs to the reloaded map
+        g = entry.start + i
+        self.frames[-1] = FrameRecord(self._seq["ts"][g], cand, T_new)
+        span = self._chunk_span
+        self._seq_cursor = (g + 1) // span * span
+        self._seq_lo = g + 1 - self._seq_cursor
+
+    def _rollback_later_finishes(self, carry: chunk_ops.ChunkCarry, sm_i: np.ndarray,
+                                 later_meta: list) -> chunk_ops.ChunkCarry:
+        """The carry at frame ``i``'s finish from the carry after the later
+        finishes, undone on the device: their poses and odometry factors
+        invalidated, each ring slot they wrote restored from the mirror of
+        the map it evicted (or cleared where the slot was free), the edge
+        and map counts from frame ``i``'s row.  Raises KeyError where an
+        evicted map's rows are not mirrored."""
+        P = chunk_ops
+        graph = P.undo_graph_entries(carry.graph, [int(m[P.SM_NEW]) for m in later_meta],
+                                     [int(m[P.SM_ODO]) for m in later_meta])
+        db = carry.db
+        budget = db.budget
+        next_fin = int(sm_i[P.SM_DBNEXT])
+        for m in reversed(later_meta):
+            if m[P.SM_INS] < 0.5:
+                continue
+            slot = (int(m[P.SM_DBNEXT]) - 1) % db.num_slots
+            ev = int(m[P.SM_EVICTED])
+            desc = torch.full((budget, lm.DESC_BITS), -1, dtype=torch.int8, device=self.device)
+            points = torch.zeros((budget, 3), dtype=torch.float32, device=self.device)
+            rows = torch.zeros((budget,), dtype=torch.int32, device=self.device)
+            valid = torch.zeros((budget,), dtype=torch.bool, device=self.device)
+            if ev >= 0:
+                mirror = self._db_maps[ev]
+                if mirror is None:
+                    raise KeyError(ev)
+                m_desc, m_pos, m_rows, n = mirror
+                desc[:n], points[:n], rows[:n], valid[:n] = (
+                    m_desc[:n], m_pos[:n], m_rows[:n], True)
+            db = P.db_write_slot(db, slot, desc, points, rows, valid, ev, next_fin)
+        return carry._replace(
+            graph=graph, db=db,
+            edge_count=torch.full((), int(sm_i[P.SM_EDGES]), dtype=torch.int32,
+                                  device=self.device),
+            num_maps=torch.full((), int(sm_i[P.SM_NEW]) + 1, dtype=torch.int32,
+                                device=self.device))
+
+    def _ensure_chunk_capacity(self, graph: pgo.PoseGraph, num_maps: int,
+                               num_edges: int) -> pgo.PoseGraph:
+        """The pose graph grown (double-and-copy) before a split branch
+        that would overflow it, as the per-frame path grows it: the split
+        adds a pose at ``num_maps`` and an edge at ``num_edges``.  The
+        counts are exact here (the branches run in order as the dispatch
+        is consumed), so the graph grows when the per-frame one does; the
+        new capacities give the split branch a new graph to capture."""
+        pcap, ecap = graph.capacity, graph.edge_capacity
+        if num_maps >= pcap:
+            pcap *= 2
+        if num_edges >= ecap:
+            ecap *= 2
+        if (pcap, ecap) == (graph.capacity, graph.edge_capacity):
+            return graph
+        return pgo.grow(graph, pcap, ecap)
 
     # ------------------------------------------------------------------
     # accessors (example_slam_3d.cpp:106-141 parity)

@@ -181,7 +181,7 @@ def _solve_cg(graph: PoseGraph, AtA, b, prior, damping: float,
     D = torch.zeros((N, 6, 6), dtype=torch.float32, device=dev)
     D = D.index_add(0, i_idx, AtA).index_add(0, j_idx, AtA)
     D = D + reg[:, None, None] * torch.eye(6, device=dev)
-    D_inv = torch.linalg.inv(D)
+    D_inv = torch.linalg.inv_ex(D)[0]    # no error check: nothing read back
 
     def precond(r):
         return torch.einsum("nij,nj->ni", D_inv, r)

@@ -33,8 +33,11 @@ per-frame adaptor on the card; the shipped oriented / sub-pixel adaptors
 on the card against the CPU (keypoints and uL/v bit-exact, u_R within
 UR_ATOL px, oriented descriptor bits within ORIENTED_BITS per frame, both
 pinned in tests/torch_bounds.py);
-``process_meas_sequence`` at speculation depth 8 on the card against the
-CPU's synchronous loop (GN launches 3 per tracker step, replays included).
+``process_meas_sequence`` (the chunk program: a CUDA graph per chunk) on
+the card against the CPU's synchronous loop (GN launches 3 per tracker
+step: graph replays, eager frames and the graph's warm-up); one chunk of
+that walk through its CUDA graph against ``chunk_frames`` run eagerly on
+the card (packet counts and maps equal, poses within 1e-4).
 """
 import os
 
@@ -426,10 +429,11 @@ def test_adaptor_options_on_the_card_match_cpu(name):
 
 def test_sequence_on_the_card_matches_cpu(rng):
     """The walk of test_graphslam_on_the_card_matches_cpu through
-    process_meas_sequence (chunks of 4, speculation depth 8) on the card
+    process_meas_sequence (the chunk program, chunks of 4) on the card
     against the CPU's synchronous per-frame run."""
     from srrg2_proslam_tpu_torch.models import slam
     from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig
+    from srrg2_proslam_tpu_torch.utils import graphs
 
     cam = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600, baseline_px=225.0)
     kw = dict(splitting=slam.SplittingConfig(maximum_translation_m=0.6),
@@ -441,14 +445,46 @@ def test_sequence_on_the_card_matches_cpu(rng):
         c.process(*(torch.from_numpy(a) for a in (p, d, ok)), 0.1 * i)
     g = slam.GraphSLAM(cam, slam.GraphSLAMConfig(speculation_depth=8, chunk_size=4, **kw),
                        device="cuda")
+    graphs.clear()
     reset_launch_counts()
     g.process_meas_sequence(*(np.stack([f[k] for f in frames]) for k in range(3)),
                             [0.1 * i for i in range(len(frames))])
-    assert launch_counts()["gn_burst"] == 3 * (len(frames) + g.num_replayed_frames)
-    assert g.num_replayed_frames > 0 and g.num_relocalizations >= 1
+    warm = sum(key[2][0] for key in graphs.programs() if key[0] == "chunk")
+    assert launch_counts()["gn_burst"] == 3 * (g.chunk_stats["tracker_steps"] + warm)
+    assert g.chunk_stats["graph_replays"] > 0 and g.num_relocalizations >= 1
     assert [f.local_map_index for f in g.frames] == [f.local_map_index for f in c.frames]
     keys = ("num_maps", "num_edges", "num_closures", "num_relocalizations", "num_losses")
     assert {k: getattr(g, k) for k in keys} == {k: getattr(c, k) for k in keys}
     d_t, d_ang = se3.error_t_and_angle(torch.from_numpy(np.stack(g.trajectory())),
                                        torch.from_numpy(np.stack(c.trajectory())))
     assert float(d_t.max()) <= 1e-3 and float(d_ang.max()) <= 1e-3
+
+
+def test_chunk_graph_equals_eager(rng):
+    """The walk's first 8 frames as one chunk: the chunk graph's replay
+    against ``chunk_frames`` run eagerly on the same inputs, and one replay
+    counts the launches recorded at capture."""
+    from srrg2_proslam_tpu_torch.models import chunk
+    from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig, initial_state
+    from srrg2_proslam_tpu_torch.utils import graphs
+
+    cam = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600, baseline_px=225.0)
+    frames = _walk_frames(rng, cam)[:8]
+    dev = torch.device("cuda")
+    pts, desc, valid = (torch.from_numpy(np.stack([f[k] for f in frames])).to(dev)
+                        for k in range(3))
+    args = (cam, TrackerConfig(), "stereo", 6, 0.6, 0.25)
+    state = initial_state(1024, device=dev)
+    fim = torch.zeros((), dtype=torch.int32, device=dev)
+    graphs.clear()
+    chunk.run_chunk(state, fim, pts, desc, valid, 0, 8, *args)      # capture + replay
+    reset_launch_counts()
+    g_state, g_fim, g = chunk.run_chunk(state, fim, pts, desc, valid, 0, 8, *args)
+    assert launch_counts()["gn_burst"] == 3 * 8
+    e_state, e_fim, e = chunk.chunk_frames(state, fim, pts, desc, valid, 0, 8, *args)
+    assert len(graphs.programs()) == 1 and int(g_fim) == int(e_fim)
+    exact = [chunk.PKT_INLIERS, chunk.PKT_MATCHES, chunk.PKT_FINISH, chunk.PKT_ACTIVE]
+    assert torch.equal(g.packet[:, exact], e.packet[:, exact])
+    assert torch.equal(g.arenas.valid, e.arenas.valid)
+    assert float((g.T_lm_robot - e.T_lm_robot).abs().max()) <= 1e-4
+    graphs.clear()

@@ -1,5 +1,5 @@
-"""The port's speculative pipeline and sequence API == its per-frame loop and
-the JAX package's, on the CPU.
+"""The port's speculative pipeline and its chunk program == its per-frame
+loop and the JAX package's, on the CPU.
 
 Measurement streams of tests/test_torch_slam.py (a Lost frame; closures;
 a relocalisation into a map whose arena was moved off the device; the
@@ -8,13 +8,15 @@ a rendered RGB-D loop at 120x160 (the image path through
 ``adapt_rgbd_batch``) go through:
 
 * the port's synchronous per-frame loop (``speculation_depth = 0``);
+* the port's speculative per-frame pipeline at ``speculation_depth`` 8
+  (``process`` per frame, then ``flush``);
 * the port's ``process_meas_sequence`` / ``process_sequence`` with
-  ``chunk_size`` 4 (chunks straddle the splits) and ``speculation_depth``
-  8: each frame through ``process_dispatch`` / ``process_finalize``, then
-  ``flush``, the speculative per-frame pipeline;
+  ``chunk_size`` 4 (chunks straddle the splits; the shipped
+  ``speculation_depth`` 8, which the chunk program ignores): the chunk
+  program (models/chunk.py);
 * the JAX package's per-frame loop.
 
-Bounds: the port's two runs equal each other exactly (per-frame status
+Bounds: the port's runs equal each other exactly (per-frame status
 and local map, counters, closure events, every pose bit for bit); against
 JAX the per-frame status and local map, the counters and closure events
 are equal and every pose within 1e-5 (tests/test_speculation.py:83,
@@ -22,7 +24,8 @@ tests/test_chunked.py:83); on the RGB-D image path within 1e-4 (the
 depth GN's float differences, pinned in tests/test_torch_rgbd.py, add up
 to 2.7e-5 over the walk).  The lost and relocalisation streams run in
 tests/test_torch_speculation.py, the shipped configurations in
-tests/test_torch_config.py.
+tests/test_torch_config.py, the chunk program's other streams and sizes
+in tests/test_torch_chunk.py.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -46,16 +49,21 @@ CHUNK = 4
 
 
 def _watch(slam):
-    """Record the status after each consumed frame (the queue consumes
-    frames in order, whatever the depth)."""
+    """Record the status after each consumed frame: the per-frame queue and
+    the chunk program's host mirror both consume frames in order."""
     statuses = []
-    consume = slam._consume_frame
+    # (the JAX package's GraphSLAM has no chunk mirror to watch)
+    for name in ("_consume_frame", "_consume_chunk_frame"):
+        consume = getattr(slam, name, None)
+        if consume is None:
+            continue
 
-    def consume_and_record(e):
-        consume(e)
-        statuses.append(slam.status)
+        def consume_and_record(*args, consume=consume):
+            out = consume(*args)
+            statuses.append(slam.status)
+            return out
 
-    slam._consume_frame = consume_and_record
+        setattr(slam, name, consume_and_record)
     return statuses
 
 
@@ -95,6 +103,8 @@ def _run_jax(cam, config, frames, model="stereo"):
 
 
 def _run_port(cam, config, frames, mode, model="stereo"):
+    """The frames through the port: ``mode`` "sequence" through
+    ``process_meas_sequence``, else ``process`` per frame and ``flush``."""
     t = ts.GraphSLAM(cam, config, model=model, device="cpu")
     statuses = _watch(t)
     if mode == "sequence":
@@ -109,12 +119,12 @@ def _run_port(cam, config, frames, mode, model="stereo"):
 
 def scenario_runs(names):
     """Each named stream through JAX (per frame) and the port: synchronous,
-    and ``process_meas_sequence`` in chunks of 4 at speculation depth 8."""
+    speculative at depth 8, and ``process_meas_sequence`` in chunks of 4."""
     out = {}
     for name in names:
         frames, kw = _kw(name)
         res = {"jax": _run_jax(CAM, _config(js, JLoopCfg, kw), frames)}
-        for mode, extra in (("sync", {}),
+        for mode, extra in (("sync", {}), ("speculative", dict(speculation_depth=DEPTH)),
                             ("sequence", dict(chunk_size=CHUNK, speculation_depth=DEPTH))):
             slam, res[mode] = _run_port(CAM, _config(ts, LoopDetectorConfig, dict(kw, **extra)),
                                         frames, mode)
@@ -124,10 +134,16 @@ def scenario_runs(names):
 
 
 def check_sequence(r, name):
-    """The sequence at depth 8 equals the synchronous per-frame loop
-    exactly; the counters of rollbacks and replays."""
+    """The speculative queue at depth 8 and the chunk program each equal
+    the synchronous per-frame loop exactly; the queue's counters of
+    re-dispatched frames, rollbacks and replays, and the chunk program's
+    (the JAX package's meaning: a relocalisation whose chunk held later
+    finishes counts once, as a device rollback or a chunk replay)."""
+    _assert_exact(r["speculative"], r["sync"])
     _assert_exact(r["sequence"], r["sync"])
-    spec = r["sequence_slam"]
+    spec, seq = r["speculative_slam"], r["sequence_slam"]
+    assert seq.num_replayed_frames == 0          # no per-frame queue
+    assert seq.num_reloc_rollbacks + seq.num_reloc_replays <= seq.num_relocalizations
     if name == "lost":
         assert r["sync"]["counters"]["num_losses"] == 1
     elif name == "relocalize":
@@ -143,6 +159,7 @@ def check_sequence(r, name):
 
 def check_jax(r, name):
     _assert_jax(r["sequence"], r["jax"])
+    _assert_jax(r["speculative"], r["jax"])
     _assert_jax(r["sync"], r["jax"])
     if name in ("closure", "relocalize"):
         assert r["jax"]["counters"]["num_closures"] >= 1
@@ -168,11 +185,12 @@ def test_sequence_agrees_with_jax_per_frame(runs, name):
 
 
 def test_flush_is_idempotent(runs):
-    slam = runs["closure"]["sequence_slam"]
-    n, maps = len(slam.frames), slam.num_maps
-    for _ in range(2):
-        slam.flush()
-    assert len(slam.frames) == n and slam.num_maps == maps and not slam._queue
+    for mode in ("speculative", "sequence"):
+        slam = runs["closure"][mode + "_slam"]
+        n, maps = len(slam.frames), slam.num_maps
+        for _ in range(2):
+            slam.flush()
+        assert len(slam.frames) == n and slam.num_maps == maps and not slam._queue
 
 
 def test_finalize_keeps_the_depth():
@@ -263,17 +281,20 @@ def test_meas_sequence_agrees_with_jax_process_sequence():
     """One direct comparison with the JAX package's chunked mode
     (models/chunk.py, minutes to compile on the CPU): the relocalisation
     stream through both packages' ``process_meas_sequence`` in chunks of 4.
-    The chunk program records no per-frame status, so per-frame local maps,
-    counters, closure events and poses (within 1e-5) are compared."""
+    The JAX run is not watched frame by frame, so per-frame local maps,
+    counters (with the relocalisation rollbacks and replays), closure
+    events and poses (within 1e-5) are compared."""
     frames, kw = _kw("relocalize")
     stacks = [np.stack([f[k] for f in frames]) for k in range(3)]
     stamps = [f[3] for f in frames]
     j = js.GraphSLAM(CAM, _config(js, JLoopCfg, dict(kw, chunk_size=CHUNK)))
     j.process_meas_sequence(*(jnp.asarray(x) for x in stacks), stamps)
-    _, port = _run_port(CAM, _config(ts, LoopDetectorConfig, dict(
+    t, port = _run_port(CAM, _config(ts, LoopDetectorConfig, dict(
         kw, chunk_size=CHUNK, speculation_depth=DEPTH)), frames, "sequence")
     ref = _summary(j, [])
     assert ref["counters"]["num_relocalizations"] >= 1
     for key in ("maps", "counters", "events"):
         assert port[key] == ref[key], key
+    for key in ("num_reloc_rollbacks", "num_reloc_replays"):
+        assert getattr(t, key) == getattr(j, key), key
     np.testing.assert_allclose(port["trajectory"], ref["trajectory"], atol=JAX_ATOL)
