@@ -120,6 +120,25 @@ Phases, any failure exits non-zero:
      rollback stream also in chunks of 20) on the card, each equal, with
      at least one relocalisation rollback; 9d the loop as RGB-D (local BA
      off) through process_sequence equal to its per-frame run.
+  10. the multi-GPU slice (parallel/, GraphSLAM(mesh=...)), every rank a
+     process spawned by parallel/launch.py on the one card: 10a
+     entry.dryrun_multichip(1) over NCCL and dryrun_multichip(2) with two
+     ranks sharing the card over gloo: the sharded tracker step, ring
+     query, PGO (dense, CG) and BA (structure-only, joint) each equal to
+     its single-rank call on the card (query keys, matches and counts bit
+     for bit, floats within parallel/checks.py's FLOAT_TOL), and a short
+     meshed chunk-program run equal to the unmeshed one; 10b the rendered
+     loop through GraphSLAM(mesh=...).process_sequence at world size 2
+     (chunk 16, lag 2): phase 5's gates, phase 9a's run frame for frame
+     (status and map; counts and closure events; every pose within
+     MESH_POSE_TOL_M), each rank's launches equal to the prediction from
+     its chunk_stats, and over a 48-frame window the kernel events
+     torch.profiler sees on rank 0 (at most one dropped per kernel); 10c
+     the loop per frame (process + flush) at world size 2 equal to phase
+     5's run, launches FAST n, BRIEF n, GN 3n per rank; with ms/frame
+     (10b a second pass, 10c its one pass) beside phases 9a and 5,
+     collectives and bytes per pass by stage, and the eagerly run split
+     branches' ms.
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
@@ -1590,6 +1609,7 @@ def phase_chunk(dev, smi, loop, ref_slam, ref_rows, ref_ms, seq_ms, adapt_cfg):
     t9c = time.perf_counter()
     stream_runs(dev, smi)
     print(f"9c: {time.perf_counter() - t9c:.1f} s [{smi}]", flush=True)
+    chunk_ref = (slam, rows, steady)
     # ---- 9d
     dcfg = DepthAdaptorConfig()
     rgbd = list(synthetic.iter_rendered_loop_rgbd(side_a=10.0, side_b=6.0, step_m=0.4,
@@ -1609,7 +1629,125 @@ def phase_chunk(dev, smi, loop, ref_slam, ref_rows, ref_ms, seq_ms, adapt_cfg):
         fail(f"9d launches {rcounts} != {rwant}, or no chunk graph replayed")
     compare_slam_runs(ref_rgbd, ref_rgbd_rows, rslam, rrows,
                       "9d RGB-D process_sequence vs per-frame RGB-D GraphSLAM", smi)
-    return counts
+    return counts, chunk_ref
+
+
+# ---- phase 10: the multi-GPU slice (parallel/, GraphSLAM(mesh=...)) -------
+MESH_WORLD = 2               # 10b/10c: ranks sharing the card
+MESH_POSE_TOL_M = 1e-4       # 10b/10c: meshed vs unmeshed on the card (the CPU tests' bound)
+
+
+def session_report(slam, rows) -> dict:
+    """A GraphSLAM run of this process in parallel/checks.py::slam_run's
+    report layout (what checks.compare_slam compares)."""
+    import numpy as np
+
+    from srrg2_proslam_tpu_torch.parallel import checks
+
+    return dict(rows=rows, counters={k: getattr(slam, k) for k in checks.COUNTERS},
+                events=[tuple(e) for e in slam.closure_events],
+                trajectory=np.stack(slam.trajectory()),
+                recovery=(slam.num_reloc_rollbacks, slam.num_reloc_replays))
+
+
+def report_gate(rep, gt, tag: str, smi: str):
+    """Phase 5's gates on a rank's report."""
+    import types
+
+    view = types.SimpleNamespace(trajectory=lambda: list(rep["trajectory"]),
+                                 **{k: rep["counters"][k] for k in
+                                    ("num_maps", "num_closures", "num_relocalizations")})
+    loop_gate(view, gt, tag, smi)
+
+
+def print_collectives(tag: str, collectives: dict, smi: str):
+    for stage, (calls, nbytes) in sorted(collectives.items()):
+        print(f"  {tag} collectives, stage {stage}: {calls} calls, {nbytes} bytes "
+              f"({nbytes / 2**20:.3f} MiB) per pass per rank [{smi}]", flush=True)
+
+
+def phase_mesh(dev, smi, loop, ref_slam, ref_rows, ref_ms, chunk_ref):
+    """Phase 10: 10a the dry runs at 1 (NCCL) and 2 (gloo) ranks; 10b the
+    loop through the meshed chunk program at world size 2 against phase
+    9a; 10c the loop per frame at world size 2 against phase 5.  A failing
+    rank raises out of parallel/launch.py and fails the script.  Returns
+    rank 0's launches of 10b and 10c."""
+    import dataclasses
+
+    from srrg2_proslam_tpu_torch.entry import dryrun_multichip
+    from srrg2_proslam_tpu_torch.parallel import checks, launch
+
+    # ---- 10a
+    for n, backend in ((1, "nccl"), (MESH_WORLD, "gloo")):
+        t0 = time.perf_counter()
+        reports = dryrun_multichip(n)
+        worst = [checks.check_stages(r) for r in reports]
+        if any(r["backend"] != backend for r in reports):
+            fail(f"10a dryrun_multichip({n}) ran over {reports[0]['backend']}, not {backend}")
+        print(f"10a dryrun_multichip({n}) over {backend} on {reports[0]['device']}: "
+              f"{time.perf_counter() - t0:.1f} s; largest float difference to the single-rank "
+              f"call by stage {dict((k, max(w[k] for w in worst)) for k in worst[0])} (tolerance "
+              f"{checks.FLOAT_TOL} relative, chi {checks.CHI_RTOL}; keys, matches and counts bit "
+              f"for bit) [{smi}]",
+              flush=True)
+        print_collectives(f"10a world {n} stages", reports[0]["collectives"], smi)
+    # ---- 10b and 10c on the same two ranks
+    chunk_slam, chunk_rows, chunk_ms = chunk_ref
+    loop_kw = dict(side_a=10.0, side_b=6.0, step_m=0.4, turn_frames=10)
+    n = len(loop)
+    seq_cfg = dataclasses.replace(slam_config(), speculation_depth=SEQ_DEPTH, chunk_size=SEQ_CHUNK)
+    specs = [dict(config=seq_cfg, mode="sequence", frames=("loop", loop_kw),
+                  passes=2, profile_frames=PROFILED_FRAMES),
+             dict(config=slam_config(), mode="frame", frames=("loop", loop_kw))]
+    t0 = time.perf_counter()
+    ranks = launch.run(checks.slam_runs, MESH_WORLD, specs)
+    print(f"10b/10c: {MESH_WORLD} ranks on the card over {ranks[0][0]['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    gt = [f.gt_pose for f in loop]
+    refs = (("10b process_sequence", session_report(chunk_slam, chunk_rows), "9a", chunk_ms),
+            ("10c process + flush", session_report(ref_slam, ref_rows), "5", ref_ms))
+    for k, (tag, ref, ref_phase, ms) in enumerate(refs):
+        for rank in ranks:
+            rep = rank[k]
+            if len(rep["rows"]) != n:
+                fail(f"{tag} rank {rep['rank']}: {len(rep['rows'])} frames, not {n}")
+            report_gate(rep, gt, f"{tag} rank {rep['rank']}", smi)
+            try:
+                diff = checks.compare_slam(rep, ref, MESH_POSE_TOL_M)
+            except AssertionError as err:
+                fail(f"{tag} rank {rep['rank']} vs phase {ref_phase}'s unmeshed run: {err}")
+            st = rep["chunk_stats"]
+            if k == 0:
+                want = {"fast": st["adapted_chunks"], "brief": st["adapted_chunks"],
+                        "gn_burst": 3 * (st["tracker_steps"] + rep["warm_frames"])}
+            else:
+                want = {"fast": n, "brief": n, "gn_burst": 3 * n}
+            print(f"{tag} world {MESH_WORLD} rank {rep['rank']}: {rep['counters']}, "
+                  f"rollbacks/replays {rep['recovery']}; equal to phase {ref_phase}'s unmeshed "
+                  f"run frame for frame, max |pose diff| {diff:.3e} (tolerance "
+                  f"{MESH_POSE_TOL_M}); launches {rep['launches']}, predicted {want}"
+                  + (f" ({st['graph_replays']} chunk graph replays, {st['splits']} split "
+                     f"branches run eagerly)" if k == 0 else "") + f" [{smi}]", flush=True)
+            if rep["launches"] != want or (k == 0 and st["graph_replays"] == 0):
+                fail(f"{tag} rank {rep['rank']}: launches {rep['launches']} != {want}")
+        r0 = ranks[0][k]
+        passes = ", ".join(f"{m:.3f}" for m in r0["ms_per_frame"])
+        print(f"{tag} ms/frame at world {MESH_WORLD}, rank 0, by pass: {passes}"
+              + (" (the first synchronizes each split branch)" if k == 0 else "")
+              + f"; phase {ref_phase} unmeshed {ms:.3f} in this call [{smi}]", flush=True)
+        print_collectives(tag, r0["collectives"], smi)
+        if r0["split_ms"]:
+            sm = r0["split_ms"]
+            print(f"  {tag} split branches run eagerly (first pass, synchronized): {len(sm)} "
+                  f"calls, mean {sum(sm) / len(sm):.3f} ms, max {max(sm):.3f} ms [{smi}]",
+                  flush=True)
+    prof = ranks[0][0]["profiled"]
+    counted, seen = prof["counted"], prof["seen"]
+    print(f"10b profiler window on rank 0 ({prof['frames']} frames): wrappers counted "
+          f"{counted}, kernel events seen {seen} [{smi}]", flush=True)
+    if any(not 0 <= counted[k] - seen[k] <= 1 for k in counted) or seen["gn_burst"] == 0:
+        fail(f"10b: the profiler saw {seen}, the counts say {counted}")
+    return ranks[0][0]["launches"], ranks[0][1]["launches"]
 
 
 def main():
@@ -1904,8 +2042,14 @@ def main():
 
     # ---- 9. the chunk program ------------------------------------------------
     t9 = time.perf_counter()
-    chunk_counts = phase_chunk(dev, smi, loop, slam, rows, slam_ms, seq_ms, adapt_cfg)
+    chunk_counts, chunk_ref = phase_chunk(dev, smi, loop, slam, rows, slam_ms, seq_ms,
+                                          adapt_cfg)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s [{smi}]", flush=True)
+
+    # ---- 10. the multi-GPU slice ----------------------------------------------
+    t10 = time.perf_counter()
+    mesh_counts, mesh_frame_counts = phase_mesh(dev, smi, loop, slam, rows, slam_ms, chunk_ref)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s [{smi}]", flush=True)
 
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
@@ -1920,6 +2064,8 @@ def main():
          "launches_rgbd": rgbd_counts[kname],
          "launches_sequence": seq_counts[kname],
          "launches_chunk": chunk_counts[kname],
+         "launches_mesh_per_rank": mesh_counts[kname],
+         "launches_mesh_frame_per_rank": mesh_frame_counts[kname],
          **{f"launches_{path}": c[kname] for path, c in app_counts.items()},
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)

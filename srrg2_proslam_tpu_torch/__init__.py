@@ -25,7 +25,12 @@ utils/     profile_time scoped host timers and device_trace; the config
            replayed (``graphs.py``).
 apps/      app_benchmark, convert_dataset, compute_sparse_stereo_gt
            (``python -m srrg2_proslam_tpu_torch.apps.<name>``).
-entry.py   ``entry()``: one stereo tracker step on the card.
+parallel/  the multi-GPU slice over torch.distributed: the 1-D mesh and
+           its collectives, the sharded stages (tracker step, striped
+           loop query, PGO, BA), process-group setup and a launcher of
+           ranks on one host.
+entry.py   ``entry()``: one stereo tracker step on the card;
+           ``dryrun_multichip(n)``: the sharded stages over n ranks.
 viz.py     the live viewer (snapshot, LiveViewer).
 kernels/   Python wrappers of the hand-written CUDA kernels (FAST, BRIEF
            bitplanes, GN burst), each beside its plain PyTorch version.
@@ -37,7 +42,9 @@ RGB-D VO (``adapt_stereo`` / ``adapt_rgbd`` and their batched forms ->
 and the optional motion prior) and GraphSLAM on it (->
 ``GraphSLAM.process``, speculative or synchronous, with optional local BA,
 or ``GraphSLAM.process_sequence`` over whole image stacks through the
-chunk program, ``models/chunk.py``, CUDA graphs on the card); every shipped
+chunk program, ``models/chunk.py``, CUDA graphs on the card), on one
+device or on every rank of a device mesh (``GraphSLAM(mesh=...)``,
+``parallel/``); every shipped
 configuration loads through ``utils.config.load``; the apps start it as
 the JAX package's apps start that one.
 """

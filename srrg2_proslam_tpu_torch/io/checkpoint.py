@@ -16,6 +16,12 @@ keyframes (``bakf<k>_<i>``), the closure events and every counter.
 restores onto the GraphSLAM's own device, so a session saved on the card
 resumes on the CPU, and back.  The GraphSLAM given to ``load`` must have
 been built with the saved session's camera, config and model.
+
+A session on a device mesh (``GraphSLAM(mesh=...)``) is saved by every
+rank together: the striped ring and the sharded factors are gathered, and
+rank 0 writes the file, which equals the unmeshed session's array for
+array.  ``load`` into a meshed GraphSLAM reads the file on every rank and
+shards it again.
 """
 from __future__ import annotations
 
@@ -68,10 +74,17 @@ def _get(data, prefix: str, template, device):
 def save(slam: "GraphSLAM", path: str) -> None:
     """Snapshot a GraphSLAM session to ``path`` (.npz)."""
     slam.flush()
+    graph, db = slam.graph, slam.db
+    if slam.mesh is not None:
+        from ..parallel import spmd
+
+        graph, db = spmd.gather_graph(graph, slam.mesh), spmd.gather_database(db, slam.mesh)
+        if slam.mesh.rank != 0:
+            return
     arrays = {}
     _put(arrays, "tracker", slam.tracker_state)
-    _put(arrays, "graph", slam.graph)
-    _put(arrays, "db", slam.db)
+    _put(arrays, "graph", graph)
+    _put(arrays, "db", db)
     for map_id, arena in slam._map_arenas.items():
         _put(arrays, f"arena{map_id}", arena)
     for k, keyframe in enumerate(slam._ba_keyframes):
@@ -87,7 +100,7 @@ def save(slam: "GraphSLAM", path: str) -> None:
         "db_map_ids": list(slam._db_maps),
         "num_ba_keyframes": len(slam._ba_keyframes),
         "closure_events": [list(e) for e in slam.closure_events],
-        "graph_capacity": [slam.graph.capacity, slam.graph.edge_capacity],
+        "graph_capacity": [graph.capacity, graph.edge_capacity],
         "frames": [{"timestamp": f.timestamp, "local_map_index": f.local_map_index,
                     "T_lm_robot": np.asarray(f.T_lm_robot).tolist()} for f in slam.frames],
     }
@@ -112,6 +125,11 @@ def load(slam: "GraphSLAM", path: str) -> "GraphSLAM":
     slam.tracker_state = _get(data, "tracker", slam.tracker_state, dev)
     slam.graph = _get(data, "graph", pgo.empty_graph(*meta["graph_capacity"], "cpu"), dev)
     slam.db = _get(data, "db", slam.db, dev)
+    if slam.mesh is not None:
+        from ..parallel import spmd
+
+        slam.graph = spmd.shard_graph(slam.graph, slam.mesh)
+        slam.db = spmd.shard_database(slam.db, slam.mesh)
     for name in _COUNTERS:
         setattr(slam, name, meta[name])
     slam._frames_in_current_map = meta["frames_in_current_map"]

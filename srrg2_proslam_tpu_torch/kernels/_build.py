@@ -10,6 +10,7 @@ interface taking device pointers, sizes and the CUDA stream, and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,7 +61,6 @@ def library() -> ctypes.CDLL:
 def build(extra_flags: tuple = (), csrc: Path = CSRC) -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` with ``NVCC_FLAGS`` + ``extra_flags`` (unless a
     library of the same sources and flags is already built) and load it."""
-    global build_seconds, build_log
     flags = NVCC_FLAGS + list(extra_flags)
     sources = sorted(Path(csrc).glob("*.cu"))
     digest = hashlib.sha256()
@@ -69,32 +69,42 @@ def build(extra_flags: tuple = (), csrc: Path = CSRC) -> ctypes.CDLL:
         digest.update(src.read_bytes())
     digest.update(" ".join(flags).encode())
     so = BUILD_DIR / f"libproslam_kernels_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.o"
-        objdir.mkdir(parents=True, exist_ok=True)
-        tmp = objdir / so.name
-        objs = [objdir / f"{src.stem}.o" for src in sources]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True)
-                 for src, obj in zip(sources, objs)]
-        build_log = "".join(proc.communicate()[0] for proc in procs)
-        if any(proc.returncode != 0 for proc in procs):
-            raise RuntimeError(f"nvcc failed:\n{build_log}")
-        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(tmp, so)
-        shutil.rmtree(objdir)
-        build_seconds = time.perf_counter() - t0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # processes building the same library (ranks of one host) take turns:
+    # the first builds it, the others find it built
+    with open(BUILD_DIR / f"{so.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _compile(sources, flags, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _compile(sources: list, flags: list, so: Path) -> None:
+    global build_seconds, build_log
+    objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.o"
+    objdir.mkdir(parents=True, exist_ok=True)
+    tmp = objdir / so.name
+    objs = [objdir / f"{src.stem}.o" for src in sources]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    build_log = "".join(proc.communicate()[0] for proc in procs)
+    if any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
+    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, so)
+    shutil.rmtree(objdir)
+    build_seconds = time.perf_counter() - t0
 
 
 def check(err: int, name: str) -> None:

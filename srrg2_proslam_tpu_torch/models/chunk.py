@@ -39,6 +39,14 @@ rides the split-meta rows, and the orchestrator (models/slam.py) either
 undoes later finishes of the chunk (``undo_graph_entries``,
 ``db_write_slot``) or replays its split branches up to the finish, then
 runs ``reloc_op``.
+
+On a mesh (``mesh``: parallel/spmd.py; GraphSLAM(mesh=...)) the tracker
+half stays replicated, so each rank captures and replays its own chunk
+graph; the split branch, whose ring insert and loop query hold
+collectives, runs eagerly (a collective cannot be captured in a graph on
+gloo).  The ring is striped along its budget axis and the graph's edges
+sharded: a write to an edge slot or a ring slot touches only the owner's
+rows.
 """
 from __future__ import annotations
 
@@ -230,20 +238,29 @@ def _row(t: torch.Tensor, index) -> torch.Tensor:
     return t.index_select(0, index.reshape(1).long())[0]
 
 
-def _put(t: torch.Tensor, index, value) -> torch.Tensor:
+def _put(t: torch.Tensor, index, value, mesh=None) -> torch.Tensor:
     """A copy of ``t`` with row ``index`` (0-dim integer tensor) set to
-    ``value`` (a tensor of the row's shape, or a Python scalar)."""
+    ``value`` (a tensor of the row's shape, or a Python scalar).  On a mesh
+    ``t`` is the rank's block of a row-sharded tensor and ``index`` global:
+    the owner writes it, the other ranks keep their rows."""
     if not torch.is_tensor(value):
         value = torch.full(t.shape[1:], value, dtype=t.dtype, device=t.device)
+    value = value.to(t.dtype).reshape((1,) + t.shape[1:])
+    index = index.reshape(1).long()
+    if mesh is not None:
+        local = index - mesh.rank * t.shape[0]
+        owned = (local >= 0) & (local < t.shape[0])
+        index = local.clamp(0, t.shape[0] - 1)
+        value = torch.where(owned.reshape((1,) * t.dim()), value, t.index_select(0, index))
     out = t.clone()
-    out.index_copy_(0, index.reshape(1).long(), value.to(t.dtype).reshape((1,) + t.shape[1:]))
+    out.index_copy_(0, index, value)
     return out
 
 
 def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDatabase,
                  current_map, num_maps, T_fin, arena: lm.LandmarkArena, budget: int,
                  loop_cfg: loop_closure.LoopDetectorConfig, enable_loop: bool,
-                 do_loop: bool):
+                 do_loop: bool, mesh=None):
     """What the reference does when a local map finishes
     (app_benchmark.cpp:136-161), for one finished frame, on the device:
     the new map's pose (the finished map's pose times ``T_fin``, the robot
@@ -253,7 +270,10 @@ def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDa
     its K candidates.  Map ids and counts are 0-dim int32 device tensors.
 
     Returns (graph, edge_count, db, current_map, num_maps, SplitYs); the
-    closure decision on the meta row's candidates is the caller's.
+    closure decision on the meta row's candidates is the caller's.  On a
+    mesh the odometry factor lands on its edge slot's owner, the ring
+    insert writes the rank's stripe and the query merges across the
+    stripes; the outputs are replicated.
     """
     dev = T_fin.device
     K = loop_cfg.max_candidates
@@ -267,11 +287,11 @@ def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDa
     graph = graph._replace(
         poses=_put(graph.poses, new, T_world_new),
         pose_valid=_put(graph.pose_valid, new, True),
-        edge_i=_put(graph.edge_i, odo, prev),
-        edge_j=_put(graph.edge_j, odo, new),
-        edge_Z=_put(graph.edge_Z, odo, Z),
-        edge_weight=_put(graph.edge_weight, odo, 1.0),
-        edge_valid=_put(graph.edge_valid, odo, True))
+        edge_i=_put(graph.edge_i, odo, prev, mesh),
+        edge_j=_put(graph.edge_j, odo, new, mesh),
+        edge_Z=_put(graph.edge_Z, odo, Z, mesh),
+        edge_weight=_put(graph.edge_weight, odo, 1.0, mesh),
+        edge_valid=_put(graph.edge_valid, odo, True, mesh))
     edge_count = edge_count + 1
 
     # budget selection: the same rows feed the insert and the host mirror
@@ -281,7 +301,7 @@ def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDa
         do_ins = ~(db.map_id == prev).any()
         slot = torch.remainder(db.next, db.num_slots)
         evicted = torch.where(do_ins, _row(db.map_id, slot), -1)
-        inserted = loop_closure.add_local_map(db, desc_b, pts_b, valid_b, prev, rows_b)
+        inserted = loop_closure.add_local_map(db, desc_b, pts_b, valid_b, prev, rows_b, mesh)
         db = _select(do_ins, inserted, db)
     else:
         do_ins = torch.zeros((), dtype=torch.bool, device=dev)
@@ -296,7 +316,7 @@ def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDa
     if do_loop:
         result, closures, packet = loop_closure.detect_and_validate(
             arena.desc, arena.valid, arena.pos, prev, db, graph.poses, loop_cfg,
-            graph.capacity)
+            graph.capacity, mesh)
         k = packet.shape[0]       # min(K, slots, pose capacity)
         cp = torch.cat([packet, cp[k:]])
         loop_row = torch.cat([result.match_row, loop_row[k:]])
@@ -313,13 +333,15 @@ def split_branch(graph: pgo.PoseGraph, edge_count, db: loop_closure.DescriptorDa
 
 
 def run_split(graph, edge_count, db, current_map, num_maps, T_fin, arena, budget: int,
-              loop_cfg: loop_closure.LoopDetectorConfig, enable_loop: bool, do_loop: bool):
+              loop_cfg: loop_closure.LoopDetectorConfig, enable_loop: bool, do_loop: bool,
+              mesh=None):
     """``split_branch`` as a CUDA graph on CUDA tensors (one per capacities
-    and ``do_loop``), eagerly on CPU tensors."""
+    and ``do_loop``), eagerly on CPU tensors and on a mesh (its
+    collectives cannot be captured)."""
     args = (budget, loop_cfg, enable_loop, do_loop)
     inputs = (graph, edge_count, db, current_map, num_maps, T_fin, arena)
-    if not T_fin.is_cuda:
-        return split_branch(*inputs, *args)
+    if mesh is not None or not T_fin.is_cuda:
+        return split_branch(*inputs, *args, mesh)
 
     def fn(*xs):
         return split_branch(*xs, *args)
@@ -333,7 +355,16 @@ def run_split(graph, edge_count, db, current_map, num_maps, T_fin, arena, budget
 # relocalisation: undo later finishes, reload an old map
 # ---------------------------------------------------------------------------
 
-def undo_graph_entries(graph: pgo.PoseGraph, dead_poses, dead_edges) -> pgo.PoseGraph:
+def _owned_rows(dead, rows: int, mesh) -> list:
+    """The rank's local indices of the global rows ``dead`` of a tensor
+    sharded in blocks of ``rows`` (all of them off a mesh)."""
+    if mesh is None:
+        return list(dead)
+    return [d - mesh.rank * rows for d in dead if d // rows == mesh.rank]
+
+
+def undo_graph_entries(graph: pgo.PoseGraph, dead_poses, dead_edges,
+                       mesh=None) -> pgo.PoseGraph:
     """Invalidate the poses and odometry edges (index lists) later
     finishes added.
 
@@ -341,7 +372,10 @@ def undo_graph_entries(graph: pgo.PoseGraph, dead_poses, dead_edges) -> pgo.Pose
     rewrote every pose); the orchestrator replays the chunk there.  The
     values of the invalidated slots stay stale, as ``reloc_op``'s
     retirement leaves them: every insertion writes value and validity.
+    On a mesh the edge slots are global and each owner clears its own.
     """
+    dead_edges = _owned_rows(dead_edges, graph.edge_capacity, mesh)
+
     def cleared(valid, dead):
         return valid.index_fill(0, torch.as_tensor(dead, dtype=torch.long,
                                                    device=valid.device), False)
@@ -351,16 +385,21 @@ def undo_graph_entries(graph: pgo.PoseGraph, dead_poses, dead_edges) -> pgo.Pose
 
 
 def db_write_slot(db: loop_closure.DescriptorDatabase, slot: int, desc, points, rows,
-                  valid, map_id: int, next_val: int) -> loop_closure.DescriptorDatabase:
+                  valid, map_id: int, next_val: int, mesh=None) -> loop_closure.DescriptorDatabase:
     """Overwrite one ring slot and the cursor (the rollback of a later
     insert): the evicted map's rows from the host mirror, padded as
-    ``add_local_map`` pads, or a free slot (map id -1, all rows invalid)."""
+    ``add_local_map`` pads, or a free slot (map id -1, all rows invalid).
+    The rows span the whole budget; on a mesh the rank writes its stripe."""
     dev = db.desc.device
     idx = torch.full((1,), slot, dtype=torch.long, device=dev)
+    stripe = db.budget
+    lo = 0 if mesh is None else mesh.rank * stripe
 
     def put(field, value):
-        return field.index_copy(0, idx, torch.as_tensor(value, device=dev)
-                                .to(field.dtype).unsqueeze(0))
+        value = torch.as_tensor(value, device=dev).to(field.dtype)
+        if field.dim() > 1:
+            value = value[lo:lo + stripe]
+        return field.index_copy(0, idx, value.unsqueeze(0))
 
     return db._replace(
         desc=put(db.desc, desc), points=put(db.points, points),
@@ -372,7 +411,7 @@ def db_write_slot(db: loop_closure.DescriptorDatabase, slot: int, desc, points, 
 def reloc_op(graph: pgo.PoseGraph, ref_arena: lm.LandmarkArena,
              query_arena: lm.LandmarkArena, T_candidates, match_row, match_mask, k: int,
              T_lm_robot, velocity, meas_buf, dead_map: int, dead_edge_slot: int,
-             max_insertions: int):
+             max_insertions: int, mesh=None):
     """Rebuild tracking inside a reloaded map (MultiRelocalizer3D analog):
     merge the finished query map into the reference arena through the
     closure correspondences of candidate ``k`` (landmarks.merge_closure),
@@ -380,12 +419,14 @@ def reloc_op(graph: pgo.PoseGraph, ref_arena: lm.LandmarkArena,
     the tracker state at ``T_lm_robot`` with ``velocity``.  The smoother's
     buffers belong to the abandoned query map: the reloaded map starts
     with zeroed ones (T_world_to_cam slots 0, not identity, as in the JAX
-    package).  Returns (graph, state)."""
+    package).  On a mesh the dead edge slot's owner retires it.  Returns
+    (graph, state)."""
     merged = lm.merge_closure(ref_arena, query_arena, T_candidates[k], match_row[k],
                               match_mask[k], max_insertions)
     pose_valid, edge_valid = graph.pose_valid.clone(), graph.edge_valid.clone()
     pose_valid[dead_map] = False
-    edge_valid[dead_edge_slot] = False
+    for e in _owned_rows([dead_edge_slot], graph.edge_capacity, mesh):
+        edge_valid[e] = False
     if meas_buf is not None:
         meas_buf = type(meas_buf)(*(torch.zeros_like(t) for t in meas_buf))
     state = TrackerState(arena=merged, T_lm_robot=T_lm_robot, velocity=velocity,

@@ -11,6 +11,16 @@ alignment, all K in one batch.
 Nothing here reads a value back to the host: ``detect_and_validate``
 returns a [K, 22] packet that the orchestrator reads once per split.
 Every function returns new tensors and leaves its inputs unchanged.
+
+On a mesh (``mesh``: parallel/spmd.py) each rank holds a stripe of the
+budget axis, [S, budget / n, ...] of ``desc``, ``points``, ``arena_row``
+and ``valid``; ``map_id`` and ``next`` are replicated.  ``add_local_map``
+writes the rank's stripe of the slot; a query's per-slot two-best keys
+carry the global flat row, two MIN all-reduces merge them across the
+stripes, and the votes follow from the merged distances (a sum of
+per-stripe votes would not be the same vote); the matched rows and points
+are gathered by owner.  The merged keys equal the single-device keys bit
+for bit.
 """
 from __future__ import annotations
 
@@ -108,15 +118,23 @@ def database_from_numpy(d: dict, device=torch.device("cuda")) -> DescriptorDatab
         for k, dt in dtypes.items()})
 
 
+def _stripe(mesh):
+    """(ranks, this rank) of the budget axis: (1, 0) off a mesh."""
+    return (1, 0) if mesh is None else (mesh.size, mesh.rank)
+
+
 def add_local_map(db: DescriptorDatabase, desc, points, valid, map_id,
-                  rows=None) -> DescriptorDatabase:
+                  rows=None, mesh=None) -> DescriptorDatabase:
     """Write one local map's landmarks into the next ring slot.
 
     The first ``budget`` valid rows win (callers pre-select by maturity);
     a full ring overwrites its oldest map.  ``rows`` [M] are the inputs'
-    arena rows (default: arange).  The slot is chosen on the device.
+    arena rows (default: arange).  The slot is chosen on the device.  On a
+    mesh the inputs are replicated and the rank writes its stripe.
     """
-    S, budget = db.num_slots, db.budget
+    n, r = _stripe(mesh)
+    S, stripe = db.num_slots, db.budget
+    budget = stripe * n
     M = desc.shape[0]
     dev = desc.device
     if rows is None:
@@ -128,7 +146,7 @@ def add_local_map(db: DescriptorDatabase, desc, points, valid, map_id,
     def compact(a, fill):
         out = torch.full((budget + 1,) + a.shape[1:], fill, dtype=a.dtype, device=dev)
         out[dest] = a      # only the sink row repeats
-        return out[:budget]
+        return out[r * stripe:(r + 1) * stripe]
 
     slot = torch.remainder(db.next, S).long()
 
@@ -160,24 +178,37 @@ class LoopQueryResult(NamedTuple):
 
 
 def _slot_two_best(query_desc, query_valid, query_map_id, desc, valid, map_id,
-                   slot_base: int, config: LoopDetectorConfig):
+                   slot_base: int, config: LoopDetectorConfig, mesh=None):
     """Per-(query, slot) encoded two-best over a [ts, budget] slot group.
 
     Returns (votes [ts] int32, best key [Q, ts] int32, vote_ok [Q, ts]).
     The Hamming distances are int32 (exact float32 products), so the key
-    arithmetic is the JAX package's, bit for bit.
+    arithmetic is the JAX package's, bit for bit.  On a mesh ``desc`` and
+    ``valid`` are the rank's stripe [ts, budget / n]: its keys carry the
+    global flat row (the stripe starts at ``rank * budget / n``), and the
+    merge takes the best of the stripes' bests and, as the second, the
+    least of every stripe's second and the other stripes' bests.
     """
-    ts, budget = desc.shape[0], desc.shape[1]
+    n, r = _stripe(mesh)
+    ts, stripe = desc.shape[0], desc.shape[1]
+    budget = stripe * n
     Q = query_desc.shape[0]
     dev = query_desc.device
-    cost = distance_matrix(query_desc, desc.reshape(ts * budget, -1)).reshape(Q, ts, budget)
+    cost = distance_matrix(query_desc, desc.reshape(ts * stripe, -1)).reshape(Q, ts, stripe)
     age_ok = ((query_map_id - map_id) >= config.minimum_age_difference) & (map_id >= 0)
     feasible = query_valid[:, None, None] & valid[None] & age_ok[None, :, None]
     flat_row = ((slot_base + torch.arange(ts, dtype=torch.int32, device=dev))[:, None]
-                * budget + torch.arange(budget, dtype=torch.int32, device=dev)[None, :])
+                * budget + r * stripe
+                + torch.arange(stripe, dtype=torch.int32, device=dev)[None, :])
     key = torch.where(feasible, cost, _DIST_SENTINEL) * _ROW_SHIFT + flat_row[None]
     best = key.min(dim=2).values                                        # [Q, ts]
     second = torch.where(key == best[:, :, None], _KEY_SENTINEL, key).min(dim=2).values
+    if mesh is not None:
+        merged = mesh.all_min(best, "ring")
+        # keys are unique: the stripe holding the global best offers its
+        # second, every other stripe its best
+        second = mesh.all_min(torch.where(best == merged, second, best), "ring")
+        best = merged
     d1 = (best // _ROW_SHIFT).to(torch.float32)
     d2 = torch.clamp_max(second // _ROW_SHIFT, _DIST_SENTINEL).to(torch.float32)
     vote_ok = (query_valid[:, None]
@@ -187,15 +218,15 @@ def _slot_two_best(query_desc, query_valid, query_map_id, desc, valid, map_id,
 
 
 def query_terms(query_desc, query_valid, query_map_id, db: DescriptorDatabase,
-                config: LoopDetectorConfig):
+                config: LoopDetectorConfig, mesh=None):
     """Per-(query, slot) best match + vote histogram over the whole ring:
     (votes [S], per_slot_key [Q, S], vote_ok [Q, S])."""
     return _slot_two_best(query_desc, query_valid, query_map_id, db.desc,
-                          db.valid, db.map_id, 0, config)
+                          db.valid, db.map_id, 0, config, mesh)
 
 
 def query_terms_tiled(query_desc, query_valid, query_map_id, db: DescriptorDatabase,
-                      config: LoopDetectorConfig, tile_slots: int):
+                      config: LoopDetectorConfig, tile_slots: int, mesh=None):
     """``query_terms`` over ``tile_slots`` slots at a time: slot groups are
     disjoint maps, so the per-tile results concatenate to the same values,
     with intermediates of [Q, tile_slots * budget] instead of [Q, S * budget]."""
@@ -205,26 +236,28 @@ def query_terms_tiled(query_desc, query_valid, query_map_id, db: DescriptorDatab
     parts = [
         _slot_two_best(query_desc, query_valid, query_map_id,
                        db.desc[s:s + tile_slots], db.valid[s:s + tile_slots],
-                       db.map_id[s:s + tile_slots], s, config)
+                       db.map_id[s:s + tile_slots], s, config, mesh)
         for s in range(0, S, tile_slots)]
     votes, best, vote_ok = zip(*parts)
     return torch.cat(votes), torch.cat(best, dim=1), torch.cat(vote_ok, dim=1)
 
 
 def query(query_desc, query_valid, query_map_id, db: DescriptorDatabase,
-          config: LoopDetectorConfig, num_maps: int = None) -> LoopQueryResult:
+          config: LoopDetectorConfig, num_maps: int = None, mesh=None) -> LoopQueryResult:
     """Match a local map against the whole database; top-K candidates.
 
-    ``num_maps`` only bounds K for callers that know few maps exist.
+    ``num_maps`` only bounds K for callers that know few maps exist.  On a
+    mesh the result is replicated.
     """
+    n, r = _stripe(mesh)
     S = db.num_slots
     if config.query_tile > 0:
         votes, per_slot_key, vote_ok = query_terms_tiled(
             query_desc, query_valid, query_map_id, db, config,
-            max(1, config.query_tile // db.budget))
+            max(1, config.query_tile // (db.budget * n)), mesh)
     else:
         votes, per_slot_key, vote_ok = query_terms(
-            query_desc, query_valid, query_map_id, db, config)
+            query_desc, query_valid, query_map_id, db, config, mesh)
     K = min(config.max_candidates, S)
     if num_maps is not None:
         K = min(K, num_maps)
@@ -236,14 +269,25 @@ def query(query_desc, query_valid, query_map_id, db: DescriptorDatabase,
     keys = per_slot_key[:, top_slots].T                                # [K, Q]
     idx = keys % _ROW_SHIFT
     mask = found[:, None] & vote_ok[:, top_slots].T
-    idx_c = idx.clamp(0, db.capacity - 1).long()
+    if mesh is None:
+        idx_c = idx.clamp(0, db.capacity - 1).long()
+        rows = db.arena_row.reshape(-1)[idx_c]
+        points = db.points.reshape(-1, 3)[idx_c]
+    else:
+        # the row's owner reads it from its stripe; a SUM gathers them
+        stripe = db.budget
+        col = idx % (stripe * n)
+        owned = col // stripe == r
+        local = ((idx // (stripe * n)) * stripe + col % stripe).clamp(0, db.capacity - 1).long()
+        rows = mesh.gather_by_owner(db.arena_row.reshape(-1)[local], owned, "ring")
+        points = mesh.gather_by_owner(db.points.reshape(-1, 3)[local], owned, "ring")
     return LoopQueryResult(
         candidate_maps=cands,
         votes=top_votes,
         match_idx=torch.where(mask, idx, -1).to(torch.int32),
-        match_row=torch.where(mask, db.arena_row.reshape(-1)[idx_c], -1).to(torch.int32),
+        match_row=torch.where(mask, rows, -1).to(torch.int32),
         match_mask=mask,
-        match_points=db.points.reshape(-1, 3)[idx_c],
+        match_points=points,
     )
 
 
@@ -321,16 +365,17 @@ PACKET_WIDTH = 22
 
 def detect_and_validate(query_desc, query_valid, query_pos, query_map_id,
                         db: DescriptorDatabase, poses, config: LoopDetectorConfig,
-                        num_maps: int):
+                        num_maps: int, mesh=None):
     """Split-time loop detection: query + batched validation + one packet.
 
     query_pos [Q, 3] (query-map frame); poses [N, 4, 4] the graph's current
     estimates, which seed each candidate's alignment; ``query_map_id`` an
     int or a 0-dim integer tensor on the device (the chunk program's map
     counter: indexing with it reads nothing back).  Returns (result,
-    closures, packet [K, 22] float32).
+    closures, packet [K, 22] float32); on a mesh (a striped ``db``) all
+    three are replicated.
     """
-    result = query(query_desc, query_valid, query_map_id, db, config, num_maps)
+    result = query(query_desc, query_valid, query_map_id, db, config, num_maps, mesh)
     cand = result.candidate_maps.clamp_min(0).long()
     q = torch.as_tensor(query_map_id, device=poses.device).reshape(1).long()
     T_init = se3.inverse(poses[cand]) @ poses.index_select(0, q)

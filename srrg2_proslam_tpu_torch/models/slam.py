@@ -44,8 +44,19 @@ the dispatches in flight and rewinds the sequence to the frame after the
 finish; later finishes of its chunk are undone on the device
 (``num_reloc_rollbacks``), or, where one of them kept a closure, the
 chunk's split branches are replayed up to the finish
-(``num_reloc_replays``), as the JAX package replays its chunk.  ``speculation_depth`` has no effect there.  The device mesh
-raises NotImplementedError.
+(``num_reloc_replays``), as the JAX package replays its chunk.
+``speculation_depth`` has no effect there.
+
+On a device mesh (``mesh``: parallel/spmd.py, one process per rank) every
+rank runs the same program on a replicated tracker state (the adaptor,
+K3, K1 and K2, and the chunk graph, on its full copy) while the closure
+ring is striped along its budget axis and the pose graph's factors are
+sharded along edges, as the JAX package's ``_apply_mesh`` lays them out;
+the ring insert, the loop query, PGO and its backstop statistics hold the
+collectives.  Every host read that drives a decision reads a replicated
+tensor, so the ranks take the same control flow.  The chunk program's
+split branches run eagerly there, and a relocalisation whose dispatch
+holds later finishes replays them, as the JAX package does under a mesh.
 """
 from __future__ import annotations
 
@@ -58,6 +69,7 @@ import torch
 
 from ..ops import ba as ba_ops
 from ..ops import pgo, se3
+from ..parallel import spmd
 from ..ops.pinhole import Camera
 from ..utils import config as cfg
 from ..utils import graphs
@@ -226,27 +238,13 @@ class _ClosureMarker:
     odo_edge_slot: int = -1
 
 
-def _check_graph_config(config: GraphSLAMConfig, model: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
-    _check_supported(config.tracker, model)
-
-
-def _edge_added(graph: pgo.PoseGraph, num_edges: int, i: int, j: int, Z):
-    """Factor insertion at slot ``num_edges``, with double-and-copy growth:
-    (graph, num_edges + 1)."""
-    if num_edges >= graph.edge_capacity:
-        graph = pgo.grow(graph, graph.capacity, 2 * graph.edge_capacity)
-    return pgo.add_edge(graph, num_edges, i, j, Z), num_edges + 1
-
-
 def _packet_Z(pkt: np.ndarray, k: int) -> np.ndarray:
     """Candidate ``k``'s validated closure transform from [K, 22] decision rows."""
     return pkt[k, 6:22].reshape(4, 4).astype(np.float32)
 
 
 class GraphSLAM:
-    """Graph SLAM on one device.
+    """Graph SLAM on one device, or on each rank of a device mesh.
 
     ``process(meas_points, meas_desc, meas_valid, timestamp)`` per frame,
     with the adaptor's tensors on ``device`` (or ``process_dispatch`` /
@@ -270,15 +268,21 @@ class GraphSLAM:
     both stay 0 in the synchronous mode.  ``num_replayed_frames`` counts
     every frame the speculative queue re-dispatched, after splits and
     losses too: each runs its tracker step again.
+
+    ``mesh`` (a ``parallel.spmd.Mesh``) runs the session on every rank of
+    the mesh, each on the mesh's device for it (``device`` is then
+    ignored); ``max_db_descriptors_per_map`` and ``max_edges`` must be
+    divisible by the mesh size.
     """
 
     def __init__(self, cam: Camera, config: GraphSLAMConfig = GraphSLAMConfig(),
                  model: str = "stereo", device=torch.device("cuda"), mesh=None):
-        _check_graph_config(config, model, mesh)
+        _check_supported(config.tracker, model)
         self.cam = cam
         self.config = config
         self.model = model
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.status = INITIALIZING
         self.tracker_state: TrackerState = self._initial_state()
         self.graph = pgo.empty_graph(config.max_local_maps, config.max_edges, self.device)
@@ -325,6 +329,48 @@ class GraphSLAM:
         self.chunk_stats = dict.fromkeys(
             ("dispatches", "graph_replays", "eager_frames", "tracker_steps",
              "adapted_chunks", "splits", "packet_reads"), 0)
+        if mesh is not None:
+            self._apply_mesh()
+
+    # ------------------------------------------------------------------
+    # the device mesh (the JAX package's _apply_mesh)
+    # ------------------------------------------------------------------
+
+    def _apply_mesh(self):
+        """Stripe the closure ring along its budget axis and shard the pose
+        graph's factors along edges; the tracker state stays replicated."""
+        n = self.mesh.size
+        if self.db.budget % n:
+            raise ValueError(
+                f"max_db_descriptors_per_map ({self.db.budget}) must be "
+                f"divisible by the mesh size ({n})")
+        if self.graph.edge_capacity % n:
+            raise ValueError(
+                f"max_edges ({self.graph.edge_capacity}) must be "
+                f"divisible by the mesh size ({n})")
+        self.db = spmd.shard_database(self.db, self.mesh)
+        self.graph = spmd.shard_graph(self.graph, self.mesh)
+
+    def _edge_capacity(self, graph: pgo.PoseGraph) -> int:
+        """The graph's edge slots (every rank's, on a mesh)."""
+        return graph.edge_capacity * (1 if self.mesh is None else self.mesh.size)
+
+    def _grow(self, graph: pgo.PoseGraph, pose_capacity: int,
+              edge_capacity: int) -> pgo.PoseGraph:
+        """``pgo.grow``; on a mesh the grown factors are resharded (the
+        doubled capacity stays divisible by the mesh size)."""
+        if self.mesh is None:
+            return pgo.grow(graph, pose_capacity, edge_capacity)
+        grown = pgo.grow(spmd.gather_graph(graph, self.mesh), pose_capacity, edge_capacity)
+        return spmd.shard_graph(grown, self.mesh)
+
+    def _edge_added(self, graph: pgo.PoseGraph, num_edges: int, i: int, j: int, Z):
+        """Factor insertion at slot ``num_edges``, with double-and-copy
+        growth: (graph, num_edges + 1)."""
+        ecap = self._edge_capacity(graph)
+        if num_edges >= ecap:
+            graph = self._grow(graph, graph.capacity, 2 * ecap)
+        return pgo.add_edge(graph, num_edges, i, j, Z, mesh=self.mesh), num_edges + 1
 
     def _initial_state(self) -> TrackerState:
         return initial_state(self.config.arena_capacity,
@@ -339,8 +385,8 @@ class GraphSLAM:
         """makeNewMap analog (app_benchmark.cpp:93-98,136-169)."""
         idx = self.num_maps
         if idx >= self.graph.capacity:
-            self.graph = pgo.grow(self.graph, 2 * self.graph.capacity,
-                                  self.graph.edge_capacity)
+            self.graph = self._grow(self.graph, 2 * self.graph.capacity,
+                                    self._edge_capacity(self.graph))
         self.graph = pgo.add_pose(self.graph, idx, T_world_new_lm)
         if self.current_map >= 0:
             # odometry factor from the previously active map (after a
@@ -357,7 +403,7 @@ class GraphSLAM:
         self._ba_keyframes = []
 
     def _add_graph_edge(self, i: int, j: int, Z):
-        self.graph, self.num_edges = _edge_added(self.graph, self.num_edges, i, j, Z)
+        self.graph, self.num_edges = self._edge_added(self.graph, self.num_edges, i, j, Z)
 
     def _get_map_arena(self, mid: int) -> lm.LandmarkArena:
         """A finalized map's arena on the device (reloaded if it was moved)."""
@@ -403,7 +449,7 @@ class GraphSLAM:
             budget=self.config.max_db_descriptors_per_map)
         self._mirror_ring_insert(self.current_map)
         self.db = loop_closure.add_local_map(self.db, desc_b, pts_b, valid_b,
-                                             self.current_map, rows_b)
+                                             self.current_map, rows_b, self.mesh)
 
     def _loop_query(self, state: TrackerState, T_split: np.ndarray,
                     timestamp: float) -> _ClosureMarker:
@@ -413,7 +459,7 @@ class GraphSLAM:
         arena = state.arena
         result, closures, packet = loop_closure.detect_and_validate(
             arena.desc, arena.valid, arena.pos, self.current_map, self.db,
-            self.graph.poses, self.config.loop, self.graph.capacity)
+            self.graph.poses, self.config.loop, self.graph.capacity, self.mesh)
         return _ClosureMarker(
             packet=_HostCopy(packet), match_row=result.match_row,
             match_mask=result.match_mask, T_candidates=closures.T_query_in_ref,
@@ -459,10 +505,10 @@ class GraphSLAM:
         def insert_and_optimize(ks):
             g, n = pre_graph, pre_edges
             for k in ks:
-                g, n = _edge_added(g, n, int(pkt[k, 0]), query_map,
-                                   torch.as_tensor(_packet_Z(pkt, k), device=self.device))
+                g, n = self._edge_added(g, n, int(pkt[k, 0]), query_map,
+                                        torch.as_tensor(_packet_Z(pkt, k), device=self.device))
             with profile_time("pgo"):
-                g, _ = pgo.optimize(g, config.pgo)
+                g, _ = pgo.optimize(g, config.pgo, mesh=self.mesh)
             return g, n
 
         thr = config.loop.backstop_max_edge_residual
@@ -487,9 +533,9 @@ class GraphSLAM:
         # pre-insertion residual and re-optimize from the graph as it came
         def held_out(g):
             # tracks the current edge capacity (insertion can grow it)
-            return torch.arange(g.edge_capacity, device=self.device) < pre_edges
+            return torch.arange(self._edge_capacity(g), device=self.device) < pre_edges
 
-        base_chain = float(pgo.mean_edge_residual(pre_graph, held_out(pre_graph)))
+        base_chain = float(pgo.mean_edge_residual(pre_graph, held_out(pre_graph), self.mesh))
         pre_r = {}
         for k in accepted:
             M = (np.linalg.inv(_packet_Z(pkt, k)) @ np.linalg.inv(poses_np[int(pkt[k, 0])])
@@ -500,8 +546,8 @@ class GraphSLAM:
                 break
             g, n = insert_and_optimize(accepted)
             # one read: every edge's residual and the held-out mean
-            r = torch.cat([pgo.edge_t_residuals(g),
-                           pgo.mean_edge_residual(g, held_out(g))[None]]).cpu().numpy()
+            r = torch.cat([pgo.edge_t_residuals(g, self.mesh),
+                           pgo.mean_edge_residual(g, held_out(g), self.mesh)[None]]).cpu().numpy()
             chain_bad = float(r[-1]) > base_chain + thr
             self_r = [r[pre_edges + j] for j in range(len(accepted))]
             if not chain_bad and max(self_r) <= thr:
@@ -532,7 +578,8 @@ class GraphSLAM:
         self.graph, self.tracker_state = chunk_ops.reloc_op(
             self.graph, self._get_map_arena(cand), qs.arena, m.T_candidates, m.match_row,
             m.match_mask, k, torch.as_tensor(T_new, device=self.device), qs.velocity,
-            qs.meas_buf, m.new_map, m.odo_edge_slot, self.config.closure_merge_max_insertions)
+            qs.meas_buf, m.new_map, m.odo_edge_slot, self.config.closure_merge_max_insertions,
+            self.mesh)
         self._map_arenas[cand] = self.tracker_state.arena
         self._note_device_arena(cand)
         self.num_relocalizations += 1
@@ -926,7 +973,7 @@ class GraphSLAM:
             graph, ec, db, cur, nm, sy = P.run_split(
                 graph, carry.edge_count, carry.db, carry.current_map, carry.num_maps,
                 ys.T_lm_robot[i], arena, config.max_db_descriptors_per_map, config.loop,
-                config.enable_loop_closing, do_loop)
+                config.enable_loop_closing, do_loop, self.mesh)
             with profile_time("chunk_readback"):
                 m = sy.meta.cpu().numpy()
             self.chunk_stats["splits"] += 1
@@ -1047,8 +1094,9 @@ class GraphSLAM:
             later_closure = any(meta[j, P.SM_CP + 22 * c + 1] > 0.5
                                 for j in later for c in range(K))
             try:
-                if later_closure:
-                    raise KeyError("a later finish kept a closure")
+                if later_closure or self.mesh is not None:
+                    # a mesh replays, as the JAX package's meshed program does
+                    raise KeyError("a later finish kept a closure, or a mesh")
                 carry = self._rollback_later_finishes(carry, sm, [meta[j] for j in later])
                 self.num_reloc_rollbacks += 1
             except KeyError:
@@ -1070,7 +1118,7 @@ class GraphSLAM:
             carry.graph, self._get_map_arena(cand), query_arena, sy.loop_T, sy.loop_row,
             sy.loop_mask, k, torch.as_tensor(T_new, device=self.device), velocity,
             carry.state.meas_buf, int(sm[P.SM_NEW]), int(sm[P.SM_ODO]),
-            self.config.closure_merge_max_insertions)
+            self.config.closure_merge_max_insertions, self.mesh)
         self._carry = carry._replace(
             state=state, frames_in_map=torch.full((), 1, dtype=torch.int32, device=self.device),
             graph=graph, current_map=torch.full((), cand, dtype=torch.int32, device=self.device))
@@ -1097,9 +1145,9 @@ class GraphSLAM:
         evicted map's rows are not mirrored."""
         P = chunk_ops
         graph = P.undo_graph_entries(carry.graph, [int(m[P.SM_NEW]) for m in later_meta],
-                                     [int(m[P.SM_ODO]) for m in later_meta])
+                                     [int(m[P.SM_ODO]) for m in later_meta], self.mesh)
         db = carry.db
-        budget = db.budget
+        budget = db.budget * (1 if self.mesh is None else self.mesh.size)
         next_fin = int(sm_i[P.SM_DBNEXT])
         for m in reversed(later_meta):
             if m[P.SM_INS] < 0.5:
@@ -1117,7 +1165,7 @@ class GraphSLAM:
                 m_desc, m_pos, m_rows, n = mirror
                 desc[:n], points[:n], rows[:n], valid[:n] = (
                     m_desc[:n], m_pos[:n], m_rows[:n], True)
-            db = P.db_write_slot(db, slot, desc, points, rows, valid, ev, next_fin)
+            db = P.db_write_slot(db, slot, desc, points, rows, valid, ev, next_fin, self.mesh)
         return carry._replace(
             graph=graph, db=db,
             edge_count=torch.full((), int(sm_i[P.SM_EDGES]), dtype=torch.int32,
@@ -1133,14 +1181,14 @@ class GraphSLAM:
         counts are exact here (the branches run in order as the dispatch
         is consumed), so the graph grows when the per-frame one does; the
         new capacities give the split branch a new graph to capture."""
-        pcap, ecap = graph.capacity, graph.edge_capacity
+        pcap, ecap = graph.capacity, self._edge_capacity(graph)
         if num_maps >= pcap:
             pcap *= 2
         if num_edges >= ecap:
             ecap *= 2
-        if (pcap, ecap) == (graph.capacity, graph.edge_capacity):
+        if (pcap, ecap) == (graph.capacity, self._edge_capacity(graph)):
             return graph
-        return pgo.grow(graph, pcap, ecap)
+        return self._grow(graph, pcap, ecap)
 
     # ------------------------------------------------------------------
     # accessors (example_slam_3d.cpp:106-141 parity)

@@ -214,11 +214,13 @@ def _prior_weights(translation_info: float, rotation_info: float, device: torch.
 
 
 def associate(arena: LandmarkArena, X, meas_points, meas_desc, meas_valid,
-              cam: Camera, config: TrackerConfig, r: int, weights_all, idw):
+              cam: Camera, config: TrackerConfig, r: int, weights_all, idw, mesh=None):
     """One re-association round: project the arena with X and match.
 
     Returns (matches, stage, pts_moving [N,3], weights [N]) — the GN
-    burst's inputs for round ``r``.
+    burst's inputs for round ``r``.  On a mesh each rank matches its block
+    of the measurement rows against every arena column and the matches are
+    all-gathered: the GN rows are every rank's.
     """
     n_stages = len(config.matcher.radius_stages)
     pts_sensor = se3.transform_points(X, arena.pos)
@@ -227,22 +229,31 @@ def associate(arena: LandmarkArena, X, meas_points, meas_desc, meas_valid,
     # rounds 0..n-2 force the loose-to-tight schedule; the final round picks
     # the tightest good stage adaptively
     is_final = r == config.rounds - 1
+    rows = slice(None)
+    if mesh is not None:
+        n = meas_points.shape[0] // mesh.size
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
     matches, stage = match_projective(
-        meas_points[:, :2], meas_desc, meas_valid, proj_uv, arena.desc,
+        meas_points[rows, :2], meas_desc[rows], meas_valid[rows], proj_uv, arena.desc,
         proj_valid, config.matcher,
-        force_stage=-1 if is_final else max(n_stages - 1 - r, 0),
+        force_stage=-1 if is_final else max(n_stages - 1 - r, 0), mesh=mesh,
     )
+    if mesh is not None:
+        matches = type(matches)(*(mesh.all_gather(t, "tracker") for t in matches))
     idx = matches.idx.clamp_min(0).long()
     return matches, stage, arena.pos[idx], weights_all[idx] * idw
 
 
 def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
-               cam: Camera, config: TrackerConfig, model: str = "stereo"):
+               cam: Camera, config: TrackerConfig, model: str = "stereo", mesh=None):
     """One tracker step on stereo measurements [N, 4] = (uL vL uR vR) or,
     with ``model="rgbd"``, RGB-D measurements [N, 3] = (u v depth_m).
 
     Returns (new_state, stats, X_final); ``X_final`` maps local-map points
-    into the sensor frame.
+    into the sensor frame.  With ``mesh`` (parallel/spmd.py::slam_step_spmd)
+    the inputs are replicated and only the association is sharded, along
+    the measurement rows; everything after it runs replicated, with the
+    single-device result.
     """
     _check_supported(config, model)
     # the GN burst kernel on CUDA tensors; its wrapper computes the plain
@@ -295,7 +306,7 @@ def track_step(state: TrackerState, meas_points, meas_desc, meas_valid,
     for r in range(config.rounds):
         matches, stage, pts_moving, weights = associate(
             arena, X, meas_points, meas_desc, meas_valid, cam, config, r,
-            weights_all, idw)
+            weights_all, idw, mesh)
         if use_burst:
             X, stats = gn_burst_stereo(
                 X.contiguous(), pts_moving, gn_meas, weights, matches.mask, cam,

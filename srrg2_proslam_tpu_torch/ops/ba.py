@@ -15,6 +15,11 @@ observation and block reductions by ``index_add``:
 
 The saturated robust kernel weights each observation.  Nothing is read
 back to the host.
+
+On a mesh (``mesh``: parallel/spmd.py) the observation arrays are sharded:
+each rank reduces its observations into (Hll, bl, Hpp, bp, W) and the
+robust chi, a SUM all-reduce combines them, and poses, points and the
+reduced camera solve stay replicated.
 """
 from __future__ import annotations
 
@@ -117,18 +122,22 @@ def _safe_inv3(H):
 
 
 def _gn_iteration(poses, points, problem: BAProblem, cam: Camera, model: str,
-                  config: BAConfig):
+                  config: BAConfig, mesh=None):
     P, L = poses.shape[0], points.shape[0]
     dev = points.device
     r, Jp, Jl, w, chi_total = _observation_terms(
         poses, points, problem, cam, model, config.chi_threshold, config.depth_weight)
     kf, lm = problem.obs_kf.long(), problem.obs_lm.long()
     f32 = dict(dtype=torch.float32, device=dev)
+    reduce = (lambda t: t) if mesh is None else (lambda t: mesh.all_sum(t, "ba"))
+    chi_total = reduce(chi_total)
 
-    Hll = torch.zeros((L, 3, 3), **f32).index_add_(
-        0, lm, torch.einsum("odi,odj,o->oij", Jl, Jl, w))
-    bl = torch.zeros((L, 3), **f32).index_add_(0, lm, torch.einsum("odi,od,o->oi", Jl, r, w))
-    observed = torch.zeros((L,), **f32).index_add_(0, lm, (w > 0).to(torch.float32)) > 0
+    Hll = reduce(torch.zeros((L, 3, 3), **f32).index_add_(
+        0, lm, torch.einsum("odi,odj,o->oij", Jl, Jl, w)))
+    bl = reduce(torch.zeros((L, 3), **f32).index_add_(
+        0, lm, torch.einsum("odi,od,o->oi", Jl, r, w)))
+    observed = reduce(torch.zeros((L,), **f32).index_add_(
+        0, lm, (w > 0).to(torch.float32))) > 0
     eye3 = torch.eye(3, **f32)
     Hll_inv = _safe_inv3(Hll + (config.damping + 1e-6) * eye3)
 
@@ -139,12 +148,13 @@ def _gn_iteration(poses, points, problem: BAProblem, cam: Camera, model: str,
                                  points + dx_l, points)
         return poses, new_points, chi_total
 
-    Hpp = torch.zeros((P, 6, 6), **f32).index_add_(
-        0, kf, torch.einsum("odi,odj,o->oij", Jp, Jp, w))
-    bp = torch.zeros((P, 6), **f32).index_add_(0, kf, torch.einsum("odi,od,o->oi", Jp, r, w))
+    Hpp = reduce(torch.zeros((P, 6, 6), **f32).index_add_(
+        0, kf, torch.einsum("odi,odj,o->oij", Jp, Jp, w)))
+    bp = reduce(torch.zeros((P, 6), **f32).index_add_(
+        0, kf, torch.einsum("odi,od,o->oi", Jp, r, w)))
     # per-(landmark, keyframe) coupling W[l, p] = sum_o Jp^T Jl
-    W = torch.zeros((L * P, 6, 3), **f32).index_add_(
-        0, lm * P + kf, torch.einsum("odi,odj,o->oij", Jp, Jl, w)).reshape(L, P, 6, 3)
+    W = reduce(torch.zeros((L * P, 6, 3), **f32).index_add_(
+        0, lm * P + kf, torch.einsum("odi,odj,o->oij", Jp, Jl, w))).reshape(L, P, 6, 3)
 
     # Schur complement of the camera system (cross-keyframe fill-in included)
     Y = torch.einsum("lpij,ljk->lpik", W, Hll_inv)          # [L, P, 6, 3]
@@ -173,11 +183,11 @@ def _gn_iteration(poses, points, problem: BAProblem, cam: Camera, model: str,
 
 
 def optimize(problem: BAProblem, cam: Camera, model: str = "stereo",
-             config: BAConfig = BAConfig()):
+             config: BAConfig = BAConfig(), mesh=None):
     """``config.iterations`` GN steps; returns (problem', chi of the last
     step's linearisation point)."""
     poses, points = problem.poses, problem.points
     chi = torch.zeros((), dtype=torch.float32, device=points.device)
     for _ in range(config.iterations):
-        poses, points, chi = _gn_iteration(poses, points, problem, cam, model, config)
+        poses, points, chi = _gn_iteration(poses, points, problem, cam, model, config, mesh)
     return problem._replace(poses=poses, points=points), chi

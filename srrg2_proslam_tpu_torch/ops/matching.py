@@ -6,6 +6,13 @@ matchers return per-row target indices with a validity mask.  Argmin ties
 take the first index, as in JAX.  The brute-force and epipolar matchers
 also take a leading batch dimension (one cost matrix per frame); each
 frame's result does not depend on the batch.
+
+The projective matcher also runs on a mesh (parallel/spmd.py): each rank
+holds a block of the measurement rows against every map column; the
+column-side argmin over all rows is one MIN all-reduce of packed keys
+(distance * rows + global row: ties to the lowest row, as argmin) and the
+adaptive stage's counts one SUM, so each row's match equals the
+single-device one.
 """
 from __future__ import annotations
 
@@ -74,12 +81,20 @@ def _min2(masked_cost: torch.Tensor):
 
 
 def match_cost_matrix(cost: torch.Tensor, feasible: torch.Tensor,
-                      max_distance: float, lowe_ratio: float) -> Matches:
-    """Bijective mutual-best matching with Lowe's ratio test on [..., N, M]."""
+                      max_distance: float, lowe_ratio: float, mesh=None) -> Matches:
+    """Bijective mutual-best matching with Lowe's ratio test on [..., N, M];
+    on a mesh [N, M] is the rank's block of N * size rows."""
     masked = torch.where(feasible, cost, _BIG)
     d1, d2, best_b = _min2(masked)
-    col_best_a = torch.argmin(masked, dim=-2)
     rows = torch.arange(cost.shape[-2], device=cost.device)
+    if mesh is None:
+        col_best_a = torch.argmin(masked, dim=-2)
+    else:
+        # integer distances (or _BIG, exact in float32) packed with the row
+        n_rows = cost.shape[-2] * mesh.size
+        rows = rows + mesh.rank * cost.shape[-2]
+        key = masked.to(torch.int64) * n_rows + rows[:, None]
+        col_best_a = mesh.all_min(key.amin(dim=-2), "tracker") % n_rows
     mutual = torch.gather(col_best_a, -1, best_b) == rows
     lowe_ok = d1 <= lowe_ratio * d2
     ok = (d1 <= max_distance) & lowe_ok & mutual
@@ -127,13 +142,13 @@ def _geometric_distance(delta: torch.Tensor, norm: str) -> torch.Tensor:
 
 def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
                      proj_valid, config: ProjectiveMatcherConfig,
-                     force_stage: int = -1):
+                     force_stage: int = -1, mesh=None):
     """Frame-to-map matcher over a staged radius/descriptor schedule.
 
     Returns (Matches over measurement rows with idx into map points, stage).
     ``force_stage >= 0`` pins the stage; otherwise the tightest stage whose
     matching ratio reaches ``minimum_matching_ratio`` wins (the loosest if
-    none does).
+    none does).  On a mesh the measurement rows are the rank's block.
     """
     cost = distance_matrix(meas_desc, proj_desc).to(torch.float32)
     delta = meas_uv[:, None, :] - proj_uv[None, :, :]
@@ -146,16 +161,21 @@ def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
         s = min(force_stage, n_stages - 1)
         feasible = base_valid & (geo <= config.radius_stages[s])
         m = match_cost_matrix(cost, feasible, config.descriptor_stages[s],
-                              config.lowe_ratio)
+                              config.lowe_ratio, mesh)
         return m, torch.full((), s, dtype=torch.int32, device=device)
 
     per_stage = []
     for s in range(n_stages):
         feasible = base_valid & (geo <= config.radius_stages[s])
         per_stage.append(match_cost_matrix(
-            cost, feasible, config.descriptor_stages[s], config.lowe_ratio))
-    num_meas = torch.clamp_min(meas_valid.sum(), 1)
+            cost, feasible, config.descriptor_stages[s], config.lowe_ratio, mesh))
+    num_meas = meas_valid.sum()
     counts = torch.stack([m.count for m in per_stage])
+    if mesh is not None:
+        num_meas, counts = mesh.all_sum(torch.cat([num_meas[None], counts]), "tracker").split(
+            [1, n_stages])
+        num_meas = num_meas[0]
+    num_meas = torch.clamp_min(num_meas, 1)
     ratios = counts.to(torch.float32) / num_meas.to(torch.float32)
     good = ratios >= config.minimum_matching_ratio
     stage = torch.where(good.any(), torch.argmax(good.to(torch.int32)),

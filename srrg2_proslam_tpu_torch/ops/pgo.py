@@ -13,6 +13,15 @@ orchestrator keeps old graphs (the backstop reverts to one).  Scatter-adds
 at repeated indices use ``index_add``, whose sum order on CUDA varies from
 run to run; only a float tolerance holds across devices.  No function
 reads a value back to the host.
+
+On a mesh (``mesh``: parallel/spmd.py) the edge arrays are sharded along
+edges, the rank holding a contiguous block, and poses are replicated:
+each rank builds the partial normal equations of its edges, a SUM
+all-reduce combines H, b and chi, and the gauge prior is added once,
+after the reduce; the dense solve is replicated.  The CG solver reduces
+its block-Jacobi blocks once and each matvec product, so every rank takes
+the same iterations.  Edge slots are global: ``add_edge`` writes on the
+slot's owner, and the residual statistics gather every edge.
 """
 from __future__ import annotations
 
@@ -141,12 +150,23 @@ def _gradient(graph: PoseGraph, Ate: torch.Tensor) -> torch.Tensor:
 
 
 def normal_equations(poses: torch.Tensor, graph: PoseGraph,
-                     chi_threshold: float, anchor_weight: float):
+                     chi_threshold: float, anchor_weight: float, mesh=None):
     """The dense GN system as blocks H [N, N, 6, 6], b [N, 6], and chi."""
     N = graph.capacity
     dev = poses.device
     AtA, Ate, chi_total = _edge_blocks(poses, graph, chi_threshold)
     i, j = graph.edge_i, graph.edge_j
+    if mesh is not None:
+        # the rank's edges, reduced; the prior once, after the reduce
+        H = torch.zeros((N * N, 6, 6), dtype=torch.float32, device=dev).index_add_(
+            0, torch.cat([i * N + i, j * N + j, i * N + j, j * N + i]),
+            torch.cat([AtA, AtA, -AtA, -AtA]))
+        H = mesh.all_sum(H, "pgo")
+        diag = torch.arange(N, device=dev) * (N + 1)
+        prior = _prior_diag(graph, anchor_weight)
+        H[diag] += prior[:, None, None] * torch.eye(6, device=dev)
+        return (H.reshape(N, N, 6, 6), mesh.all_sum(_gradient(graph, Ate), "pgo"),
+                mesh.all_sum(chi_total, "pgo"))
     # one index_add over the N*N blocks: H_ii, H_jj += AtA, H_ij, H_ji -=
     # AtA, and the prior on the diagonal (index_put_ with accumulate takes a
     # sort-based path on CUDA, ~2 ms per call at N = 512)
@@ -160,13 +180,15 @@ def normal_equations(poses: torch.Tensor, graph: PoseGraph,
 
 
 def _solve_cg(graph: PoseGraph, AtA, b, prior, damping: float,
-              iterations: int, tolerance: float):
+              iterations: int, tolerance: float, mesh=None):
     """Matrix-free block-Jacobi preconditioned CG.
 
     The JAX package exits early once |r|^2 <= tol^2 |b|^2; here every one of
     ``iterations`` runs, and an iteration after convergence changes nothing
-    (a sticky live mask, no host read).
+    (a sticky live mask, no host read).  On a mesh ``AtA`` holds the
+    rank's edges and ``b`` is reduced already.
     """
+    reduce = (lambda t: t) if mesh is None else (lambda t: mesh.all_sum(t, "pgo"))
     N = graph.capacity
     i_idx, j_idx = graph.edge_i, graph.edge_j
     dev = b.device
@@ -176,10 +198,10 @@ def _solve_cg(graph: PoseGraph, AtA, b, prior, damping: float,
         t = torch.einsum("eij,ej->ei", AtA, x[i_idx] - x[j_idx])
         y = torch.zeros((N, 6), dtype=torch.float32, device=dev)
         y = y.index_add(0, i_idx, t).index_add(0, j_idx, -t)
-        return y + reg[:, None] * x
+        return reduce(y) + reg[:, None] * x
 
     D = torch.zeros((N, 6, 6), dtype=torch.float32, device=dev)
-    D = D.index_add(0, i_idx, AtA).index_add(0, j_idx, AtA)
+    D = reduce(D.index_add(0, i_idx, AtA).index_add(0, j_idx, AtA))
     D = D + reg[:, None, None] * torch.eye(6, device=dev)
     D_inv = torch.linalg.inv_ex(D)[0]    # no error check: nothing read back
 
@@ -210,7 +232,7 @@ def _solve_cg(graph: PoseGraph, AtA, b, prior, damping: float,
     return x
 
 
-def optimize(graph: PoseGraph, config: PGOConfig):
+def optimize(graph: PoseGraph, config: PGOConfig, mesh=None):
     """Run ``config.iterations`` GN steps; returns (graph', chi_final)."""
     if config.solver not in ("dense", "cg"):
         raise ValueError(f"PGOConfig.solver must be 'dense' or 'cg', got {config.solver!r}")
@@ -219,7 +241,7 @@ def optimize(graph: PoseGraph, config: PGOConfig):
 
     def dense_step(poses):
         H, b, chi = normal_equations(poses, graph, config.chi_threshold,
-                                     config.anchor_weight)
+                                     config.anchor_weight, mesh)
         Hd = H.permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
         Hd = Hd + config.damping * torch.eye(6 * N, device=dev)
         # symmetric Jacobi scaling: the anchor prior plus a long chain make
@@ -232,8 +254,11 @@ def optimize(graph: PoseGraph, config: PGOConfig):
     def cg_step(poses):
         AtA, Ate, chi = _edge_blocks(poses, graph, config.chi_threshold)
         prior = _prior_diag(graph, config.anchor_weight)
-        dx = _solve_cg(graph, AtA, -_gradient(graph, Ate), prior, config.damping,
-                       config.cg_iterations, config.cg_tolerance)
+        b = -_gradient(graph, Ate)
+        if mesh is not None:
+            b, chi = mesh.all_sum(b, "pgo"), mesh.all_sum(chi, "pgo")
+        dx = _solve_cg(graph, AtA, b, prior, config.damping,
+                       config.cg_iterations, config.cg_tolerance, mesh)
         return dx, chi
 
     step = cg_step if config.solver == "cg" else dense_step
@@ -249,19 +274,23 @@ def optimize(graph: PoseGraph, config: PGOConfig):
     return graph._replace(poses=poses), chi
 
 
-def edge_t_residuals(graph: PoseGraph) -> torch.Tensor:
-    """Per-factor translational residual (meters) at the current poses, [E]:
-    the closure backstop's statistic."""
+def edge_t_residuals(graph: PoseGraph, mesh=None) -> torch.Tensor:
+    """Per-factor translational residual (meters) at the current poses, [E]
+    (every edge, gathered on a mesh): the closure backstop's statistic."""
     Ti = graph.poses[graph.edge_i]
     Tj = graph.poses[graph.edge_j]
     M = se3.inverse(graph.edge_Z) @ se3.inverse(Ti) @ Tj
-    return torch.linalg.vector_norm(M[..., :3, 3], dim=-1)
+    t_err = torch.linalg.vector_norm(M[..., :3, 3], dim=-1)
+    return t_err if mesh is None else mesh.all_gather(t_err, "pgo")
 
 
-def mean_edge_residual(graph: PoseGraph, edge_mask: torch.Tensor) -> torch.Tensor:
-    """Mean translational factor residual (meters) over masked valid edges."""
-    t_err = edge_t_residuals(graph)
-    w = graph.edge_valid & edge_mask
+def mean_edge_residual(graph: PoseGraph, edge_mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Mean translational factor residual (meters) over masked valid edges
+    (``edge_mask`` over every edge; on a mesh the sum runs over the gathered
+    edges in the single-device order)."""
+    t_err = edge_t_residuals(graph, mesh)
+    valid = graph.edge_valid if mesh is None else mesh.all_gather(graph.edge_valid, "pgo")
+    w = valid & edge_mask
     return torch.where(w, t_err, 0.0).sum() / torch.clamp_min(w.sum(), 1)
 
 
@@ -290,7 +319,14 @@ def add_pose(graph: PoseGraph, index, T: torch.Tensor) -> PoseGraph:
 
 
 def add_edge(graph: PoseGraph, slot, i, j, Z: torch.Tensor,
-             weight: float = 1.0) -> PoseGraph:
+             weight: float = 1.0, mesh=None) -> PoseGraph:
+    """Factor ``i -> j`` at edge slot ``slot`` (an int; on a mesh the slot is
+    global and only its owner writes)."""
+    if mesh is not None:
+        per = graph.edge_capacity
+        if slot // per != mesh.rank:
+            return graph
+        slot = slot % per
     return graph._replace(
         edge_i=_set(graph.edge_i, slot, i),
         edge_j=_set(graph.edge_j, slot, j),

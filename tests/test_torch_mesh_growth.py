@@ -1,0 +1,138 @@
+"""Pose-graph growth, ring eviction and checkpoints of a meshed GraphSLAM
+(2 gloo CPU ranks) against the port's unmeshed run and the JAX package's
+meshed run.
+
+* growth: tests/test_torch_slam.py's relocalise walk from
+  ``max_local_maps=2, max_edges=2`` (11 maps, 12 closures, 4
+  relocalisations): the graph doubles to 16 poses and 32 edges, each
+  growth regathering and resharding the factors;
+* eviction: its closure walk with a two-slot ring (``database_capacity``
+  1024 at 512 rows per map): 2 evictions, each a slot rewritten stripe by
+  stripe.
+
+Both per frame and through the chunk program (chunks of 4), on the same
+two ranks.  Bounds: against the unmeshed run, per-frame status and map,
+the counters, closure events, rollbacks and replays equal and every pose
+within 1e-4 m (3e-7 seen: the factors' partial normal equations sum in
+another order); against the JAX package's meshed run per frame, the
+counters equal and the trajectory within 1e-4.  ``checkpoint.save`` of
+the meshed growth session (gathered, written by rank 0) equals the
+unmeshed session's save: every integer and boolean array and the session
+metadata equal, every float array within 1e-5; it loads back into a
+meshed GraphSLAM with the same graph, ring and tracker state.
+"""
+import json
+from functools import lru_cache
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from srrg2_proslam_tpu import parallel as jpar  # noqa: E402
+from srrg2_proslam_tpu.models import slam as js  # noqa: E402
+from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig as JLoopCfg  # noqa: E402
+
+from srrg2_proslam_tpu_torch.models import slam as ts  # noqa: E402
+from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # noqa: E402
+from srrg2_proslam_tpu_torch.parallel import checks, launch, spmd  # noqa: E402
+from tests.test_torch_slam import CAM, _config, _scenario  # noqa: E402
+
+CASES = {"growth": ("relocalize", dict(max_local_maps=2, max_edges=2)),
+         "eviction": ("closure", dict(database_capacity=1024, max_db_descriptors_per_map=512))}
+RUNS = [(case, chunk) for case in CASES for chunk in (0, 4)]
+POSE_TOL = 1e-4
+
+
+def _kw(case, chunk=0):
+    name, extra = CASES[case]
+    frames, kw = _scenario(name)
+    return frames, dict(kw, **extra, chunk_size=chunk)
+
+
+def _spec(case, chunk, checkpoint=None):
+    frames, kw = _kw(case, chunk)
+    stacks = tuple(np.stack([f[k] for f in frames]) for k in range(3))
+    return dict(cam=CAM, config=_config(ts, LoopDetectorConfig, kw),
+                mode="sequence" if chunk else "frame", checkpoint=checkpoint,
+                frames=("meas",) + stacks + ([f[3] for f in frames],))
+
+
+@pytest.fixture(scope="module")
+def ckpt_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("ckpt")
+
+
+@pytest.fixture(scope="module")
+def meshed(ckpt_dir):
+    """{(case, chunk): both ranks' reports}; the per-frame growth run saves
+    a checkpoint."""
+    specs = [_spec(case, chunk, str(ckpt_dir / "meshed.npz")
+                   if (case, chunk) == ("growth", 0) else None) for case, chunk in RUNS]
+    reports = launch.run(checks.slam_runs, 2, specs, device="cpu")
+    return {run: [rank[i] for rank in reports] for i, run in enumerate(RUNS)}
+
+
+@lru_cache(maxsize=None)
+def _unmeshed(case, chunk, checkpoint=None):
+    one = spmd.Mesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+    return checks.slam_run(one, dict(_spec(case, chunk, checkpoint), meshed=False))
+
+
+@lru_cache(maxsize=None)
+def _jax_meshed(case):
+    frames, kw = _kw(case)
+    slam = js.GraphSLAM(CAM, _config(js, JLoopCfg, kw), mesh=jpar.make_mesh(jax.devices()[:2]))
+    for p, d, ok, stamp in frames:
+        slam.process(jnp.asarray(p), jnp.asarray(d), jnp.asarray(ok), stamp)
+    slam.flush()
+    return dict(counters={k: getattr(slam, k) for k in checks.COUNTERS},
+                capacities=(slam.graph.capacity, slam.graph.edge_capacity),
+                trajectory=np.stack(slam.trajectory()))
+
+
+@pytest.mark.parametrize("case,chunk", RUNS, ids=[f"{c}-chunk{k}" for c, k in RUNS])
+def test_meshed_growth_and_eviction_equal_unmeshed(meshed, case, chunk):
+    ref = _unmeshed(case, chunk)
+    if case == "growth":
+        assert ref["counters"]["num_maps"] > 2 and ref["counters"]["num_relocalizations"] >= 1
+    else:
+        assert ref["counters"]["num_db_evictions"] >= 1
+    for rank in meshed[(case, chunk)]:
+        diff = checks.compare_slam(rank, ref, POSE_TOL, replays=True)
+        print(f"{case} chunk {chunk} rank {rank['rank']}: largest pose difference {diff:.3e} m")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_meshed_growth_and_eviction_agree_with_jax_mesh(meshed, case):
+    ref = _jax_meshed(case)
+    got = meshed[(case, 0)][0]
+    assert got["counters"] == ref["counters"]
+    diff = float(np.abs(got["trajectory"] - ref["trajectory"]).max())
+    print(f"{case}: port meshed vs JAX meshed trajectory max |diff| {diff:.3e}, JAX graph "
+          f"capacities {ref['capacities']}")
+    assert diff <= POSE_TOL
+
+
+def test_meshed_checkpoint_equals_unmeshed_save(meshed, ckpt_dir):
+    assert all(rank["resumed_equal"] for rank in meshed[("growth", 0)])
+    plain = _unmeshed("growth", 0, str(ckpt_dir / "plain.npz"))
+    assert plain["resumed_equal"]
+    got, ref = np.load(ckpt_dir / "meshed.npz"), np.load(ckpt_dir / "plain.npz")
+    assert sorted(got.files) == sorted(ref.files)
+    meta_g, meta_r = (json.loads(bytes(f["_meta_json"]).decode()) for f in (got, ref))
+    frames_g, frames_r = meta_g.pop("frames"), meta_r.pop("frames")
+    assert meta_g == meta_r and meta_g["graph_capacity"] == [16, 32]
+    np.testing.assert_allclose([f["T_lm_robot"] for f in frames_g],
+                               [f["T_lm_robot"] for f in frames_r], atol=1e-5)
+    for key in set(ref.files) - {"_meta_json"}:
+        a, b = got[key], ref[key]
+        assert a.shape == b.shape and a.dtype == b.dtype, key
+        if np.issubdtype(a.dtype, np.floating):
+            np.testing.assert_allclose(a, b, atol=1e-5, err_msg=key)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=key)

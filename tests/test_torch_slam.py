@@ -261,17 +261,23 @@ def test_backstop_decision_matches_jax(case):
     (dict(), "mesh"),
 ])
 def test_unsupported_options_raise(kw, model):
-    """Of the settings refused before the speculative pipeline and the
-    sequence API were ported, only the mesh still raises
-    NotImplementedError, and local BA with a sequence raises ValueError, as
-    in the JAX package.  The others run the Lost stream (on (u, v, depth)
-    rows for RGB-D), per frame with ``process`` and ``flush`` or, with a
-    chunk size, through ``process_meas_sequence``, and equal the
-    synchronous per-frame run exactly: per-frame local maps, counters and
-    every pose."""
+    """Of the settings refused before the speculative pipeline, the
+    sequence API and the mesh were ported, none raises NotImplementedError
+    any more: local BA with a sequence raises ValueError, as in the JAX
+    package, and so does a mesh whose size does not divide the ring budget
+    (the mesh itself runs: tests/test_torch_mesh_slam.py).  The others run
+    the Lost stream (on (u, v, depth) rows for RGB-D), per frame with
+    ``process`` and ``flush`` or, with a chunk size, through
+    ``process_meas_sequence``, and equal the synchronous per-frame run
+    exactly: per-frame local maps, counters and every pose."""
     if model == "mesh":
-        with pytest.raises(NotImplementedError):
-            ts.GraphSLAM(CAM, ts.GraphSLAMConfig(), device="cpu", mesh=object())
+        from srrg2_proslam_tpu_torch.parallel.spmd import Mesh
+
+        two = Mesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
+        ts.GraphSLAM(CAM, ts.GraphSLAMConfig(), device="cpu", mesh=two)
+        with pytest.raises(ValueError, match="divisible by the mesh size"):
+            ts.GraphSLAM(CAM, ts.GraphSLAMConfig(max_db_descriptors_per_map=67), device="cpu",
+                         mesh=two)
         return
     frames, base = _scenario("lost")
     if model == "rgbd":
@@ -302,6 +308,46 @@ def test_unsupported_options_raise(kw, model):
     assert {k: getattr(other, k) for k in COUNTERS} == {k: getattr(sync, k) for k in COUNTERS}
     np.testing.assert_array_equal(np.stack(other.trajectory()), np.stack(sync.trajectory()))
     assert sync.num_maps >= 3 and len(sync.frames) == len(frames)
+
+
+# the settings that grow the pose graph (from 2 poses and 2 edges) and
+# evict from the ring (two slots of 512 rows), on the walks above
+GROWTH_CASES = {"growth": ("relocalize", dict(max_local_maps=2, max_edges=2)),
+                "eviction": ("closure", dict(database_capacity=1024,
+                                             max_db_descriptors_per_map=512))}
+
+
+@pytest.mark.parametrize("case", GROWTH_CASES)
+def test_growth_and_eviction_match_jax(case):
+    """Pose-graph growth (the relocalise walk from 2 poses and 2 edges: 11
+    maps, 12 closures) and ring eviction (the closure walk with two ring
+    slots: 2 evictions) per frame in both packages: per-frame status and
+    map, counters and closure events equal, the trajectory within
+    POSE_TOL, the grown capacities equal."""
+    name, extra = GROWTH_CASES[case]
+    frames, kw = _scenario(name)
+    kw = dict(kw, **extra)
+    j = js.GraphSLAM(CAM, _config(js, JLoopCfg, kw))
+    t = ts.GraphSLAM(CAM, _config(ts, LoopDetectorConfig, kw), device="cpu")
+    j_rows, t_rows = [], []
+    for p, d, ok, stamp in frames:
+        j.process(jnp.asarray(p), jnp.asarray(d), jnp.asarray(ok), stamp)
+        j_rows.append((j.status, j.current_map))
+        t.process(torch.from_numpy(p), torch.from_numpy(d), torch.from_numpy(ok), stamp)
+        t_rows.append((t.status, t.current_map))
+    assert t_rows == j_rows
+    assert {k: getattr(t, k) for k in COUNTERS} == {k: getattr(j, k) for k in COUNTERS}
+    assert t.closure_events == j.closure_events
+    assert (t.graph.capacity, t.graph.edge_capacity) == (j.graph.capacity, j.graph.edge_capacity)
+    if case == "growth":
+        assert t.num_maps > 2 and t.graph.edge_capacity > 2 and t.num_relocalizations >= 1
+    else:
+        assert t.num_db_evictions >= 1
+    d_t, d_ang = tse3.error_t_and_angle(
+        torch.from_numpy(np.stack(t.trajectory())),
+        torch.from_numpy(np.stack(j.trajectory()).astype(np.float32)))
+    print(f"{case}: largest |dt| {float(d_t.max()):.3e} m, angle {float(d_ang.max()):.3e} rad")
+    assert float(d_t.max()) <= POSE_TOL and float(d_ang.max()) <= POSE_TOL
 
 
 def test_graphslam_defaults_to_the_card():
