@@ -4,7 +4,8 @@ frames, per-frame GraphSLAM over a rendered closed loop, then RGB-D
 GraphSLAM (ICL and the loop as RGB-D, with local BA), the other landmark
 estimators and the motion prior on KITTI, the shipped configurations
 and the speculative queue, the host surface (the apps, checkpoints, the
-trace, entry() and the native decoder), and the chunk program.
+trace, entry() and the native decoder), the chunk program, the mesh, and
+the repo's examples and tools.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -139,9 +140,37 @@ Phases, any failure exits non-zero:
      (10b a second pass, 10c its one pass) beside phases 9a and 5,
      collectives and bytes per pass by stage, and the eagerly run split
      branches' ms.
+  11. the examples and tools (scripts/tools_torch.py runs this phase
+     alone): 11c's default loop first, with nothing else running; then
+     the card's runs that two child processes repeat on the CPU, on the
+     card's renders (as phase 5's CPU run), while the card runs the rest:
+     11a the seven didactic examples (apps/example_*) on the card, each
+     printout equal to its --device cpu run (tests/torch_printout.py:
+     counts exactly, floats within one printed unit, timings left out)
+     and its launches equal to the prediction (EXAMPLES), and
+     export_viewer (it renders where matplotlib imports, else its
+     ImportError is the expected result); 11b smoke_vo, smoke_slam and
+     smoke_rgbd (scripts/*_torch.py) print PASS with their predicted
+     launches; 11c rendered_e2e_torch over its default 253-frame loop:
+     counts and verdict equal to the JAX script's CPU run (JAX_E2E),
+     launches FAST 253, BRIEF 253, GN 759, and its first E2E_CPU_FRAMES
+     frames equal to the CPU's within E2E_POSE_TOL_M; 11d
+     ab_local_ba_torch, ab_seeded_detection_torch,
+     ab_motion_envelopes_torch --fast and diag_rendered_torch --part 1
+     against the JAX scripts' recorded CPU output (the JAX_* constants:
+     GraphSLAM counts exactly, the frontend's tallies within
+     RENDER_REL_TOL, each run's ATE and t-RMSE within RENDER_POSE_TOL_M),
+     each with its predicted launches; K3 and K1 bit-exact on the motion
+     loop's first 320x416 pair and the seeded A/B's crushed right image,
+     K2 on each A/B run's busiest burst; and the seeded A/B's and the
+     idw+smoother motion loop's first AB_CPU_FRAMES frames and
+     diag_rendered's part 1 against the CPU twin's runs (matches and
+     diag's rows exactly, VO inliers per frame within COUNT_TOL, counts
+     exactly, every pose within E2E_POSE_TOL_M).
 The line before the last is the kernels' JSON record (agreement, launches,
 times, bounds); the last line is {"ok": true, "device": {...}}.
 """
+import contextlib
 import glob
 import json
 import os
@@ -448,6 +477,28 @@ def check_gn(args, gn_kw, cam, tag: str, quiet: bool = False):
              f"terms {int(sk.num_terms)}/{int(sp.num_terms)}, inliers "
              f"{int(sk.num_inliers)}/{int(sp.num_inliers)}")
     return err, active, len(iterations_run)
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, keep=None):
+    """``module.name`` wrapped for the block: the list it yields collects the
+    arguments (args, kw; tensors cloned) of each call whose index ``keep``
+    picks, of every call where ``keep`` is None."""
+    import torch
+
+    real, calls, seen = getattr(module, name), [], [0]
+
+    def wrapped(*args, **kw):
+        if keep is None or keep(seen[0]):
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+        seen[0] += 1
+        return real(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def run_vo(frames, cam, device, adapt_cfg, track_cfg):
@@ -766,25 +817,15 @@ def phase_estimators(dev, smi, report, frames_np, frames_gpu, cam, adapt_cfg):
 
     gt = torch.from_numpy(frames_np[-1].gt_pose)
     cpu_frames = [(torch.from_numpy(f.left), torch.from_numpy(f.right)) for f in frames_np]
-    real_burst = kernels.gn.gn_burst_stereo
     gn_errs = []
     for tag, cfg, gn_launches in (
             ("weighted_mean", TrackerConfig(landmark_estimator="weighted_mean"), 15),
             ("smoother", TrackerConfig(landmark_estimator="smoother"), 15),
             ("motion prior 1.0/4.0", TrackerConfig(motion_prior_translation_info=1.0,
                                                    motion_prior_rotation_info=4.0), 0)):
-        bursts = []
-
-        def capture_burst(*args, **kw):
-            bursts.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
-            return real_burst(*args, **kw)
-
         kernels.reset_launch_counts()
-        kernels.gn.gn_burst_stereo = capture_burst
-        try:
+        with recorded(kernels.gn, "gn_burst_stereo") as bursts:
             rows, poses = run_vo(frames_gpu, cam, dev, adapt_cfg, cfg)
-        finally:
-            kernels.gn.gn_burst_stereo = real_burst
         counts = kernels.launch_counts()
         t_err, angle = se3.error_t_and_angle(poses[-1], gt)
         gate = bool((t_err <= torch.tensor(GATE_T)).all()) and float(angle) <= GATE_ANGLE
@@ -1750,6 +1791,541 @@ def phase_mesh(dev, smi, loop, ref_slam, ref_rows, ref_ms, chunk_ref):
     return ranks[0][0]["launches"], ranks[0][1]["launches"]
 
 
+# ---- phase 11: the examples and tools (apps/example_*, scripts/*_torch.py) ----
+TOOLS_DIR = os.path.join(ROOT, "srrg2_proslam_tpu_torch", "build", "tools")   # removed at the end
+# the CPU twins, two child processes beside the card's run, and their torch threads;
+# they run on the card's renders (RENDERS_PATH), as phase 5's CPU run does
+TOOLS_CPU_THREADS = {"examples": 4, "ab": 3}
+RENDERS_PATH = os.path.join(TOOLS_DIR, "card_renders.pt")
+E2E_CPU_FRAMES = 40          # 11c: rendered_e2e frames run on the card and the CPU
+# 11d: the seeded A/B's and the motion loop's first frames run on the card and the
+# CPU (the seeded A/B's contrast-crushed frames 24-29 and the loop's first 15 deg
+# turns, frames 22-27, included)
+AB_CPU_FRAMES = 30
+E2E_POSE_TOL_M = 1e-3        # 11c, 11d: every frame's pose, card vs CPU
+# each example's flags and predicted launches (FAST, BRIEF, GN burst)
+EXAMPLES = {
+    "example_tracking": ([], (5, 5, 15)),
+    "example_triangulate_stereo": ([], (1, 1, 0)),
+    "example_feature_matching": ([], (2, 2, 0)),
+    "example_feature_extractor": (["--seeded"], (21, 0, 0)),
+    "example_loop_closure": ([], (0, 0, 0)),
+    "example_unproject_rgbd": ([], (0, 0, 0)),
+    "example_search_patterns": (["--out", os.path.join(TOOLS_DIR, "patterns.pgm")], (0, 0, 0)),
+}
+# the JAX scripts' output on the CPU (JAX_PLATFORMS=cpu; scripts/tools_jax_reference.py):
+# scripts/rendered_e2e.py's counts and verdict
+JAX_E2E = ("maps=23 closures=1 relocalizations=1 evictions=0", "KITTI-gates: PASS")
+# scripts/ab_local_ba.py: local BA off / on -> (maps, closures, backstop rejections),
+# ATE and per-axis t-RMSE (m)
+JAX_LOCAL_BA = {False: ((26, 2, 0), 0.3764, (0.2997, 0.0151, 0.2271)),
+                True: ((26, 2, 0), 0.3752, (0.2987, 0.0161, 0.2265))}
+# scripts/ab_seeded_detection.py: dense / seeded -> (frames, stereo matches, VO inliers)
+# summed over the 60 frames, and the 1 px recall it prints
+JAX_SEEDED = {False: ((60, 51223, 5345), 0.994), True: ((60, 51238, 5344), 0.994)}
+# scripts/ab_motion_envelopes.py --fast -> (maps, closures, relocalizations,
+# backstop rejections), ATE and per-axis t-RMSE (m)
+JAX_MOTION_FAST = {"baseline": ((22, 0, 0, 0), 1.8414, (1.3805, 0.0584, 1.2173)),
+                   "idw": ((22, 0, 0, 0), 1.8681, (1.4030, 0.0549, 1.2323)),
+                   "smoother": ((25, 3, 3, 0), 0.5096, (0.3282, 0.0154, 0.3896)),
+                   "idw+smoother": ((25, 3, 3, 0), 0.3233, (0.2189, 0.0209, 0.2369))}
+# scripts/diag_rendered.py --part 1
+JAX_DIAG_PART1 = ["frame 0: n_feat=779 inlier@1px=0.994 median_err=0.058px p90=0.23px",
+                  "frame 60: n_feat=1005 inlier@1px=0.998 median_err=0.063px p90=0.27px",
+                  "frame 75: n_feat=987 inlier@1px=0.997 median_err=0.082px p90=0.26px"]
+# Against JAX's numbers each package renders its own images, and the renderers
+# may pick the other plane on an ulp at a seam (<= 0.5 % of pixels,
+# tests/test_torch_slam.py), which moves a FAST keypoint; on the JAX renderer's
+# images the port's counts equal JAX's frame for frame (tests/test_torch_tools_ab.py),
+# and on the same images the card's equal the CPU's (11d's CPU twin).  So the
+# card's renders are held to JAX's numbers within the renderers' gaps:
+# the frontend's tallies (the seeded A/B's matches and VO inliers, diag_rendered's
+# keypoints) relatively: the card 0.016-0.018 % and 0.20 %, the port's CPU 0.02 %
+# and 0.11 % off JAX (PERF.md)
+RENDER_REL_TOL = 0.005
+# and each full A/B run's ATE and per-axis t-RMSE, about twice the largest gap:
+# the card's renders up to 1.2e-3 m (ATE) and 9.4e-3 m (t-RMSE, motion idw, y)
+# off JAX, the port's CPU renders ~5e-3 m (t-RMSE, motion idw, y) (PERF.md)
+RENDER_POSE_TOL_M = 0.02
+
+
+def _script(name: str) -> dict:
+    return runpy.run_path(os.path.join(ROOT, "scripts", f"{name}_torch.py"))
+
+
+@contextlib.contextmanager
+def recorded_renders(synthetic):
+    """The port's render_stereo (``synthetic`` is the port's io.synthetic)
+    for the block, each call's images (left, right, depth) also copied to
+    the host into the list the block gets."""
+    render, images = synthetic.render_stereo, []
+
+    def recording(cam, T_wc, planes, supersample: int = 2):
+        out = render(cam, T_wc, planes, supersample)
+        images.append(tuple(x.cpu() for x in out))
+        return out
+
+    synthetic.render_stereo = recording
+    try:
+        yield images
+    finally:
+        synthetic.render_stereo = render
+
+
+@contextlib.contextmanager
+def replayed_renders(synthetic, images: list):
+    """The port's render_stereo for the block hands back ``images`` in
+    order, on the pose's device, instead of rendering; fails unless the
+    block takes them all."""
+    render, queue = synthetic.render_stereo, iter(images)
+
+    def replay(cam, T_wc, planes, supersample: int = 2):
+        return tuple(x.to(T_wc.device) for x in next(queue))
+
+    synthetic.render_stereo = replay
+    try:
+        yield
+        left = sum(1 for _ in queue)
+        if left:
+            fail(f"{left} of {len(images)} recorded renders were not replayed")
+    finally:
+        synthetic.render_stereo = render
+
+
+@contextlib.contextmanager
+def cut_loops(synthetic, frames: int):
+    """The port's loop_trajectory, so every rendered loop, cut to its first
+    ``frames`` poses."""
+    full = synthetic.loop_trajectory
+    synthetic.loop_trajectory = lambda *a, **k: full(*a, **k)[:frames]
+    try:
+        yield
+    finally:
+        synthetic.loop_trajectory = full
+
+
+def ab_twins(device) -> dict:
+    """11d's runs that the card and the CPU make on the same images, on
+    ``device``: the seeded A/B over its first AB_CPU_FRAMES frames (per
+    variant its sums and, per frame, stereo matches and VO inliers),
+    diag_rendered's part 1 rows, and the idw+smoother motion loop
+    (sub-pixel on) over its first AB_CPU_FRAMES frames (counts,
+    trajectory) -> a dict as JSON gives it back."""
+    import io
+
+    import numpy as np
+
+    from srrg2_proslam_tpu_torch.io import synthetic
+
+    seeded = _script("ab_seeded_detection")["run"]
+    rows, track_step = [], seeded.__globals__["track_step"]
+
+    def counted(state, pts, desc, valid, *args, **kw):
+        out = track_step(state, pts, desc, valid, *args, **kw)
+        rows.append((int(valid.sum()), int(out[1].num_inliers)))
+        return out
+
+    # the script's own namespace (run_path hands back a copy of it)
+    seeded.__globals__.update(track_step=counted, FRAMES=AB_CPU_FRAMES)
+    stats = seeded(device)
+    res = {"seeded": {name: dict(stats[s], per_frame=rows[int(s)::2])   # dense, seeded per frame
+                      for name, s in (("dense", False), ("seeded", True))}}
+    with contextlib.redirect_stdout(io.StringIO()):
+        res["diag"] = _script("diag_rendered")["part1_stereo_quality"](device=device)
+    motion = _script("ab_motion_envelopes")
+    with cut_loops(synthetic, AB_CPU_FRAMES):
+        _, slam = motion["run"](motion["SCENARIOS"]["turn15deg"],
+                                motion["VARIANTS"]["idw+smoother"], device)
+    res["motion"] = dict(counts=(slam.num_maps, slam.num_closures, slam.num_relocalizations,
+                                 slam.num_backstop_rejections),
+                         trajectory=np.stack(slam.trajectory()).tolist())
+    return json.loads(json.dumps(res))
+
+
+def tools_cpu_twins(part: str, out_path: str):
+    """Phase 11's CPU runs, in child processes while the card runs the
+    phase -> a JSON file.  "examples": each example with --device cpu, and
+    rendered_e2e's first E2E_CPU_FRAMES frames; "ab": ab_twins on the CPU.
+    The rendered runs take the card's images (RENDERS_PATH)."""
+    import numpy as np
+    import torch
+
+    from srrg2_proslam_tpu_torch.io import synthetic
+
+    torch.set_num_threads(TOOLS_CPU_THREADS[part])
+    t0 = time.perf_counter()
+    renders = torch.load(RENDERS_PATH)
+    if part == "ab":
+        with replayed_renders(synthetic, renders["ab"]):
+            res = ab_twins(torch.device("cpu"))
+    else:
+        printout = runpy.run_path(os.path.join(ROOT, "tests", "torch_printout.py"))
+        res = {}
+        for name, (argv, _) in EXAMPLES.items():
+            argv = [a.replace("patterns.pgm", "patterns_cpu.pgm") for a in argv]
+            t1 = time.perf_counter()
+            code, lines = printout["run_as_main"](f"srrg2_proslam_tpu_torch.apps.{name}",
+                                                  argv + ["--device", "cpu"])
+            res[name] = dict(code=code, lines=lines, seconds=time.perf_counter() - t1)
+            print(f"{name}: {res[name]['seconds']:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        with replayed_renders(synthetic, renders["rendered_e2e"]):
+            (slam, _), lines = printout["captured"](_script("rendered_e2e")["main"],
+                                                    ["--frames", str(E2E_CPU_FRAMES),
+                                                     "--device", "cpu"])
+        res["rendered_e2e"] = dict(lines=lines, maps=slam.num_maps,
+                                   trajectory=np.stack(slam.trajectory()).tolist(),
+                                   seconds=time.perf_counter() - t1)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"CPU twins {part}: {res['seconds']:.1f} s", flush=True)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def trajectory_gap(card_traj, cpu_traj, tag: str) -> float:
+    """Max |dt| (m) of two runs' poses frame for frame; fails on a length
+    mismatch or a gap over E2E_POSE_TOL_M."""
+    import numpy as np
+
+    card_traj, cpu_traj = np.asarray(card_traj), np.asarray(cpu_traj)
+    if card_traj.shape != cpu_traj.shape:
+        fail(f"{tag}: {len(card_traj)} poses on the card, {len(cpu_traj)} on the CPU")
+    dt = float(np.abs(card_traj[:, :3, 3] - cpu_traj[:, :3, 3]).max())
+    if dt > E2E_POSE_TOL_M:
+        fail(f"{tag}: the card's poses are {dt:.3e} m from the CPU's (tolerance "
+             f"{E2E_POSE_TOL_M})")
+    return dt
+
+
+def check_render_poses(err, ate: float, t_rmse, tag: str) -> float:
+    """A full A/B run's ATE and per-axis t-RMSE against JAX's within
+    RENDER_POSE_TOL_M; returns the largest gap."""
+    import numpy as np
+
+    gap = max(abs(float(err.ate_rmse) - ate),
+              float(np.abs(np.asarray(err.mean_translation_rmse) - np.asarray(t_rmse)).max()))
+    if gap > RENDER_POSE_TOL_M:
+        fail(f"{tag}: ATE {err.ate_rmse:.4f} m, t-RMSE {np.round(err.mean_translation_rmse, 4)}"
+             f" m against JAX's {ate} m, {t_rmse} m ({gap:.4f} apart, tolerance "
+             f"{RENDER_POSE_TOL_M})")
+    return gap
+
+
+def check_busiest_bursts(bursts, runs: int, tag: str) -> float:
+    """K2 against its plain burst on the busiest burst (most active rows)
+    of each of ``runs`` equal runs' recorded bursts; returns max_abs_err."""
+    per_run = len(bursts) // runs
+    errs = []
+    for r in range(runs):
+        span = bursts[r * per_run:(r + 1) * per_run]
+        i = max(range(per_run), key=lambda j: int(span[j][0][4].sum()))
+        args, kw = span[i]
+        errs.append(check_gn(args, kw, args[5], f"11d {tag} run {r} (burst {i % 3} of frame "
+                                                f"{i // 3})")[0])
+    return max(errs)
+
+
+def phase_tools(dev, smi, report):
+    """Phase 11, the repo's examples and tools on the card: 11c's default
+    253-frame loop first (timed with nothing else running), then the runs
+    the CPU twins repeat (the loop's first frames, ab_twins) with their
+    renders kept for them; then, while two child processes run the CPU
+    twins on those renders, 11a the seven examples (against their --device
+    cpu runs) and export_viewer, 11b the smoke scripts, 11d the A/B
+    scripts and diag_rendered's part 1 against the JAX scripts' recorded
+    output, K3 and K1 at their 320x416 images and K2 at their busiest
+    bursts against the plain versions (into ``report`` as
+    max_abs_err_tools); last, the card's cut runs against the CPU twins'.
+    Returns the launches of each example and tool."""
+    import importlib.util
+    import re
+    import shutil
+
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import datasets, synthetic
+    from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig
+
+    printout = runpy.run_path(os.path.join(ROOT, "tests", "torch_printout.py"))
+    captured, run_as_main = printout["captured"], printout["run_as_main"]
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    ex_counts, tool_counts, card, kernel_errs = {}, {}, {}, {}
+
+    def launches(want, tag):
+        counts = kernels.launch_counts()
+        got = (counts["fast"], counts["brief"], counts["gn_burst"])
+        if want is not None and got != want:
+            fail(f"{tag}: launches (FAST, BRIEF, GN) {got}, predicted {want}")
+        return counts
+
+    def show(tag, lines, limit=12):
+        for line in lines[:limit]:
+            print(f"  [{tag}] {line}", flush=True)
+        if len(lines) > limit:
+            print(f"  [{tag}] ... ({len(lines) - limit} more lines)", flush=True)
+
+    def stage(tag, t0):
+        print(f"  ({tag} done at {time.perf_counter() - t0:.1f} s into phase 11)", flush=True)
+
+    t_phase = time.perf_counter()
+    # ---- 11c: rendered_e2e's default loop, before the CPU twins start ----
+    e2e = _script("rendered_e2e")["main"]
+    kernels.reset_launch_counts()
+    (slam, err), lines = captured(e2e, [])
+    tool_counts["rendered_e2e"] = launches((253, 253, 759), "11c rendered_e2e")
+    show("11c rendered_e2e", lines)
+    if tuple(ln for ln in lines if ln.startswith(("maps=", "KITTI-gates"))) != JAX_E2E:
+        fail(f"11c rendered_e2e: counts or verdict differ from the JAX script's {JAX_E2E}")
+    print(f"11c rendered_e2e: 253 frames, {JAX_E2E[0]} and {JAX_E2E[1]} as the JAX "
+          f"script's CPU run; ATE {err.ate_rmse:.4f} m (JAX 0.122); timed with no other "
+          f"process running [{smi}]", flush=True)
+    traj_path = os.path.join(TOOLS_DIR, "e2e_kitti.txt")
+    datasets.write_kitti_trajectory(traj_path, slam.trajectory())
+
+    # ---- 11c/11d: the runs the CPU twins repeat, their renders kept for them ----
+    renders = {}
+    with recorded_renders(synthetic) as renders["rendered_e2e"]:
+        (slam40, _), _ = captured(e2e, ["--frames", str(E2E_CPU_FRAMES)])
+    with recorded_renders(synthetic) as renders["ab"]:
+        card_ab = ab_twins(dev)
+    torch.save(renders, RENDERS_PATH)
+    del renders
+    stage("the CPU twins' renders", t_phase)
+
+    twin_paths = {part: os.path.join(TOOLS_DIR, f"cpu_twins_{part}")
+                  for part in TOOLS_CPU_THREADS}
+    children = {}
+
+    def stop_children():
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+    with contextlib.ExitStack() as stack:
+        for part, path in twin_paths.items():
+            log = stack.enter_context(open(path + ".log", "w"))
+            children[part] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tools-cpu-twins", part,
+                 path + ".json"],
+                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        stack.callback(stop_children)
+
+        # ---- 11a: the examples on the card ----
+        for name, (argv, want) in EXAMPLES.items():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            code, lines = run_as_main(f"srrg2_proslam_tpu_torch.apps.{name}", argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if code != 0:
+                fail(f"11a {name} exited with {code}")
+            ex_counts[name] = launches(want, f"11a {name}")
+            card[name] = lines
+            show(f"11a {name}", lines)
+            print(f"11a {name}: {secs:.2f} s on the card, launches {ex_counts[name]} "
+                  f"(predicted {want}) [{smi}]", flush=True)
+
+        # ---- 11b: the smoke scripts ----
+        for name, want in (("smoke_vo", (5, 5, 15)), ("smoke_slam", (5, 5, 15)),
+                           ("smoke_rgbd", (2, 2, 0))):
+            kernels.reset_launch_counts()
+            _, lines = captured(_script(name)["main"], [])
+            tool_counts[name] = launches(want, f"11b {name}")
+            show(f"11b {name}", lines[-3:])
+            if lines[-1] != "PASS":
+                fail(f"11b {name}: {lines[-1]}")
+            print(f"11b {name}: PASS, launches {tool_counts[name]} [{smi}]", flush=True)
+
+        stage("11a, 11b", t_phase)
+
+        # ---- export_viewer: renders where matplotlib imports, else raises ----
+        png = os.path.join(TOOLS_DIR, "viewer.png")
+        viewer = ["--trajectory", traj_path, "--output", png]
+        if importlib.util.find_spec("matplotlib") is None:
+            try:
+                run_as_main("srrg2_proslam_tpu_torch.apps.export_viewer", viewer)
+            except ImportError as e:
+                print(f"11a export_viewer: raised ImportError ({e}): no matplotlib on "
+                      f"this machine, as expected", flush=True)
+            else:
+                fail("11a export_viewer ran without matplotlib")
+        else:
+            code, lines = run_as_main("srrg2_proslam_tpu_torch.apps.export_viewer", viewer)
+            if code != 0 or not os.path.exists(png):
+                fail(f"11a export_viewer: exit {code}, {png} not written")
+            print(f"11a export_viewer: {lines[-1]}", flush=True)
+
+        # ---- 11d: the A/B scripts and diag_rendered part 1 on the card's
+        # renders, against the JAX scripts' CPU runs ----
+        kernels.reset_launch_counts()
+        with recorded(kernels.gn, "gn_burst_stereo") as bursts:
+            runs, lines = captured(_script("ab_local_ba")["main"], [])
+        tool_counts["ab_local_ba"] = launches((254, 254, 762), "11d ab_local_ba")
+        show("11d ab_local_ba", lines)
+        for enabled, (err, s) in runs.items():
+            got = (s.num_maps, s.num_closures, s.num_backstop_rejections)
+            want, ate, t_rmse = JAX_LOCAL_BA[enabled]
+            if got != want:
+                fail(f"11d ab_local_ba local_ba={enabled}: (maps, closures, backstop "
+                     f"rejections) {got}, the JAX script's {want}")
+            gap = check_render_poses(err, ate, t_rmse, f"11d ab_local_ba local_ba={enabled}")
+            print(f"11d ab_local_ba local_ba={enabled}: {got} as the JAX script's; ATE "
+                  f"{err.ate_rmse:.4f} m, JAX {ate} m; ATE and t-RMSE {gap:.4f} m from JAX's "
+                  f"(tolerance {RENDER_POSE_TOL_M}) [{smi}]", flush=True)
+        kernel_errs["gn_burst"] = [check_busiest_bursts(bursts, 2, "ab_local_ba")]
+
+        kernels.reset_launch_counts()
+        seeded = _script("ab_seeded_detection")
+        # K3 launches 4 per frame (dense left, dense right, seeded left, seeded
+        # right): keep the first crushed frame's dense right image
+        crushed = seeded["CRUSHED"][0] * 4 + 1
+        with recorded(kernels.fast, "fast_scores_kernel", keep=crushed.__eq__) as crushed_k3:
+            stats, lines = captured(seeded["main"], [])
+        tool_counts["ab_seeded_detection"] = launches((240, 240, 360),
+                                                      "11d ab_seeded_detection")
+        show("11d ab_seeded_detection", lines)
+        for is_seeded, (want, recall) in JAX_SEEDED.items():
+            s = stats[is_seeded]
+            got = (s["frames"], s["matches"], s["inliers"])
+            rel = max(abs(g - w) / w for g, w in zip(got, want))
+            if got[0] != want[0] or rel > RENDER_REL_TOL:
+                fail(f"11d ab_seeded_detection seeded={is_seeded}: (frames, matches, VO "
+                     f"inliers) {got}, the JAX script's {want} (relative tolerance "
+                     f"{RENDER_REL_TOL})")
+            print(f"11d ab_seeded_detection seeded={is_seeded}: (frames, matches, VO inliers) "
+                  f"{got}, the JAX script's {want}, {rel:.5f} apart (tolerance "
+                  f"{RENDER_REL_TOL}); 1 px recall {s['correct'] / s['matches']:.4f}, JAX "
+                  f"{recall} [{smi}]", flush=True)
+
+        kernels.reset_launch_counts()
+        with recorded(kernels.fast, "fast_scores_kernel", keep=(0).__eq__) as motion_k3, \
+                recorded(kernels.gn, "gn_burst_stereo") as bursts:
+            runs, lines = captured(_script("ab_motion_envelopes")["main"], ["--fast"])
+        tool_counts["ab_motion_envelopes_fast"] = launches(
+            (476, 476, 1428), "11d ab_motion_envelopes --fast")
+        show("11d ab_motion_envelopes --fast", lines)
+        for (sname, vname), (err, s) in runs.items():
+            got = (s.num_maps, s.num_closures, s.num_relocalizations,
+                   s.num_backstop_rejections)
+            want, ate, t_rmse = JAX_MOTION_FAST[vname]
+            if got != want:
+                fail(f"11d ab_motion_envelopes {sname} {vname}: (maps, closures, relocs, "
+                     f"rejections) {got}, the JAX script's {want}")
+            gap = check_render_poses(err, ate, t_rmse, f"11d ab_motion_envelopes {vname}")
+            print(f"11d ab_motion_envelopes {sname} {vname}: {got} as the JAX script's; "
+                  f"ATE {err.ate_rmse:.4f} m, JAX {ate} m; ATE and t-RMSE {gap:.4f} m from "
+                  f"JAX's (tolerance {RENDER_POSE_TOL_M}) [{smi}]", flush=True)
+        kernel_errs["gn_burst"].append(check_busiest_bursts(bursts, len(runs),
+                                                            "ab_motion_envelopes --fast"))
+
+        kernels.reset_launch_counts()
+        _, lines = captured(_script("diag_rendered")["main"], ["--part", "1"])
+        tool_counts["diag_rendered_part1"] = launches((3, 3, 0), "11d diag_rendered")
+        show("11d diag_rendered --part 1", lines)
+        # keypoints within RENDER_REL_TOL, the rest within one printed unit
+        n_feat = re.compile(r"n_feat=(\d+)")
+        got, want = ([int(n_feat.search(ln).group(1)) for ln in ls]
+                     for ls in (lines, JAX_DIAG_PART1))
+        rel = max(abs(g - w) / w for g, w in zip(got, want))
+        diff = printout["printout_diff"](*([n_feat.sub("n_feat=#", ln) for ln in ls]
+                                           for ls in (lines, JAX_DIAG_PART1)))
+        if len(got) != len(want) or rel > RENDER_REL_TOL or diff:
+            fail(f"11d diag_rendered part 1 vs the JAX script's: keypoints {got} vs "
+                 f"{want} ({rel:.5f} apart, tolerance {RENDER_REL_TOL}); " + "; ".join(diff))
+        print(f"11d diag_rendered part 1: keypoints {got}, the JAX script's {want}, "
+              f"{rel:.5f} apart (tolerance {RENDER_REL_TOL}); the rest within one "
+              f"printed unit [{smi}]", flush=True)
+
+        # ---- 11d: K3 and K1 at the A/B loops' 320x416 images (the motion
+        # loop's first pair, the seeded A/B's crushed right image), bit-exact ----
+        ext = StereoAdaptorConfig().extractor
+        for tag, calls in (("motion loop pair 0", motion_k3),
+                           (f"seeded A/B frame {seeded['CRUSHED'][0]} right (crushed)",
+                            crushed_k3)):
+            (images, threshold), _ = calls[0]
+            for kname, e in check_frontend(frontend_inputs(images, ext), threshold,
+                                           f"11d {tag}").items():
+                kernel_errs.setdefault(kname, []).append(e)
+        stage("11d", t_phase)
+
+        # ---- the CPU twins ----
+        t0 = time.perf_counter()
+        for part, child in children.items():
+            child.wait(timeout=600)
+        print(f"CPU twins done {time.perf_counter() - t0:.1f} s after the card's runs",
+              flush=True)
+    for part, child in children.items():
+        if child.returncode != 0:
+            with open(twin_paths[part] + ".log") as f:
+                print(f.read()[-4000:], flush=True)
+            fail(f"the CPU twins ({part}) exited with {child.returncode}")
+    twins = {}
+    for part, path in twin_paths.items():
+        with open(path + ".json") as f:
+            twins[part] = json.load(f)
+        print(f"CPU twins {part}: {twins[part]['seconds']:.1f} s", flush=True)
+
+    for name in EXAMPLES:
+        cpu = twins["examples"][name]
+        cpu_lines = [ln.replace("patterns_cpu.pgm", "patterns.pgm") for ln in cpu["lines"]]
+        diff = printout["printout_diff"](card[name], cpu_lines, skip=("duration",))
+        if cpu["code"] != 0 or diff:
+            fail(f"11a {name}: the card's printout differs from --device cpu's: "
+                 + "; ".join(diff[:5]))
+        print(f"11a {name}: {len(card[name])} lines equal to --device cpu's (CPU "
+              f"{cpu['seconds']:.1f} s)", flush=True)
+    # the card's runs against the CPU twins' on the same images: 11c's first
+    # frames and 11d's cut runs (the frontend exactly, VO inliers per frame
+    # within COUNT_TOL, every count exactly, every pose within E2E_POSE_TOL_M)
+    cpu = twins["examples"]["rendered_e2e"]
+    tag = f"11c rendered_e2e --frames {E2E_CPU_FRAMES}"
+    if slam40.num_maps != cpu["maps"]:
+        fail(f"{tag}: {slam40.num_maps} maps on the card, {cpu['maps']} on the CPU")
+    dt = trajectory_gap(slam40.trajectory(), cpu["trajectory"], tag)
+    print(f"{tag}, the card vs the CPU on the card's renders: frame for frame, "
+          f"{slam40.num_maps} maps, max |dt| {dt:.3e} m (tolerance {E2E_POSE_TOL_M}; CPU "
+          f"{cpu['seconds']:.1f} s) [{smi}]", flush=True)
+    cpu = twins["ab"]
+    for variant, c in cpu["seeded"].items():
+        g = card_ab["seeded"][variant]
+        tag = f"11d ab_seeded_detection {variant}, first {AB_CPU_FRAMES} frames"
+        sums = [(x["frames"], x["matches"], x["correct"]) for x in (g, c)]
+        matches = [[row[0] for row in x["per_frame"]] for x in (g, c)]
+        inliers = max(abs(a[1] - b[1]) for a, b in zip(g["per_frame"], c["per_frame"]))
+        if sums[0] != sums[1] or matches[0] != matches[1] or inliers > COUNT_TOL:
+            fail(f"{tag}: (frames, matches, 1 px correct) {sums[0]} on the card, {sums[1]} on "
+                 f"the CPU; per-frame matches equal {matches[0] == matches[1]}; VO inliers "
+                 f"up to {inliers} apart (tolerance {COUNT_TOL})")
+        print(f"{tag}: (frames, matches, 1 px correct) {sums[0]} as the CPU's, every frame's "
+              f"matches equal, VO inliers {g['inliers']} / {c['inliers']} (per frame at most "
+              f"{inliers} apart, tolerance {COUNT_TOL}) [{smi}]", flush=True)
+    if card_ab["diag"] != cpu["diag"]:
+        fail(f"11d diag_rendered part 1: the card's rows {card_ab['diag']}, the CPU's "
+             f"{cpu['diag']}")
+    print(f"11d diag_rendered part 1: rows (frame, keypoints, share, median, p90) equal to "
+          f"the CPU's: {card_ab['diag']} [{smi}]", flush=True)
+    g, c = card_ab["motion"], cpu["motion"]
+    tag = f"11d ab_motion_envelopes turn15deg idw+smoother, first {AB_CPU_FRAMES} frames"
+    if g["counts"] != c["counts"]:
+        fail(f"{tag}: (maps, closures, relocs, rejections) {g['counts']} on the card, "
+             f"{c['counts']} on the CPU")
+    dt = trajectory_gap(g["trajectory"], c["trajectory"], tag)
+    print(f"{tag}: (maps, closures, relocs, rejections) {tuple(g['counts'])} as the CPU's, "
+          f"frame for frame max |dt| {dt:.3e} m (tolerance {E2E_POSE_TOL_M}) [{smi}]",
+          flush=True)
+
+    for kname, errs in kernel_errs.items():
+        report[kname]["max_abs_err_tools"] = max(errs)
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], max(errs))
+    shutil.rmtree(TOOLS_DIR)
+    return ({k: {name: c[k] for name, c in ex_counts.items()} for k in kernels.KERNELS},
+            {k: {name: c[k] for name, c in tool_counts.items()} for k in kernels.KERNELS})
+
+
 def main():
     import torch
 
@@ -1920,20 +2496,10 @@ def main():
 
     # the first pass: launches, the gate, and the inputs of every GN burst
     # of the run, captured through the kernel module
-    bursts = []
-    real_burst = kernels.gn.gn_burst_stereo
-
-    def capture_burst(*args, **kw):
-        bursts.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
-        return real_burst(*args, **kw)
-
     kernels.reset_launch_counts()
-    kernels.gn.gn_burst_stereo = capture_burst
     t0 = time.perf_counter()
-    try:
+    with recorded(kernels.gn, "gn_burst_stereo") as bursts:
         slam, rows = run_slam(gpu_frames, scam, dev, adapt_cfg)
-    finally:
-        kernels.gn.gn_burst_stereo = real_burst
     first_pass = time.perf_counter() - t0
     counts = kernels.launch_counts()
     print(f"GraphSLAM: {n} frames, {slam_counts(slam)}, closure events "
@@ -2051,6 +2617,11 @@ def main():
     mesh_counts, mesh_frame_counts = phase_mesh(dev, smi, loop, slam, rows, slam_ms, chunk_ref)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s [{smi}]", flush=True)
 
+    # ---- 11. the examples and tools ----------------------------------------------
+    t11 = time.perf_counter()
+    example_counts, tool_counts = phase_tools(dev, smi, report)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s [{smi}]", flush=True)
+
     sources = {"fast": ("srrg2_proslam_tpu_torch/csrc/fast.cu",
                         "srrg2_proslam_tpu/ops/fast_pallas.py:86"),
                "brief": ("srrg2_proslam_tpu_torch/csrc/brief.cu",
@@ -2067,6 +2638,7 @@ def main():
          "launches_mesh_per_rank": mesh_counts[kname],
          "launches_mesh_frame_per_rank": mesh_frame_counts[kname],
          **{f"launches_{path}": c[kname] for path, c in app_counts.items()},
+         "launches_examples": example_counts[kname], "launches_tools": tool_counts[kname],
          "library_ms": None, **report[kname]}
         for kname, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2075,4 +2647,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tools-cpu-twins"]:
+        tools_cpu_twins(sys.argv[2], sys.argv[3])
+    else:
+        main()

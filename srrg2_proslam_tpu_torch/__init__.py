@@ -23,7 +23,8 @@ utils/     profile_time scoped host timers and device_trace; the config
            registry and its JSON round trip (loads
            ``configurations/*.json``); CUDA graphs captured once and
            replayed (``graphs.py``).
-apps/      app_benchmark, convert_dataset, compute_sparse_stereo_gt
+apps/      app_benchmark, convert_dataset, compute_sparse_stereo_gt, the
+           didactic example_* apps and export_viewer
            (``python -m srrg2_proslam_tpu_torch.apps.<name>``).
 parallel/  the multi-GPU slice over torch.distributed: the 1-D mesh and
            its collectives, the sharded stages (tracker step, striped

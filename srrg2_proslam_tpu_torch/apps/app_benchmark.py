@@ -121,11 +121,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _slam_config(args):
     slam_config = cfg.load(args.config) if args.config else GraphSLAMConfig()
     if args.open_loop:
@@ -214,10 +209,10 @@ def _run(args, device, viewer):
             a = _stack([fr.left for fr in all_frames], device)
             b = _stack([fr.right for fr in all_frames], device)
         gt_poses = [fr.gt_pose for fr in all_frames if fr.gt_pose is not None]
-        _sync(device)
+        profiling.sync(device)
         t0 = time.perf_counter()
         slam.process_sequence(a, b, [fr.timestamp for fr in all_frames], adaptor)
-        _sync(device)
+        profiling.sync(device)
         compute_time = time.perf_counter() - t0
         if viewer is not None:
             viewer.update(slam)
@@ -239,7 +234,7 @@ def _run(args, device, viewer):
                 meas = adapt_stereo(torch.as_tensor(fr.left, device=device),
                                     torch.as_tensor(fr.right, device=device), adaptor)
         slam.process(meas.points, meas.desc, meas.valid, fr.timestamp)
-        _sync(device)
+        profiling.sync(device)
         compute_time += time.perf_counter() - t0
         if fr.gt_pose is not None:
             gt_poses.append(fr.gt_pose)
@@ -258,7 +253,7 @@ def _run(args, device, viewer):
             handle(fr)
         t0 = time.perf_counter()
         slam.flush()      # frames still queued behind a speculation depth
-        _sync(device)
+        profiling.sync(device)
         compute_time += time.perf_counter() - t0
 
     if args.trace_dir:

@@ -25,6 +25,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 FLOAT_TOL = 1e-5       # a sharded stage against its single-rank call
 # a solver's chi (a sum of squared residuals near its minimum) against the
 # single-rank call, relative: the float32 rounding of each pixel coordinate
@@ -136,11 +138,6 @@ def stage_sizes(n: int) -> dict:
 
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def stages(mesh, sizes: dict) -> dict:
@@ -366,7 +363,7 @@ def _session(mesh, spec: dict, cam, stacks, ts, acfg, count: int = None):
                 meas = [m.points, m.desc, m.valid]
             slam.process(*meas, ts[i])
         slam.flush()
-    _sync(mesh.device)
+    profiling.sync(mesh.device)
     return slam, list(zip(statuses, (f.local_map_index for f in slam.frames)))
 
 
@@ -395,10 +392,10 @@ def slam_run(mesh, spec: dict) -> dict:
     real_split = chunk_ops.run_split
 
     def timed_split(*args, **kw):
-        _sync(mesh.device)
+        profiling.sync(mesh.device)
         t0 = time.perf_counter()
         out = real_split(*args, **kw)
-        _sync(mesh.device)
+        profiling.sync(mesh.device)
         split_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -426,7 +423,7 @@ def slam_run(mesh, spec: dict) -> dict:
         checkpoint.save(slam, spec["checkpoint"])
         report["resumed_equal"] = _resumes(mesh, slam, spec)
     for _ in range(spec.get("passes", 1) - 1):
-        _sync(mesh.device)
+        profiling.sync(mesh.device)
         t0 = time.perf_counter()
         _session(mesh, spec, cam, stacks, ts, acfg)
         report["ms_per_frame"].append((time.perf_counter() - t0) / n * 1e3)
@@ -466,7 +463,7 @@ def _profiled(mesh, spec, cam, stacks, ts, acfg, count: int) -> dict:
     replays included); the other ranks run the window unprofiled."""
     from .. import kernels
 
-    _sync(mesh.device)
+    profiling.sync(mesh.device)
     kernels.reset_launch_counts()
     seen = None
     if mesh.rank == 0 and mesh.device.type == "cuda":

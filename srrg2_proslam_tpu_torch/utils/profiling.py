@@ -42,9 +42,12 @@ def reset() -> None:
     _ACCUM.clear()
 
 
-def _sync() -> None:
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+def sync(device="cuda") -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU, or before CUDA is first used), so a host clock read after it
+    counts that work."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_initialized():
+        torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
@@ -53,12 +56,12 @@ def profile_time(name: str) -> Iterator[None]:
     if not _ENABLED:
         yield
         return
-    _sync()
+    sync()
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _sync()
+        sync()
         cell = _ACCUM[name]
         cell[0] += 1
         cell[1] += time.perf_counter() - t0
