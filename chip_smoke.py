@@ -5,7 +5,8 @@ GraphSLAM (ICL and the loop as RGB-D, with local BA), the other landmark
 estimators and the motion prior on KITTI, the shipped configurations
 and the speculative queue, the host surface (the apps, checkpoints, the
 trace, entry() and the native decoder), the chunk program, the mesh, and
-the repo's examples and tools.
+the repo's examples and tools.  It needs no PIL: phase 8 reads JPEG,
+palette, 1-bit and interlaced PNG and BMP through the port's own library.
 
 Usage (needs one CUDA card and nvcc; builds the kernels from csrc/):
 
@@ -100,7 +101,16 @@ Phases, any failure exits non-zero:
      --trace-dir (the trace names the three kernels); 8f entry() on the
      card (3 GN launches, pose within ENTRY_TOL of the CPU's); the native
      decoder built with g++ equal to the plain decoder on every bundled
-     image, and its prefetcher in order;
+     image, and its prefetcher in order; 8g the second image library
+     (io/images.py, g++) and its plain twin on the committed fixtures of
+     test_data/torch_io (JPEG baseline with and without restart markers,
+     progressive 4:2:0, palette, 1-bit and Adam7 PNG, BMP): load_gray and
+     load_depth equal to MANIFEST.json's SHA-256 of the JAX package's; the
+     KITTI JPEG pairs through iter_malaga_stereo, then adapt_stereo ->
+     track_step on the card (K3, K1, K2 against their plain versions at
+     these frames, launches FAST 2 / BRIEF 2 / GN 6, counts and pose
+     against the CPU run); save_gray to .jpg byte for byte PIL's file; ms
+     per decode of the 376x1241 JPEG and the 480x640 progressive one;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
      runs this phase alone): 9a the rendered loop through
      GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
@@ -1088,6 +1098,8 @@ CKPT_POSE_TOL_M = 1e-4       # 8d: resumed card run vs phase 5's (as phase 7's c
 CKPT_CPU_BUDGET_S = 60.0     # 8d: the CPU continuation stops after this
 ENTRY_TOL = 5e-4             # 8f: entry()'s step, card vs CPU (tests/test_gn_pallas.py)
 KERNEL_NAMES = ("fast_scores_kernel", "brief_descriptors_kernel", "gn_burst_stereo_kernel")
+IMAGE_FIXTURES = os.path.join(ROOT, "test_data", "torch_io")   # 8g: files and MANIFEST.json
+DECODE_REPS = 20             # 8g: decodes per timed file
 
 
 def run_app(module: str, argv, tag: str):
@@ -1121,9 +1133,10 @@ def kitti_traj(prefix: str):
     return np.loadtxt(prefix + "_kitti.txt").reshape(-1, 3, 4)
 
 
-def phase_host(dev, smi, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg):
+def phase_host(dev, smi, report, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg):
     """Phase 8, the host surface on the card: the port's apps, checkpoints,
-    trace, entry() and the native decoder.  Returns the app runs' launches."""
+    trace, entry(), the native decoder and the second image library.
+    Returns the app runs' launches."""
     import shutil
 
     import numpy as np
@@ -1322,8 +1335,143 @@ def phase_host(dev, smi, frames_np, loop, ref_slam, ref_rows, ref_ms, adapt_cfg)
     print(f"native library {os.path.basename(so)} built and checked in "
           f"{time.perf_counter() - t0:.2f} s: {len(files)} bundled images equal to the plain "
           f"decoder, the prefetcher in order [{smi}]", flush=True)
+    launches["jpeg_vo"] = host_images(dev, smi, report)
     shutil.rmtree(HOST_DIR)
     return launches
+
+
+def _sha_f32(arr) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(arr, np.float32).tobytes()).hexdigest()
+
+
+def host_images(dev, smi, report) -> dict:
+    """8g: the files the native decoder refuses, on a machine with no PIL.
+    The committed fixtures decode through the second image library and its
+    plain twin to the manifest's SHA-256 of the JAX package's load_gray and
+    load_depth; the KITTI JPEG pairs as a Malaga folder through
+    iter_malaga_stereo, then adapt_stereo -> track_step on the card (K3, K1
+    and K2 against their plain versions at these frames, the run against
+    the CPU's); save_gray to .jpg writes PIL's file; ms per decode.
+    Returns the VO run's launches."""
+    import hashlib
+    import shutil
+
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import datasets, images, images_plain, native
+    from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig
+    from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    with open(os.path.join(IMAGE_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    so = images.build()
+    names = sorted(n for n in manifest if n != "save_gray")
+    for name in names:
+        path, want = os.path.join(IMAGE_FIXTURES, name), manifest[name]
+        if native.try_decode(path) is not None:
+            fail(f"8g: the native decoder reads {name}: it would not test the image library")
+        plain = images_plain.decode(path)
+        routes = {"library": (datasets.load_gray(path), datasets.load_depth(path)),
+                  "plain twin": (images.gray_f32(plain), images.depth_f32(plain))}
+        for route, (gray, depth) in routes.items():
+            if (_sha_f32(gray), _sha_f32(depth)) != (want["load_gray_sha256"],
+                                                     want["load_depth_sha256"]):
+                fail(f"8g {name}: the {route}'s load_gray / load_depth differ from the "
+                     "manifest's SHA-256 of the JAX package's")
+    print(f"8g image library {so.name} built; {len(names)} fixtures ({', '.join(names)}): "
+          f"load_gray and load_depth equal to the manifest's SHA-256 of the JAX package's "
+          f"through the library and its plain twin ({time.perf_counter() - t0:.2f} s) [{smi}]",
+          flush=True)
+
+    # the KITTI JPEG pairs in the Malaga layout
+    folder = os.path.join(HOST_DIR, "malaga")
+    os.makedirs(os.path.join(folder, "Images"))
+    for i in (0, 1):
+        stamp = f"img_CAMERA1_{1261228749.918590 + 0.05 * i:.6f}"
+        for side in ("left", "right"):
+            shutil.copy(os.path.join(IMAGE_FIXTURES, f"kitti_{side}_{i}.jpg"),
+                        os.path.join(folder, "Images", f"{stamp}_{side}.jpg"))
+    frames = list(datasets.iter_malaga_stereo(folder))
+    same = len(frames) == 2 and all(
+        _sha_f32(getattr(fr, side)) == manifest[f"kitti_{side}_{i}.jpg"]["load_gray_sha256"]
+        for i, fr in enumerate(frames) for side in ("left", "right"))
+    print(f"8g iter_malaga_stereo over {folder}/Images (2 KITTI JPEG pairs, pair 1 with "
+          f"restart markers): {len(frames)} frames, equal to the manifest: {same} [{smi}]",
+          flush=True)
+    if not same:
+        fail("8g: iter_malaga_stereo's JPEG frames differ from the manifest")
+
+    cam = datasets.kitti_camera(*frames[0].left.shape)
+    adapt_cfg, track_cfg = StereoAdaptorConfig(), TrackerConfig()
+    gpu = [(torch.from_numpy(f.left).to(dev), torch.from_numpy(f.right).to(dev))
+           for f in frames]
+    errs, _ = check_kernels(main_path_inputs(gpu, cam, adapt_cfg, track_cfg), cam,
+                            adapt_cfg.extractor.detector_threshold, "KITTI JPEG frames 0/1")
+    for kname, err in errs.items():
+        report[kname]["max_abs_err_jpeg"] = err
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
+    kernels.reset_launch_counts()
+    rows, poses = run_vo(gpu, cam, dev, adapt_cfg, track_cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu_rows, cpu_poses = run_vo([(torch.from_numpy(f.left), torch.from_numpy(f.right))
+                                  for f in frames], cam, "cpu", adapt_cfg, track_cfg)
+    dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
+    for i, (g, c) in enumerate(zip(rows, cpu_rows)):
+        print(f"8g JPEG frame {i}: meas={g['meas']} matches={g['matches']} "
+              f"inliers={g['inliers']} map={g['map']} (cpu meas={c['meas']} "
+              f"matches={c['matches']} inliers={c['inliers']})", flush=True)
+    print(f"8g VO on the JPEG frames: launches {counts}; final pose vs the CPU run |dt| "
+          f"{dt.numpy()} angle {float(dang):.3e} [{smi}]", flush=True)
+    if counts != {"fast": 2, "brief": 2, "gn_burst": 6}:
+        fail(f"8g launches {counts} != fast 2, brief 2, gn_burst 6")
+    if any(abs(g[k] - c[k]) > COUNT_TOL for g, c in zip(rows, cpu_rows)
+           for k in ("meas", "matches", "inliers")) or not (
+            float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
+        fail("8g: VO on the JPEG frames differs between the card and the CPU")
+
+    # save_gray to .jpg writes PIL's file
+    want = manifest["save_gray"]
+    out = os.path.join(HOST_DIR, "save_gray" + want["extension"])
+    datasets.save_gray(out, datasets.load_gray(os.path.join(ROOT, want["source"])))
+    with open(out, "rb") as f:
+        file_ok = hashlib.sha256(f.read()).hexdigest() == want["pil_file_sha256"]
+    read_ok = (_sha_f32(datasets.load_gray(out)) == want["load_gray_sha256"]
+               and _sha_f32(images.gray_f32(images_plain.decode(out)))
+               == want["load_gray_sha256"])
+    print(f"8g save_gray({os.path.basename(out)}) of {want['source']}: PIL's file byte for "
+          f"byte {file_ok}, decode equal to the manifest (library and twin) {read_ok} [{smi}]",
+          flush=True)
+    if not (file_ok and read_ok):
+        fail("8g: save_gray's JPEG differs from PIL's")
+
+    # ms per decode on this machine's host
+    for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg"):
+        path = os.path.join(IMAGE_FIXTURES, name)
+        shape = images.decode(path).samples.shape
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            images.decode(path)
+        lib_ms = (time.perf_counter() - t0) / DECODE_REPS * 1e3
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            datasets.load_gray(path)
+        gray_ms = (time.perf_counter() - t0) / DECODE_REPS * 1e3
+        t0 = time.perf_counter()
+        images_plain.decode(path)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        print(f"8g decode {name} {shape[0]}x{shape[1]}x{shape[2]} "
+              f"({os.path.getsize(path)} bytes) on the host: images.decode {lib_ms:.3f} ms, "
+              f"load_gray {gray_ms:.3f} ms (mean of {DECODE_REPS}), plain twin "
+              f"{plain_ms:.1f} ms (one call) [{smi}]", flush=True)
+    return counts
 
 
 # ---- phase 9: the chunk program (models/chunk.py) ----------------------------
@@ -1477,7 +1625,7 @@ def measurement_stream(name: str):
     nothing measured), "closure" (out and back), "relocalize" (a longer
     out-and-back with relocalisations), "eviction" (closure with a two-slot
     ring, as tests/test_torch_sequence.py builds it) and "rollback"
-    (relocalize with frames 16 and 17 blanked, tests/test_torch_chunk_reloc.py).
+    (relocalize with frames 16 and 17 blanked, tests/test_torch_chunk_rollback.py).
     Returns (camera, frames [(points, desc, valid, timestamp)], config)."""
     import numpy as np
 
@@ -2603,7 +2751,8 @@ def main():
 
     # ---- 8. the host surface: apps, checkpoints, trace, entry(), decoder ---
     t8 = time.perf_counter()
-    app_counts = phase_host(dev, smi, frames_np, loop, slam, rows, slam_ms, adapt_cfg)
+    app_counts = phase_host(dev, smi, report, frames_np, loop, slam, rows, slam_ms,
+                            adapt_cfg)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s [{smi}]", flush=True)
 
     # ---- 9. the chunk program ------------------------------------------------

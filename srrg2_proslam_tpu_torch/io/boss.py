@@ -456,9 +456,9 @@ def write_boss_stereo(path: str, frames, camera: Camera,
     CameraInfoMessage per camera image, and a TransformEventsMessage with
     the stereo extrinsic (+ ground truth when present).  Payload pixels go
     to ``<log>.d/``: as ordinary image files referenced by ``image_file``
-    (``image_format`` "png"/"pgm"), or — ``image_format="blob"`` — as
-    srrg2-style binary BLOBs: raw row-major uint8 bytes behind a
-    (rows, cols, type) header, referenced from the message through a
+    (``image_format`` "png", "pgm", "jpg" or "bmp"), or —
+    ``image_format="blob"`` — as srrg2-style binary BLOBs: raw row-major
+    uint8 bytes behind a (rows, cols, type) header, referenced from the message through a
     ``{"#pointer": id}`` plus an ``ImageUInt8BLOBReference`` block naming
     the binary file (the layout the reference converter's Serializer
     produces, convert_stereo_to_srrg2.cpp:129-135).  The reader's

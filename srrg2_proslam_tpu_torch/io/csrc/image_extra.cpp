@@ -1,0 +1,1296 @@
+// Image files the repo's native decoder (native/src/image_decode.cpp) does
+// not read: JPEG (baseline and progressive Huffman), PNG of every colour
+// type, bit depth and interlace (palette, 1/2/4-bit, Adam7), and
+// uncompressed BMP; plus a baseline gray JPEG writer.
+//
+// Each decoder returns the samples in the mode an image library that
+// follows PIL would open the file in (1, L, P, I;16, LA, RGB, RGBA), so
+// that the caller can apply PIL's per-mode gray rule.  JPEG decodes bit for
+// bit as libjpeg-turbo does in its 6.2 API with the default settings: the
+// JDCT_ISLOW integer IDCT (jidctint.c), fancy upsampling (jdsample.c:
+// h2v1 / h1v2 / h2v2 triangle filters, replication for other integral
+// factors and for components at most 2 samples wide), and jdcolor.c's
+// fixed-point YCbCr -> RGB.  The writer follows jfdctint.c, jcdctmgr.c's
+// reciprocal quantisation, the Annex K Huffman tables and jcmarker.c's
+// marker layout (JFIF APP0, DQT, SOF0, DHT, SOS).
+//
+// Refused with a message (the caller raises it as a ValueError): arithmetic
+// coding, lossless and hierarchical JPEG, sample precision other than 8,
+// JPEG of 2 or 4 components (CMYK / YCCK), non-integral sampling ratios, a
+// progressive file whose first AC coefficients are never completed (the
+// decoder would smooth its blocks), compressed or 1/4/16-bit BMP.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+#include <zlib.h>
+
+namespace {
+
+struct Error : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+enum Mode { MODE_1 = 0, MODE_L = 1, MODE_P = 2, MODE_I16 = 3, MODE_LA = 4, MODE_RGB = 5,
+            MODE_RGBA = 6 };
+
+struct Image {
+  int w = 0, h = 0, channels = 1, bitdepth = 8, mode = MODE_L;
+  std::vector<uint8_t> data;     // interleaved; 16-bit samples in host order
+  std::vector<uint8_t> palette;  // RGB triples (mode P)
+};
+
+std::vector<uint8_t> read_file(const char* path) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) throw Error("cannot open the file");
+  std::vector<uint8_t> out;
+  uint8_t buf[1 << 16];
+  size_t n;
+  while ((n = std::fread(buf, 1, sizeof(buf), f)) > 0) out.insert(out.end(), buf, buf + n);
+  std::fclose(f);
+  return out;
+}
+
+uint32_t be16(const uint8_t* p) { return (uint32_t(p[0]) << 8) | p[1]; }
+uint32_t be32(const uint8_t* p) { return (be16(p) << 16) | be16(p + 2); }
+uint32_t le16(const uint8_t* p) { return uint32_t(p[0]) | (uint32_t(p[1]) << 8); }
+uint32_t le32(const uint8_t* p) { return le16(p) | (le16(p + 2) << 16); }
+
+// ===========================================================================
+// JPEG decoder
+// ===========================================================================
+
+struct NaturalOrder {
+  int k[64 + 16];  // zigzag index -> natural index; 16 guard entries of 63
+  NaturalOrder() {
+    int i = 0;
+    for (int s = 0; s < 15; ++s) {
+      if (s % 2 == 0) {
+        for (int y = std::min(s, 7); y >= std::max(0, s - 7); --y) k[i++] = y * 8 + (s - y);
+      } else {
+        for (int y = std::max(0, s - 7); y <= std::min(s, 7); ++y) k[i++] = y * 8 + (s - y);
+      }
+    }
+    for (; i < 80; ++i) k[i] = 63;
+  }
+};
+const NaturalOrder kNatural;
+
+struct HuffTable {
+  bool present = false;
+  uint8_t bits[17] = {0};
+  uint8_t vals[256] = {0};
+  int32_t maxcode[18];
+  int32_t valoffset[17];
+  uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 = slow path
+
+  void derive() {
+    int huffsize[257], huffcode[257], p = 0, code = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < bits[l]; ++i) {
+        huffsize[p] = l;
+        huffcode[p++] = code++;
+      }
+      code <<= 1;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (bits[l]) {
+        valoffset[l] = p - huffcode[p];
+        p += bits[l];
+        maxcode[l] = huffcode[p - 1];
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    maxcode[17] = 0x7FFFFFFF;
+    std::memset(look, 0, sizeof(look));
+    for (int i = 0; i < p; ++i) {
+      if (huffsize[i] > 9) continue;
+      int shift = 9 - huffsize[i];
+      for (int j = 0; j < (1 << shift); ++j)
+        look[(huffcode[i] << shift) | j] = uint16_t((huffsize[i] << 8) | vals[i]);
+    }
+  }
+};
+
+// Entropy-coded bits: 0xFF00 is a data 0xFF; at a marker the reader feeds
+// zeros, as libjpeg does.
+struct BitReader {
+  const uint8_t* d;
+  size_t n, pos;
+  uint64_t buf = 0;
+  int cnt = 0;
+  bool marker = false;
+
+  BitReader(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start) {}
+
+  void fill() {
+    while (cnt <= 56) {
+      unsigned b = 0;
+      if (!marker && pos < n) {
+        b = d[pos];
+        if (b == 0xFF) {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;
+          if (q < n && d[q] == 0) {
+            pos = q + 1;
+          } else {
+            marker = true;
+            b = 0;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      buf |= uint64_t(b) << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  unsigned peek(int k) {
+    if (cnt < k) fill();
+    return unsigned(buf >> (64 - k));
+  }
+  void skip(int k) {
+    buf <<= k;
+    cnt -= k;
+  }
+  int get(int k) {
+    if (!k) return 0;
+    unsigned v = peek(k);
+    skip(k);
+    return int(v);
+  }
+  // Skip to the next marker other than a stuffed byte; returns its code and
+  // leaves pos just past it.
+  int next_marker() {
+    buf = 0;
+    cnt = 0;
+    marker = false;
+    for (;;) {
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) throw Error("JPEG: the data ends inside a scan");
+      int c = d[pos++];
+      if (c != 0) return c;
+    }
+  }
+  void restart(int expected) {
+    int c = next_marker();
+    if (c != 0xD0 + expected) throw Error("JPEG: restart marker out of sequence");
+  }
+};
+
+inline int decode_huff(BitReader& br, const HuffTable& t) {
+  unsigned e = t.look[br.peek(9)];
+  if (e) {
+    br.skip(int(e >> 8));
+    return int(e & 0xFF);
+  }
+  for (int l = 10; l <= 16; ++l) {
+    int code = int(br.peek(l));
+    if (code <= t.maxcode[l]) {
+      br.skip(l);
+      return t.vals[(code + t.valoffset[l]) & 0xFF];
+    }
+  }
+  throw Error("JPEG: corrupt Huffman data");
+}
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int bw = 0, bh = 0;    // blocks stored per row / column (whole MCUs)
+  int wib = 0, hib = 0;  // blocks holding image samples (a non-interleaved scan)
+  int dw = 0, dh = 0;    // downsampled width and height
+  int dc_tbl = 0, ac_tbl = 0;
+  bool latched = false;
+  uint16_t qt[64] = {};  // natural order, latched at the component's first scan
+  std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
+  int coef_bits[64] = {};
+  int16_t* block(int bx, int by) { return &coef[(size_t(by) * bw + bx) * 64]; }
+};
+
+struct JpegDecoder {
+  const std::vector<uint8_t>& f;
+  uint16_t qtables[4][64];
+  bool qpresent[4] = {false, false, false, false};
+  HuffTable dc[4], ac[4];
+  int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  bool progressive = false, frame = false, jfif = false, adobe = false;
+  int adobe_transform = -1, restart_interval = 0;
+  std::vector<Component> comps;
+
+  explicit JpegDecoder(const std::vector<uint8_t>& file) : f(file) {}
+
+  void read_frame(const uint8_t* p, size_t len, int marker) {
+    if (frame) throw Error("JPEG: more than one frame");
+    if (len < 6) throw Error("JPEG: short SOF");
+    if (p[0] != 8) throw Error("JPEG: sample precision " + std::to_string(p[0]) +
+                               " is not supported (8-bit only)");
+    height = int(be16(p + 1));
+    width = int(be16(p + 3));
+    int nc = p[5];
+    if (height == 0 || width == 0) throw Error("JPEG: zero image size (DNL is not supported)");
+    if (nc != 1 && nc != 3)
+      throw Error("JPEG: " + std::to_string(nc) + " components are not supported "
+                  "(gray or YCbCr/RGB only; CMYK and YCCK are refused)");
+    if (len < size_t(6 + 3 * nc)) throw Error("JPEG: short SOF");
+    progressive = marker == 0xC2;
+    for (int i = 0; i < nc; ++i) {
+      Component c;
+      c.id = p[6 + 3 * i];
+      c.h = p[7 + 3 * i] >> 4;
+      c.v = p[7 + 3 * i] & 15;
+      c.tq = p[8 + 3 * i] & 3;
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) throw Error("JPEG: bad sampling factor");
+      comps.push_back(c);
+      hmax = std::max(hmax, c.h);
+      vmax = std::max(vmax, c.v);
+    }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (auto& c : comps) {
+      if (hmax % c.h || vmax % c.v)
+        throw Error("JPEG: non-integral sampling ratios are not supported");
+      c.bw = mcux * c.h;
+      c.bh = mcuy * c.v;
+      c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
+      c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
+      c.wib = (c.dw + 7) / 8;
+      c.hib = (c.dh + 7) / 8;
+      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+    }
+    frame = true;
+  }
+
+  void read_dqt(const uint8_t* p, size_t len) {
+    size_t i = 0;
+    while (i < len) {
+      int pq = p[i] >> 4, tq = p[i] & 15;
+      if (tq > 3) throw Error("JPEG: bad DQT table index");
+      size_t need = 1 + 64 * (pq ? 2 : 1);
+      if (i + need > len) throw Error("JPEG: short DQT");
+      for (int k = 0; k < 64; ++k)
+        qtables[tq][kNatural.k[k]] = uint16_t(pq ? be16(p + i + 1 + 2 * k) : p[i + 1 + k]);
+      qpresent[tq] = true;
+      i += need;
+    }
+  }
+
+  void read_dht(const uint8_t* p, size_t len) {
+    size_t i = 0;
+    while (i < len) {
+      if (i + 17 > len) throw Error("JPEG: short DHT");
+      int tc = p[i] >> 4, th = p[i] & 15;
+      if (tc > 1 || th > 3) throw Error("JPEG: bad DHT table index");
+      HuffTable& t = tc ? ac[th] : dc[th];
+      int total = 0;
+      for (int l = 1; l <= 16; ++l) total += (t.bits[l] = p[i + l]);
+      if (total > 256 || i + 17 + total > len) throw Error("JPEG: bad DHT");
+      std::memcpy(t.vals, p + i + 17, size_t(total));
+      t.derive();
+      t.present = true;
+      i += 17 + size_t(total);
+    }
+  }
+
+  // One scan: decode its MCUs; returns the position of the marker after it.
+  size_t read_scan(const uint8_t* p, size_t len, size_t data_start) {
+    if (!frame) throw Error("JPEG: SOS before SOF");
+    int ns = p[0];
+    if (ns < 1 || ns > 4 || len < size_t(4 + 2 * ns)) throw Error("JPEG: bad SOS");
+    std::vector<Component*> sc;
+    for (int i = 0; i < ns; ++i) {
+      int id = p[1 + 2 * i];
+      Component* c = nullptr;
+      for (auto& cc : comps)
+        if (cc.id == id) c = &cc;
+      if (!c) throw Error("JPEG: SOS names an unknown component");
+      c->dc_tbl = p[2 + 2 * i] >> 4;
+      c->ac_tbl = p[2 + 2 * i] & 15;
+      if (c->dc_tbl > 3 || c->ac_tbl > 3) throw Error("JPEG: bad table index in SOS");
+      sc.push_back(c);
+    }
+    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    if (progressive) {
+      bool bad = ss > se || se > 63 || al > 13 || (ss == 0 && se != 0) || (ss > 0 && ns != 1);
+      if (bad) throw Error("JPEG: bad progressive scan parameters");
+    } else {
+      ss = 0;
+      se = 63;
+      ah = al = 0;
+    }
+    for (auto* c : sc) {
+      if (!c->latched) {
+        if (!qpresent[c->tq]) throw Error("JPEG: missing quantisation table");
+        std::memcpy(c->qt, qtables[c->tq], sizeof(c->qt));
+        c->latched = true;
+      }
+      bool needs_dc = ss == 0 && ah == 0;
+      bool needs_ac = se > 0;
+      if ((needs_dc && !dc[c->dc_tbl].present) || (needs_ac && !ac[c->ac_tbl].present))
+        throw Error("JPEG: missing Huffman table");
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
+
+    BitReader br(f.data(), f.size(), data_start);
+    int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0, restarts = 0;
+    long units_x, units_y;
+    if (ns == 1) {
+      units_x = sc[0]->wib;
+      units_y = sc[0]->hib;
+    } else {
+      units_x = mcux;
+      units_y = mcuy;
+    }
+    long total = units_x * units_y;
+    for (long u = 0; u < total; ++u) {
+      if (restart_interval && u > 0 && u % restart_interval == 0) {
+        br.restart(restarts & 7);
+        ++restarts;
+        std::memset(last_dc, 0, sizeof(last_dc));
+        eobrun = 0;
+      }
+      long ux = u % units_x, uy = u / units_x;
+      if (ns == 1) {
+        decode_block(br, *sc[0], sc[0]->block(int(ux), int(uy)), last_dc[0], eobrun, ss, se,
+                     ah, al);
+      } else {
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[size_t(i)];
+          for (int by = 0; by < c.v; ++by)
+            for (int bx = 0; bx < c.h; ++bx)
+              decode_block(br, c, c.block(int(ux) * c.h + bx, int(uy) * c.v + by), last_dc[i],
+                           eobrun, ss, se, ah, al);
+        }
+      }
+    }
+    // the marker that ends the scan (restart markers after the last MCU are skipped)
+    for (;;) {
+      int c = br.next_marker();
+      if (c < 0xD0 || c > 0xD7) return br.pos - 2;
+    }
+  }
+
+  void decode_block(BitReader& br, Component& c, int16_t* blk, int& last_dc, int& eobrun,
+                    int ss, int se, int ah, int al) {
+    if (!progressive) {
+      int s = decode_huff(br, dc[c.dc_tbl]);
+      int diff = s ? extend(br.get(s), s) : 0;
+      last_dc += diff;
+      blk[0] = int16_t(last_dc);
+      const HuffTable& t = ac[c.ac_tbl];
+      for (int k = 1; k < 64; ++k) {
+        int rs = decode_huff(br, t);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural.k[k]] = int16_t(extend(br.get(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+      return;
+    }
+    if (ss == 0) {  // DC scans
+      if (ah == 0) {
+        int s = decode_huff(br, dc[c.dc_tbl]);
+        int diff = s ? extend(br.get(s), s) : 0;
+        last_dc += diff;
+        blk[0] = int16_t(uint32_t(last_dc) << al);
+      } else if (br.get(1)) {
+        blk[0] = int16_t(blk[0] | (1 << al));
+      }
+      return;
+    }
+    const HuffTable& t = ac[c.ac_tbl];
+    if (ah == 0) {  // AC first pass
+      if (eobrun > 0) {
+        --eobrun;
+        return;
+      }
+      for (int k = ss; k <= se; ++k) {
+        int rs = decode_huff(br, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural.k[k]] = int16_t(uint32_t(extend(br.get(s), s)) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          --eobrun;
+          break;
+        }
+      }
+      return;
+    }
+    // AC refinement (jdphuff.c decode_mcu_AC_refine)
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    auto refine = [&](int16_t* coef) {  // a correction bit of a nonzero coefficient
+      if (br.get(1) && (*coef & p1) == 0) *coef = int16_t(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_huff(br, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        do {
+          int16_t* coef = blk + kNatural.k[k];
+          if (*coef != 0) {
+            refine(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural.k[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural.k[k];
+        if (*coef != 0) refine(coef);
+      }
+      --eobrun;
+    }
+  }
+
+  void parse() {
+    if (f.size() < 4 || f[0] != 0xFF || f[1] != 0xD8) throw Error("not a JPEG file");
+    size_t pos = 2;
+    for (;;) {
+      while (pos < f.size() && f[pos] != 0xFF) ++pos;  // garbage before a marker
+      while (pos < f.size() && f[pos] == 0xFF) ++pos;
+      if (pos >= f.size()) break;  // no EOI: decode what was read, as libjpeg warns and goes on
+      int m = f[pos++];
+      if (m == 0xD9) break;
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      if (pos + 2 > f.size()) throw Error("JPEG: truncated marker segment");
+      size_t len = be16(&f[pos]);
+      if (len < 2 || pos + len > f.size()) throw Error("JPEG: truncated marker segment");
+      const uint8_t* p = &f[pos + 2];
+      size_t plen = len - 2;
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        read_frame(p, plen, m);
+      } else if (m == 0xC3 || (m >= 0xC5 && m <= 0xC7)) {
+        throw Error("JPEG: lossless and hierarchical JPEG are not supported");
+      } else if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF) || m == 0xCC) {
+        throw Error("JPEG: arithmetic coding is not supported");
+      } else if (m == 0xC4) {
+        read_dht(p, plen);
+      } else if (m == 0xDB) {
+        read_dqt(p, plen);
+      } else if (m == 0xDD) {
+        if (plen < 2) throw Error("JPEG: short DRI");
+        restart_interval = int(be16(p));
+      } else if (m == 0xDA) {
+        pos = read_scan(p, plen, pos + len);
+        continue;
+      } else if (m == 0xE0) {
+        if (plen >= 5 && !std::memcmp(p, "JFIF\0", 5)) jfif = true;
+      } else if (m == 0xEE) {
+        if (plen >= 12 && !std::memcmp(p, "Adobe", 5)) {
+          adobe = true;
+          adobe_transform = p[11];
+        }
+      } else if (m == 0xDC) {
+        throw Error("JPEG: DNL is not supported");
+      }
+      pos += len;  // APPn, COM and other segments are skipped
+    }
+    if (!frame) throw Error("JPEG: no frame");
+    if (progressive) {
+      // A complete file has every coefficient's last bit: libjpeg would
+      // smooth the blocks only while one of the first nine AC coefficients
+      // still misses bits (jdcoefct.c smoothing_ok), so it does not here.
+      bool dc_known = true, ac_missing = false;
+      for (auto& c : comps) {
+        if (c.coef_bits[0] < 0) dc_known = false;
+        for (int k = 1; k < 10; ++k) ac_missing |= c.coef_bits[k] != 0;
+      }
+      if (dc_known && ac_missing)
+        throw Error("JPEG: a progressive file whose first AC coefficients are incomplete "
+                    "(block smoothing) is not supported");
+    }
+  }
+
+  // jidctint.c jpeg_idct_islow
+  static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride,
+                         const uint8_t* range) {
+    const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                  F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                  F2562 = 20995, F3072 = 25172;
+    int ws[64];
+    for (int c = 0; c < 8; ++c) {
+      const int16_t* ip = in + c;
+      const uint16_t* qp = q + c;
+      int* wp = ws + c;
+      if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+        int dc = (int(ip[0]) * int(qp[0])) * 4;
+        for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+        continue;
+      }
+      int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
+      int64_t z1 = (z2 + z3) * F0541;
+      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+      z2 = int64_t(ip[0]) * qp[0];
+      z3 = int64_t(ip[32]) * qp[32];
+      int64_t tmp0 = (z2 + z3) * 8192, tmp1 = (z2 - z3) * 8192;
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+              tmp12 = tmp1 - tmp2;
+      tmp0 = int64_t(ip[56]) * qp[56];
+      tmp1 = int64_t(ip[40]) * qp[40];
+      tmp2 = int64_t(ip[24]) * qp[24];
+      tmp3 = int64_t(ip[8]) * qp[8];
+      z1 = tmp0 + tmp3;
+      z2 = tmp1 + tmp2;
+      z3 = tmp0 + tmp2;
+      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
+      tmp0 *= F0298;
+      tmp1 *= F2053;
+      tmp2 *= F3072;
+      tmp3 *= F1501;
+      z1 *= -F0899;
+      z2 *= -F2562;
+      z3 = z3 * -F1961 + z5;
+      z4 = z4 * -F0390 + z5;
+      tmp0 += z1 + z3;
+      tmp1 += z2 + z4;
+      tmp2 += z2 + z3;
+      tmp3 += z1 + z4;
+      const int sh = 11;
+      const int64_t rnd = int64_t(1) << (sh - 1);
+      wp[0] = int((tmp10 + tmp3 + rnd) >> sh);
+      wp[56] = int((tmp10 - tmp3 + rnd) >> sh);
+      wp[8] = int((tmp11 + tmp2 + rnd) >> sh);
+      wp[48] = int((tmp11 - tmp2 + rnd) >> sh);
+      wp[16] = int((tmp12 + tmp1 + rnd) >> sh);
+      wp[40] = int((tmp12 - tmp1 + rnd) >> sh);
+      wp[24] = int((tmp13 + tmp0 + rnd) >> sh);
+      wp[32] = int((tmp13 - tmp0 + rnd) >> sh);
+    }
+    for (int r = 0; r < 8; ++r) {
+      const int* wp = ws + 8 * r;
+      uint8_t* op = out + size_t(r) * stride;
+      if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
+        uint8_t v = range[((int64_t(wp[0]) + 16) >> 5) & 1023];
+        for (int c = 0; c < 8; ++c) op[c] = v;
+        continue;
+      }
+      int64_t z2 = wp[2], z3 = wp[6];
+      int64_t z1 = (z2 + z3) * F0541;
+      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+      int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * 8192, tmp1 = (int64_t(wp[0]) - wp[4]) * 8192;
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+              tmp12 = tmp1 - tmp2;
+      tmp0 = wp[7];
+      tmp1 = wp[5];
+      tmp2 = wp[3];
+      tmp3 = wp[1];
+      z1 = tmp0 + tmp3;
+      z2 = tmp1 + tmp2;
+      z3 = tmp0 + tmp2;
+      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
+      tmp0 *= F0298;
+      tmp1 *= F2053;
+      tmp2 *= F3072;
+      tmp3 *= F1501;
+      z1 *= -F0899;
+      z2 *= -F2562;
+      z3 = z3 * -F1961 + z5;
+      z4 = z4 * -F0390 + z5;
+      tmp0 += z1 + z3;
+      tmp1 += z2 + z4;
+      tmp2 += z2 + z3;
+      tmp3 += z1 + z4;
+      const int sh = 18;
+      const int64_t rnd = int64_t(1) << (sh - 1);
+      op[0] = range[((tmp10 + tmp3 + rnd) >> sh) & 1023];
+      op[7] = range[((tmp10 - tmp3 + rnd) >> sh) & 1023];
+      op[1] = range[((tmp11 + tmp2 + rnd) >> sh) & 1023];
+      op[6] = range[((tmp11 - tmp2 + rnd) >> sh) & 1023];
+      op[2] = range[((tmp12 + tmp1 + rnd) >> sh) & 1023];
+      op[5] = range[((tmp12 - tmp1 + rnd) >> sh) & 1023];
+      op[3] = range[((tmp13 + tmp0 + rnd) >> sh) & 1023];
+      op[4] = range[((tmp13 - tmp0 + rnd) >> sh) & 1023];
+    }
+  }
+
+  // jdsample.c: upsample one component plane to the full image size.
+  static std::vector<uint8_t> upsample(const std::vector<uint8_t>& plane, int stride,
+                                       const Component& c, int hmax, int vmax, int w, int h) {
+    int hx = hmax / c.h, vx = vmax / c.v;
+    std::vector<uint8_t> out(size_t(w) * h);
+    auto px = [&](int x, int y) -> int { return plane[size_t(y) * stride + x]; };
+    int last_x = c.dw - 1, last_y = c.dh - 1;
+    bool fancy_h = c.dw > 2;
+    for (int y = 0; y < h; ++y) {
+      uint8_t* op = &out[size_t(y) * w];
+      if (hx == 1 && vx == 1) {
+        for (int x = 0; x < w; ++x) op[x] = uint8_t(px(x, y));
+      } else if (hx == 2 && vx == 1 && fancy_h) {
+        for (int x = 0; x < w; ++x) {
+          int i = x >> 1, near = px(i, y) * 3;
+          op[x] = uint8_t((x & 1) ? (near + px(std::min(i + 1, last_x), y) + 2) >> 2
+                                  : (near + px(std::max(i - 1, 0), y) + 1) >> 2);
+        }
+      } else if (hx == 1 && vx == 2) {
+        int i = y >> 1, far = (y & 1) ? std::min(i + 1, last_y) : std::max(i - 1, 0);
+        int bias = (y & 1) ? 2 : 1;
+        for (int x = 0; x < w; ++x) op[x] = uint8_t((px(x, i) * 3 + px(x, far) + bias) >> 2);
+      } else if (hx == 2 && vx == 2 && fancy_h) {
+        int i = y >> 1, far = (y & 1) ? std::min(i + 1, last_y) : std::max(i - 1, 0);
+        auto colsum = [&](int cx) { return px(cx, i) * 3 + px(cx, far); };
+        for (int x = 0; x < w; ++x) {
+          int j = x >> 1, cur = colsum(j) * 3;
+          op[x] = uint8_t((x & 1) ? (cur + colsum(std::min(j + 1, last_x)) + 7) >> 4
+                                  : (cur + colsum(std::max(j - 1, 0)) + 8) >> 4);
+        }
+      } else {  // replication (int_upsample, h2v1_upsample, h2v2_upsample)
+        for (int x = 0; x < w; ++x) op[x] = uint8_t(px(x / hx, y / vx));
+      }
+    }
+    return out;
+  }
+
+  Image finish() {
+    // post-IDCT range limit (jdmaster.c prepare_range_limit_table), indexed by x & 1023
+    uint8_t range[1024];
+    for (int i = 0; i < 1024; ++i) {
+      int x = (i < 512 ? i : i - 1024) + 128;
+      range[i] = uint8_t(x < 0 ? 0 : (x > 255 ? 255 : x));
+    }
+    std::vector<std::vector<uint8_t>> planes;
+    for (auto& c : comps) {
+      if (!c.latched) throw Error("JPEG: a component is in no scan");
+      int stride = c.bw * 8;
+      std::vector<uint8_t> plane(size_t(stride) * c.bh * 8);
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(c.block(bx, by), c.qt, &plane[size_t(by) * 8 * stride + bx * 8], stride,
+                     range);
+      planes.push_back(upsample(plane, stride, c, hmax, vmax, width, height));
+    }
+    Image img;
+    img.w = width;
+    img.h = height;
+    if (comps.size() == 1) {
+      img.mode = MODE_L;
+      img.channels = 1;
+      img.data = std::move(planes[0]);
+      return img;
+    }
+    // jdapimin.c default_decompress_parms: the colour space of 3 components
+    bool ycc;
+    if (jfif) {
+      ycc = true;
+    } else if (adobe) {
+      ycc = adobe_transform != 0;
+    } else {
+      ycc = !(comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66);
+    }
+    img.mode = MODE_RGB;
+    img.channels = 3;
+    img.data.resize(size_t(width) * height * 3);
+    const size_t n = size_t(width) * height;
+    if (!ycc) {
+      for (size_t i = 0; i < n; ++i)
+        for (int k = 0; k < 3; ++k) img.data[3 * i + k] = planes[size_t(k)][i];
+      return img;
+    }
+    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = int((fix(1.40200) * x + 32768) >> 16);
+      cb_b[i] = int((fix(1.77200) * x + 32768) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + 32768;
+    }
+    auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+    for (size_t i = 0; i < n; ++i) {
+      int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
+      img.data[3 * i] = clamp(y + cr_r[cr]);
+      img.data[3 * i + 1] = clamp(y + int((cb_g[cb] + cr_g[cr]) >> 16));
+      img.data[3 * i + 2] = clamp(y + cb_b[cb]);
+    }
+    return img;
+  }
+};
+
+Image decode_jpeg(const std::vector<uint8_t>& file) {
+  JpegDecoder d(file);
+  d.parse();
+  return d.finish();
+}
+
+// ===========================================================================
+// PNG decoder (every colour type, bit depth and interlace method)
+// ===========================================================================
+
+int paeth(int a, int b, int c) {
+  int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  return pb <= pc ? b : c;
+}
+
+void unfilter(uint8_t* rows, int n_rows, size_t stride, int bpp) {
+  // rows: n_rows x (1 + stride) bytes, filtered in place to raw bytes
+  const uint8_t* prev = nullptr;
+  for (int y = 0; y < n_rows; ++y) {
+    uint8_t* line = rows + size_t(y) * (stride + 1);
+    uint8_t kind = line[0];
+    uint8_t* cur = line + 1;
+    for (size_t x = 0; x < stride; ++x) {
+      int a = x >= size_t(bpp) ? cur[x - bpp] : 0;
+      int b = prev ? prev[x] : 0;
+      int c = (prev && x >= size_t(bpp)) ? prev[x - bpp] : 0;
+      int v = cur[x];
+      switch (kind) {
+        case 0: break;
+        case 1: v += a; break;
+        case 2: v += b; break;
+        case 3: v += (a + b) >> 1; break;
+        case 4: v += paeth(a, b, c); break;
+        default: throw Error("PNG: unknown filter type " + std::to_string(kind));
+      }
+      cur[x] = uint8_t(v);
+    }
+    prev = cur;
+  }
+}
+
+Image decode_png(const std::vector<uint8_t>& file) {
+  size_t pos = 8;
+  uint32_t width = 0, height = 0;
+  int depth = 0, color = 0, interlace = 0;
+  std::vector<uint8_t> idat, plte;
+  bool header = false;
+  while (pos + 8 <= file.size()) {
+    uint32_t len = be32(&file[pos]);
+    if (pos + 12 + size_t(len) > file.size()) throw Error("PNG: truncated chunk");
+    const uint8_t* type = &file[pos + 4];
+    const uint8_t* data = &file[pos + 8];
+    if (!std::memcmp(type, "IHDR", 4)) {
+      if (len != 13) throw Error("PNG: bad IHDR");
+      width = be32(data);
+      height = be32(data + 4);
+      depth = data[8];
+      color = data[9];
+      interlace = data[12];
+      header = true;
+    } else if (!std::memcmp(type, "PLTE", 4)) {
+      plte.assign(data, data + len);
+    } else if (!std::memcmp(type, "IDAT", 4)) {
+      idat.insert(idat.end(), data, data + len);
+    } else if (!std::memcmp(type, "IEND", 4)) {
+      break;
+    }
+    pos += 12 + len;
+  }
+  if (!header || !width || !height) throw Error("PNG: no image header");
+  int nch;
+  switch (color) {
+    case 0: nch = 1; break;
+    case 2: nch = 3; break;
+    case 3: nch = 1; break;
+    case 4: nch = 2; break;
+    case 6: nch = 4; break;
+    default: throw Error("PNG: unknown colour type " + std::to_string(color));
+  }
+  bool ok_depth = (color == 0 && (depth == 1 || depth == 2 || depth == 4 || depth == 8 ||
+                                  depth == 16)) ||
+                  (color == 3 && (depth == 1 || depth == 2 || depth == 4 || depth == 8)) ||
+                  ((color == 2 || color == 4 || color == 6) && (depth == 8 || depth == 16));
+  if (!ok_depth) throw Error("PNG: bad bit depth " + std::to_string(depth));
+  if (interlace > 1) throw Error("PNG: unknown interlace method");
+  if (color == 3 && plte.empty()) throw Error("PNG: palette image without PLTE");
+
+  struct Pass { int x0, y0, dx, dy; };
+  const Pass adam7[7] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                         {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  const Pass whole[1] = {{0, 0, 1, 1}};
+  const Pass* passes = interlace ? adam7 : whole;
+  int n_passes = interlace ? 7 : 1;
+  const int bits_pp = nch * depth;
+  const int bpp = std::max(1, bits_pp / 8);
+  size_t raw_size = 0;
+  for (int p = 0; p < n_passes; ++p) {
+    size_t pw = (width - passes[p].x0 + passes[p].dx - 1) / passes[p].dx;
+    size_t ph = (height - passes[p].y0 + passes[p].dy - 1) / passes[p].dy;
+    if (width <= uint32_t(passes[p].x0) || height <= uint32_t(passes[p].y0)) continue;
+    raw_size += ph * (1 + (pw * bits_pp + 7) / 8);
+  }
+  std::vector<uint8_t> raw(raw_size);
+  uLongf raw_len = raw.size();
+  if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != Z_OK ||
+      raw_len != raw.size())
+    throw Error("PNG: corrupt image data");
+
+  // samples [H, W, nch] as 16-bit values before the mode conversion
+  std::vector<uint16_t> s(size_t(width) * height * nch);
+  size_t off = 0;
+  for (int p = 0; p < n_passes; ++p) {
+    if (width <= uint32_t(passes[p].x0) || height <= uint32_t(passes[p].y0)) continue;
+    int pw = int((width - passes[p].x0 + passes[p].dx - 1) / passes[p].dx);
+    int ph = int((height - passes[p].y0 + passes[p].dy - 1) / passes[p].dy);
+    size_t stride = (size_t(pw) * bits_pp + 7) / 8;
+    unfilter(&raw[off], ph, stride, bpp);
+    for (int y = 0; y < ph; ++y) {
+      const uint8_t* line = &raw[off + size_t(y) * (stride + 1) + 1];
+      size_t oy = size_t(passes[p].y0 + y * passes[p].dy);
+      for (int x = 0; x < pw; ++x) {
+        size_t ox = size_t(passes[p].x0 + x * passes[p].dx);
+        uint16_t* dst = &s[(oy * width + ox) * nch];
+        for (int ch = 0; ch < nch; ++ch) {
+          size_t i = size_t(x) * nch + ch;
+          if (depth == 16) {
+            dst[ch] = uint16_t((line[2 * i] << 8) | line[2 * i + 1]);
+          } else if (depth == 8) {
+            dst[ch] = line[i];
+          } else {
+            size_t bit = i * depth;
+            dst[ch] = uint16_t((line[bit / 8] >> (8 - depth - bit % 8)) & ((1 << depth) - 1));
+          }
+        }
+      }
+    }
+    off += size_t(ph) * (stride + 1);
+  }
+
+  Image img;
+  img.w = int(width);
+  img.h = int(height);
+  const size_t n = size_t(width) * height;
+  auto put8 = [&](int channels, int mode) {
+    img.channels = channels;
+    img.mode = mode;
+    img.data.resize(n * channels);
+  };
+  if (color == 0 && depth == 16) {
+    img.channels = 1;
+    img.mode = MODE_I16;
+    img.bitdepth = 16;
+    img.data.resize(n * 2);
+    std::memcpy(img.data.data(), s.data(), n * 2);
+  } else if (color == 0) {  // 1 (0/1), or L scaled to 0..255 (x85, x17)
+    put8(1, depth == 1 ? MODE_1 : MODE_L);
+    int scale = depth == 1 ? 1 : 255 / ((1 << depth) - 1);
+    for (size_t i = 0; i < n; ++i) img.data[i] = uint8_t(s[i] * scale);
+  } else if (color == 3) {
+    put8(1, MODE_P);
+    for (size_t i = 0; i < n; ++i) img.data[i] = uint8_t(s[i]);
+    img.palette.assign(plte.begin(), plte.begin() + (plte.size() / 3) * 3);
+  } else if (color == 4 && depth == 8) {
+    put8(2, MODE_LA);
+    for (size_t i = 0; i < 2 * n; ++i) img.data[i] = uint8_t(s[i]);
+  } else if (color == 4) {  // 16-bit gray + alpha opens as RGBA of the high bytes
+    put8(4, MODE_RGBA);
+    for (size_t i = 0; i < n; ++i) {
+      uint8_t l = uint8_t(s[2 * i] >> 8);
+      img.data[4 * i] = img.data[4 * i + 1] = img.data[4 * i + 2] = l;
+      img.data[4 * i + 3] = uint8_t(s[2 * i + 1] >> 8);
+    }
+  } else {  // RGB / RGBA, 16-bit as the high bytes
+    put8(nch, color == 2 ? MODE_RGB : MODE_RGBA);
+    int shift = depth == 16 ? 8 : 0;
+    for (size_t i = 0; i < n * nch; ++i) img.data[i] = uint8_t(s[i] >> shift);
+  }
+  return img;
+}
+
+// ===========================================================================
+// BMP decoder (uncompressed 8-bit paletted, 24-bit and 32-bit)
+// ===========================================================================
+
+Image decode_bmp(const std::vector<uint8_t>& file) {
+  if (file.size() < 54) throw Error("BMP: truncated header");
+  uint32_t offset = le32(&file[10]), hsize = le32(&file[14]);
+  if (hsize < 40) throw Error("BMP: OS/2 headers are not supported");
+  int32_t width = int32_t(le32(&file[18])), height = int32_t(le32(&file[22]));
+  int bits = int(le16(&file[28]));
+  uint32_t compression = le32(&file[30]), colors = le32(&file[46]);
+  if (compression != 0) throw Error("BMP: compressed (RLE or bit-field) files are not supported");
+  if (bits != 8 && bits != 24 && bits != 32)
+    throw Error("BMP: " + std::to_string(bits) + "-bit files are not supported");
+  if (width <= 0 || height == 0) throw Error("BMP: bad size");
+  bool top_down = height < 0;
+  int h = top_down ? -height : height, w = width;
+  size_t stride = ((size_t(w) * bits + 31) / 32) * 4;
+  if (size_t(offset) + stride * h > file.size()) throw Error("BMP: truncated pixel data");
+  Image img;
+  img.w = w;
+  img.h = h;
+  if (bits == 8) {
+    if (colors == 0) colors = 256;
+    if (colors > 256 || 14 + size_t(hsize) + 4 * size_t(colors) > file.size())
+      throw Error("BMP: bad palette");
+    const uint8_t* pal = &file[14 + hsize];
+    bool gray = true;
+    for (uint32_t i = 0; i < colors; ++i) {
+      uint32_t v = colors == 2 ? (i ? 255 : 0) : i;
+      gray &= pal[4 * i] == v && pal[4 * i + 1] == v && pal[4 * i + 2] == v;
+    }
+    if (gray && colors == 2) throw Error("BMP: 8-bit two-colour files are not supported");
+    img.mode = gray ? MODE_L : MODE_P;
+    img.channels = 1;
+    img.data.resize(size_t(w) * h);
+    for (uint32_t i = 0; i < colors && !gray; ++i) {
+      img.palette.push_back(pal[4 * i + 2]);
+      img.palette.push_back(pal[4 * i + 1]);
+      img.palette.push_back(pal[4 * i]);
+    }
+  } else {
+    img.mode = MODE_RGB;
+    img.channels = 3;
+    img.data.resize(size_t(w) * h * 3);
+  }
+  int step = bits / 8;
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* row = &file[offset + stride * size_t(top_down ? y : h - 1 - y)];
+    uint8_t* dst = &img.data[size_t(y) * w * img.channels];
+    for (int x = 0; x < w; ++x) {
+      if (bits == 8) {
+        dst[x] = row[x];
+      } else {
+        dst[3 * x] = row[step * x + 2];
+        dst[3 * x + 1] = row[step * x + 1];
+        dst[3 * x + 2] = row[step * x];
+      }
+    }
+  }
+  return img;
+}
+
+Image decode_any(const std::vector<uint8_t>& file) {
+  static const uint8_t png_sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+  if (file.size() >= 3 && file[0] == 0xFF && file[1] == 0xD8 && file[2] == 0xFF)
+    return decode_jpeg(file);
+  if (file.size() >= 8 && !std::memcmp(file.data(), png_sig, 8)) return decode_png(file);
+  if (file.size() >= 2 && file[0] == 'B' && file[1] == 'M') return decode_bmp(file);
+  throw Error("not a JPEG, PNG or BMP file");
+}
+
+// ===========================================================================
+// baseline gray JPEG writer
+// ===========================================================================
+
+const uint8_t kStdLumQuant[64] = {
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcLumVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct EncTable {
+  uint32_t code[256] = {0};
+  int size[256] = {0};
+  EncTable(const uint8_t* bits, const uint8_t* vals) {
+    int code_v = 0, p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < bits[l]; ++i) {
+        code[vals[p]] = uint32_t(code_v++);
+        size[vals[p++]] = l;
+      }
+      code_v <<= 1;
+    }
+  }
+};
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t acc = 0;
+  int cnt = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t bits, int n) {
+    acc = (acc << n) | (bits & ((uint32_t(1) << n) - 1));
+    cnt += n;
+    while (cnt >= 8) {
+      uint8_t b = uint8_t(acc >> (cnt - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      cnt -= 8;
+    }
+  }
+  void flush() {
+    if (cnt) put(0x7F, 8 - cnt);  // fill the last byte with ones
+  }
+};
+
+// jfdctint.c jpeg_fdct_islow on level-shifted samples
+void fdct_islow(int* d) {
+  const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                F2562 = 20995, F3072 = 25172;
+  auto descale = [](int64_t x, int n) { return int((x + (int64_t(1) << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int i = 0; i < 8; ++i) {
+      int step = pass ? 8 : 1;
+      int* p = pass ? d + i : d + 8 * i;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+              tmp12 = tmp1 - tmp2;
+      int sh = pass ? 13 + 2 : 13 - 2;
+      if (pass) {
+        p[0] = descale(tmp10 + tmp11, 2);
+        p[4 * step] = descale(tmp10 - tmp11, 2);
+      } else {
+        p[0] = int((tmp10 + tmp11) * 4);
+        p[4 * step] = int((tmp10 - tmp11) * 4);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0541;
+      p[2 * step] = descale(z1 + tmp13 * F0765, sh);
+      p[6 * step] = descale(z1 + tmp12 * -F1847, sh);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * F1175;
+      tmp4 *= F0298;
+      tmp5 *= F2053;
+      tmp6 *= F3072;
+      tmp7 *= F1501;
+      z1 *= -F0899;
+      z2 *= -F2562;
+      z3 = z3 * -F1961 + z5;
+      z4 = z4 * -F0390 + z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, sh);
+      p[5 * step] = descale(tmp5 + z2 + z4, sh);
+      p[3 * step] = descale(tmp6 + z2 + z3, sh);
+      p[step] = descale(tmp7 + z1 + z4, sh);
+    }
+  }
+}
+
+// jcdctmgr.c compute_reciprocal (16-bit DCTELEM): divisor -> (reciprocal,
+// correction, shift) so that q = ((|x| + corr) * recip) >> shift
+void reciprocal(uint32_t divisor, uint32_t* recip, uint32_t* corr, int* shift) {
+  if (divisor == 1) {
+    *recip = 1;
+    *corr = 0;
+    *shift = 0;
+    return;
+  }
+  int b = 0;
+  while ((1u << (b + 1)) <= divisor) ++b;  // floor(log2(divisor))
+  int r = 16 + b;
+  uint64_t fq = (uint64_t(1) << r) / divisor, fr = (uint64_t(1) << r) % divisor;
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= divisor / 2) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  *recip = uint32_t(fq);
+  *corr = c;
+  *shift = r;
+}
+
+// PIL's default quality 75: jcparam.c's jpeg_quality_scaling gives 200 - 2 * 75 = 50 %.
+std::vector<uint8_t> encode_jpeg_gray(const uint8_t* px, int w, int h) {
+  const long scale = 50;
+  uint16_t q[64];  // natural order
+  for (int i = 0; i < 64; ++i) {
+    long t = (long(kStdLumQuant[i]) * scale + 50) / 100;
+    q[i] = uint16_t(std::max(1L, std::min(255L, t)));
+  }
+  uint32_t recip[64], corr[64];
+  int shift[64];
+  for (int i = 0; i < 64; ++i) reciprocal(uint32_t(q[i]) << 3, &recip[i], &corr[i], &shift[i]);
+
+  std::vector<uint8_t> out;
+  auto put16 = [&](int v) {
+    out.push_back(uint8_t(v >> 8));
+    out.push_back(uint8_t(v & 0xFF));
+  };
+  const uint8_t jfif[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00,
+                          0x01, 0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
+  out.insert(out.end(), jfif, jfif + sizeof(jfif));
+  out.push_back(0xFF);
+  out.push_back(0xDB);
+  put16(67);
+  out.push_back(0x00);
+  for (int k = 0; k < 64; ++k) out.push_back(uint8_t(q[kNatural.k[k]]));
+  const uint8_t sof[] = {0xFF, 0xC0, 0x00, 0x0B, 0x08};
+  out.insert(out.end(), sof, sof + sizeof(sof));
+  put16(h);
+  put16(w);
+  out.push_back(1);
+  out.push_back(1);
+  out.push_back(0x11);
+  out.push_back(0);
+  auto dht = [&](int index, const uint8_t* bits, const uint8_t* vals) {
+    int total = 0;
+    for (int l = 1; l <= 16; ++l) total += bits[l];
+    out.push_back(0xFF);
+    out.push_back(0xC4);
+    put16(2 + 1 + 16 + total);
+    out.push_back(uint8_t(index));
+    out.insert(out.end(), bits + 1, bits + 17);
+    out.insert(out.end(), vals, vals + total);
+  };
+  dht(0x00, kDcLumBits, kDcLumVals);
+  dht(0x10, kAcLumBits, kAcLumVals);
+  const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x08, 0x01, 0x01, 0x00, 0x00, 0x3F, 0x00};
+  out.insert(out.end(), sos, sos + sizeof(sos));
+
+  const EncTable dct(kDcLumBits, kDcLumVals), act(kAcLumBits, kAcLumVals);
+  BitWriter bw(out);
+  int last_dc = 0;
+  auto nbits = [](int v) {
+    int n = 0;
+    while (v) {
+      ++n;
+      v >>= 1;
+    }
+    return n;
+  };
+  int bw_blocks = (w + 7) / 8, bh_blocks = (h + 7) / 8;
+  for (int by = 0; by < bh_blocks; ++by) {
+    for (int bx = 0; bx < bw_blocks; ++bx) {
+      int d[64], coef[64];
+      for (int y = 0; y < 8; ++y)
+        for (int x = 0; x < 8; ++x) {  // edge replication pads the last block
+          int sy = std::min(by * 8 + y, h - 1), sx = std::min(bx * 8 + x, w - 1);
+          d[8 * y + x] = int(px[size_t(sy) * w + sx]) - 128;
+        }
+      fdct_islow(d);
+      for (int i = 0; i < 64; ++i) {
+        int t = d[i];
+        bool neg = t < 0;
+        uint32_t a = uint32_t(neg ? -t : t);
+        int v = int((uint64_t(a + corr[i]) * recip[i]) >> shift[i]);
+        coef[i] = neg ? -v : v;
+      }
+      int diff = coef[0] - last_dc;
+      last_dc = coef[0];
+      int t = diff < 0 ? -diff : diff, t2 = diff < 0 ? diff - 1 : diff, n = nbits(t);
+      bw.put(dct.code[n], dct.size[n]);
+      if (n) bw.put(uint32_t(t2), n);
+      int run = 0;
+      for (int k = 1; k < 64; ++k) {
+        int c = coef[kNatural.k[k]];
+        if (c == 0) {
+          ++run;
+          continue;
+        }
+        while (run > 15) {
+          bw.put(act.code[0xF0], act.size[0xF0]);
+          run -= 16;
+        }
+        t = c < 0 ? -c : c;
+        t2 = c < 0 ? c - 1 : c;
+        n = nbits(t);
+        int sym = (run << 4) + n;
+        bw.put(act.code[sym], act.size[sym]);
+        bw.put(uint32_t(t2), n);
+        run = 0;
+      }
+      if (run > 0) bw.put(act.code[0], act.size[0]);
+    }
+  }
+  bw.flush();
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+  return out;
+}
+
+void set_error(char* err, int err_len, const char* msg) {
+  if (err && err_len > 0) {
+    std::strncpy(err, msg, size_t(err_len) - 1);
+    err[err_len - 1] = 0;
+  }
+}
+
+uint8_t* to_malloc(const std::vector<uint8_t>& v) {
+  uint8_t* out = static_cast<uint8_t*>(std::malloc(std::max<size_t>(v.size(), 1)));
+  if (out && !v.empty()) std::memcpy(out, v.data(), v.size());
+  return out;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode a JPEG, PNG or BMP file.  Returns a malloc'd interleaved sample
+// buffer (free with pslx_free) and its shape, bit depth and mode (0 "1",
+// 1 "L", 2 "P", 3 "I;16", 4 "LA", 5 "RGB", 6 "RGBA"); mode P fills
+// palette (up to 768 bytes of RGB) and *palette_len.  On failure returns
+// nullptr with the reason in err.
+uint8_t* pslx_decode_file(const char* path, int* w, int* h, int* channels, int* bitdepth,
+                          int* mode, uint8_t* palette, int* palette_len, char* err,
+                          int err_len) {
+  try {
+    Image img = decode_any(read_file(path));
+    *w = img.w;
+    *h = img.h;
+    *channels = img.channels;
+    *bitdepth = img.bitdepth;
+    *mode = img.mode;
+    *palette_len = int(std::min<size_t>(img.palette.size(), 768));
+    if (*palette_len) std::memcpy(palette, img.palette.data(), size_t(*palette_len));
+    uint8_t* out = to_malloc(img.data);
+    if (!out) set_error(err, err_len, "out of memory");
+    return out;
+  } catch (const std::exception& e) {
+    set_error(err, err_len, e.what());
+    return nullptr;
+  }
+}
+
+// A gray [h, w] uint8 image -> a baseline JPEG at quality 75 (malloc'd
+// bytes, *size set), or nullptr.
+uint8_t* pslx_encode_jpeg_gray(const uint8_t* pixels, int w, int h, int* size) {
+  try {
+    std::vector<uint8_t> out = encode_jpeg_gray(pixels, w, h);
+    *size = int(out.size());
+    return to_malloc(out);
+  } catch (const std::exception&) {
+    return nullptr;
+  }
+}
+
+void pslx_free(void* p) { std::free(p); }
+
+}  // extern "C"

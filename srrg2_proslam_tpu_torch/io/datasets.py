@@ -1,21 +1,27 @@
 """Dataset readers and writers emitting host numpy arrays.
 
 Port of srrg2_proslam_tpu/io/datasets.py, needing neither PIL nor the JAX
-package.  Images decode through the native library (io/native.py, the
-repo's C++ decoder built at first use); the readers of dataset folders
-take their files through its in-order prefetcher.  ``decode_plain`` is the
-plain Python decoder the native one is held to: PNG 8- and 16-bit gray,
-gray+alpha, RGB and RGBA non-interlaced with all five scanline filters,
-binary P5 PGM with 8- or 16-bit (big-endian) samples.  Colour becomes gray
-as 0.299 R + 0.587 G + 0.114 B in float64, then float32.  ``save_gray``
-writes 8-bit PNG (zlib) or PGM.
+package.  An image decodes as the JAX package decodes it: through the
+native library (io/native.py, the repo's C++ decoder built at first use)
+when that reads the file, else through the port's second image library
+(io/images.py: JPEG, palette, 1/2/4-bit and interlaced PNG, BMP), which
+stands where the JAX package calls PIL and gives PIL's result; a file
+neither reads raises.  The readers of dataset folders take their files
+through the native prefetcher and decode the files it refuses on the
+calling thread.  ``decode_plain`` is the plain Python decoder the native
+one is held to: PNG 8- and 16-bit gray, gray+alpha, RGB and RGBA
+non-interlaced with all five scanline filters, binary P5 PGM with 8- or
+16-bit (big-endian) samples.  On the native path colour becomes gray as
+0.299 R + 0.587 G + 0.114 B in float64, then float32; on the other, as
+PIL's integer luma.  ``save_gray`` writes 8-bit PNG (zlib), PGM, baseline
+JPEG (quality 75) or 8-bit BMP by the file's extension, as PIL does.
 
 Layouts: the bundled test data (``test_data/kitti/*``, ``test_data/icl``);
 KITTI odometry (``image_0/ image_1/ times.txt``); TUM RGB-D (``rgb.txt
 depth.txt``, nearest-timestamp pairing, 16-bit PNG depth); EuRoC ASL
 (``mav0/cam{0,1}/data``, rectified through io/rectify.py when the
 ``sensor.yaml`` files are present); Malaga extracts (``Images/*_left*``,
-PNG or PGM: JPEG has no decoder here).  Trajectories are written in the
+JPEG or PNG).  Trajectories are written in the
 KITTI and TUM formats.
 """
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from ..ops.pinhole import Camera
-from . import native
+from . import images, native
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples per pixel
@@ -145,21 +151,33 @@ def decode_plain(path: str) -> np.ndarray:
     raise ValueError(f"not a PNG or binary PGM file: {path}")
 
 
+def _read(path: str):
+    """A file's samples as the native decoder gives them, or, when it does
+    not read the file, as io/images.py does (an ``images.Decoded``)."""
+    arr = native.try_decode(path)
+    return images.decode(path) if arr is None else arr
+
+
+def _gray(item) -> np.ndarray:
+    return images.gray_f32(item) if isinstance(item, images.Decoded) else native.to_gray_f32(item)
+
+
+def _depth(item) -> np.ndarray:
+    if isinstance(item, images.Decoded):
+        return images.depth_f32(item)
+    arr = item[:, :, 0] if item.ndim == 3 else item
+    return np.ascontiguousarray(arr, dtype=np.float32)
+
+
 def load_gray(path: str) -> np.ndarray:
     """Image -> float32 gray [H, W] in 0..255 (16-bit samples / 256)."""
-    return native.to_gray_f32(native.decode(path))
-
-
-def _depth_f32(arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 3:
-        arr = arr[:, :, 0]
-    return np.ascontiguousarray(arr, dtype=np.float32)
+    return _gray(_read(path))
 
 
 def load_depth(path: str) -> np.ndarray:
     """16-bit depth image (binary PGM or PNG) -> float32 raw units [H, W];
-    the adaptor scales to metres."""
-    return _depth_f32(native.decode(path))
+    the adaptor scales to metres.  Other files give their first channel."""
+    return _depth(_read(path))
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -168,19 +186,28 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def save_gray(path: str, image) -> None:
-    """Write a gray [H, W] image (0..255, clipped, truncated to uint8) as an
-    8-bit PNG, or a binary PGM when ``path`` ends in ``.pgm``."""
+    """Write a gray [H, W] image (0..255, clipped, truncated to uint8) in the
+    format the extension names: 8-bit PNG, binary PGM, baseline JPEG
+    (quality 75, as PIL writes it) or 8-bit BMP; ValueError otherwise."""
     arr = np.clip(np.asarray(image), 0, 255).astype(np.uint8)
     rows, cols = arr.shape
-    if path.lower().endswith(".pgm"):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".pgm":
         blob = f"P5\n{cols} {rows}\n255\n".encode() + arr.tobytes()
-    else:
+    elif ext == ".png":
         lines = np.zeros((rows, cols + 1), np.uint8)   # filter byte 0 (None)
         lines[:, 1:] = arr
         blob = (_PNG_SIGNATURE
                 + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", cols, rows, 8, 0, 0, 0, 0))
                 + _png_chunk(b"IDAT", zlib.compress(lines.tobytes(), 6))
                 + _png_chunk(b"IEND", b""))
+    elif ext in (".jpg", ".jpeg"):
+        blob = images.encode_jpeg_gray(arr)
+    elif ext == ".bmp":
+        blob = images.encode_bmp_gray(arr)
+    else:
+        raise ValueError(f"save_gray: no writer for {ext or 'a name without extension'!r} "
+                         f"({path}); use .png, .pgm, .jpg, .jpeg or .bmp")
     with open(path, "wb") as f:
         f.write(blob)
 
@@ -298,12 +325,15 @@ def iter_bundled_icl(root: str) -> Iterator[RGBDFrame]:
         )
 
 
-def _decoded(paths: List[str]) -> Iterator[np.ndarray]:
-    """The decoded samples of ``paths``, in order, through the prefetcher."""
+def _decoded(paths: List[str]) -> Iterator:
+    """``_read`` of each of ``paths``, in order: the native prefetcher
+    decodes ahead; a file it refuses is decoded by io/images.py here."""
     if not paths:
         return
     with native.Prefetcher(paths) as pf:
-        yield from pf
+        for path in paths:
+            arr = pf.next_or_none()
+            yield images.decode(path) if arr is None else arr
 
 
 def _pairs(pairs, to_a, to_b) -> Iterator[tuple]:
@@ -327,7 +357,7 @@ def iter_kitti_odometry(sequence_dir: str, gt_file: Optional[str] = None,
     pairs = [(os.path.join(left_dir, names[i]), os.path.join(right_dir, names[i]))
              for i in range(start, end)]
     for i, (left, right) in zip(range(start, end),
-                                _pairs(pairs, native.to_gray_f32, native.to_gray_f32)):
+                                _pairs(pairs, _gray, _gray)):
         yield StereoFrame(timestamp=float(times[i]), left=left, right=right,
                           gt_pose=gt[i] if gt is not None and i < len(gt) else None)
 
@@ -362,7 +392,7 @@ def iter_tum_rgbd(sequence_dir: str, max_dt: float = 0.02,
     pairs = [(os.path.join(sequence_dir, r), os.path.join(sequence_dir, d))
              for _, r, d in frames]
     for (ts, _, _), (intensity, dep) in zip(frames,
-                                            _pairs(pairs, native.to_gray_f32, _depth_f32)):
+                                            _pairs(pairs, _gray, _depth)):
         yield RGBDFrame(timestamp=ts, intensity=intensity, depth=dep)
 
 
@@ -382,8 +412,7 @@ def iter_euroc_stereo(sequence_dir: str, count: Optional[int] = None,
     names1 = set(os.listdir(cam1))
     names = [n for n in sorted(os.listdir(cam0)) if n in names1][:count]
     pairs = [(os.path.join(cam0, n), os.path.join(cam1, n)) for n in names]
-    for name, (left, right) in zip(names, _pairs(pairs, native.to_gray_f32,
-                                                 native.to_gray_f32)):
+    for name, (left, right) in zip(names, _pairs(pairs, _gray, _gray)):
         if rect is not None:
             left, right = remap(left, rect.map0), remap(right, rect.map1)
         yield StereoFrame(timestamp=float(os.path.splitext(name)[0]) * 1e-9,
@@ -408,8 +437,7 @@ def iter_malaga_stereo(sequence_dir: str, count: Optional[int] = None) -> Iterat
              if os.path.exists(os.path.join(img_dir, n.replace("_left", "_right")))][:count]
     pairs = [(os.path.join(img_dir, n), os.path.join(img_dir, n.replace("_left", "_right")))
              for n in names]
-    for i, (name, (left, right)) in enumerate(zip(names, _pairs(pairs, native.to_gray_f32,
-                                                                native.to_gray_f32))):
+    for i, (name, (left, right)) in enumerate(zip(names, _pairs(pairs, _gray, _gray))):
         stamp = re.findall(r"\d+\.\d+", name)
         yield StereoFrame(timestamp=float(stamp[0]) if stamp else float(i),
                           left=left, right=right)

@@ -8,7 +8,10 @@ order a few files ahead).  It is compiled at first use with
 ``srrg2_proslam_tpu_torch/build/``, named by a hash of the sources and
 flags; nothing is written into ``native/``.  A failed build raises with
 the compiler's output: there is no silent fallback.  ``datasets.decode_plain``
-is the plain Python decoder the native one is held to.
+is the plain Python decoder the native one is held to.  Files this library
+does not read (JPEG, palette, 1/2/4-bit and interlaced PNG, BMP) go to the
+port's second image library, ``io/images.py``, as the JAX package sends
+them to PIL; ``compile_library`` builds both.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -39,25 +42,30 @@ def _cxx() -> str:
     return cxx
 
 
-def build() -> Path:
-    """Compile the library unless one of the same sources and flags exists;
-    returns its path.  Raises with the compiler's output on failure."""
+def compile_library(stem: str, sources: List[Path], libs: List[str]) -> Path:
+    """Compile ``sources`` into ``BUILD_DIR/<stem>_<hash>.so`` unless a
+    library of the same sources and flags exists; returns its path.  Raises
+    with the compiler's output on failure."""
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(CXX_FLAGS + LIBS).encode())
-    so = BUILD_DIR / f"libproslam_io_{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(CXX_FLAGS + libs).encode())
+    so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS],
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), *map(str, sources), *libs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building the native IO library failed:\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"building {stem} failed:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)   # atomic: concurrent builds each write their own tmp
     return so
+
+
+def build() -> Path:
+    """Compile the native IO library unless it exists; returns its path."""
+    return compile_library("libproslam_io", SOURCES, LIBS)
 
 
 def library() -> ctypes.CDLL:
@@ -88,15 +96,24 @@ def _to_array(ptr, w: int, h: int, channels: int, bitdepth: int, lib) -> np.ndar
     return arr[:, :, 0] if channels == 1 else arr
 
 
-def decode(path: str) -> np.ndarray:
-    """One PNG/PGM/PPM file -> its samples, [H, W] or [H, W, C] uint8/uint16."""
+def try_decode(path: str) -> Optional[np.ndarray]:
+    """One file -> its samples, or None when the native decoder does not
+    read it (the JAX package's ``native.decode``)."""
     lib = library()
     w, h, c, d = (ctypes.c_int() for _ in range(4))
     ptr = lib.psl_decode_file(os.fsencode(path), ctypes.byref(w), ctypes.byref(h),
                               ctypes.byref(c), ctypes.byref(d))
     if not ptr:
-        raise ValueError(f"native decoder cannot read {path} (PNG, PGM and PPM only)")
+        return None
     return _to_array(ptr, w.value, h.value, c.value, d.value, lib)
+
+
+def decode(path: str) -> np.ndarray:
+    """One PNG/PGM/PPM file -> its samples, [H, W] or [H, W, C] uint8/uint16."""
+    arr = try_decode(path)
+    if arr is None:
+        raise ValueError(f"native decoder cannot read {path} (PNG, PGM and PPM only)")
+    return arr
 
 
 def to_gray_f32(arr: np.ndarray) -> np.ndarray:
@@ -128,7 +145,9 @@ class Prefetcher:
     def __iter__(self) -> Iterator[np.ndarray]:
         return self
 
-    def __next__(self) -> np.ndarray:
+    def next_or_none(self) -> Optional[np.ndarray]:
+        """The next file's samples, or None when the native decoder does not
+        read it; StopIteration past the last file."""
         if self._consumed >= len(self._paths):
             raise StopIteration
         w, h, c, d = (ctypes.c_int() for _ in range(4))
@@ -136,9 +155,15 @@ class Prefetcher:
                                           ctypes.byref(c), ctypes.byref(d))
         self._consumed += 1
         if not ptr:
+            return None
+        return _to_array(ptr, w.value, h.value, c.value, d.value, self._lib)
+
+    def __next__(self) -> np.ndarray:
+        arr = self.next_or_none()
+        if arr is None:
             raise ValueError("native decoder cannot read "
                              f"{os.fsdecode(self._paths[self._consumed - 1])}")
-        return _to_array(ptr, w.value, h.value, c.value, d.value, self._lib)
+        return arr
 
     def close(self):
         if getattr(self, "_handle", None):

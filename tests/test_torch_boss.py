@@ -76,7 +76,7 @@ def test_parse_boss_equals_jax(text):
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
-@pytest.mark.parametrize("image_format", ["png", "pgm", "blob"])
+@pytest.mark.parametrize("image_format", ["png", "pgm", "blob", "bmp"])
 def test_stereo_logs_read_across_packages(tmp_path, rng, writer, image_format):
     boss_mod, ds_mod = PKGS[writer]
     cam = ds_mod.kitti_camera(rows=40, cols=56)

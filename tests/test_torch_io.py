@@ -11,8 +11,10 @@ and ``sensor.yaml`` with a non-coplanar rig) and Malaga (``Images/``).
 Bounds: images, timestamps and ground-truth poses exactly equal; the EuRoC
 rectification tables and ``euroc_rectified_camera`` within 1e-9; the
 port's ``sensor.yaml`` parser equal to ``yaml.safe_load``; trajectory and
-PFM writers byte-identical; ``save_gray`` PNGs decode to the same pixels
-both ways; the native decoder equal to the plain Python decoder and to the
+PFM writers byte-identical; ``save_gray`` PNG, PGM and BMP files decode to
+the same pixels both ways and its JPEG is PIL's file byte for byte (the
+Malaga folder is also written as JPEG, read through the second image
+library); the native decoder equal to the plain Python decoder and to the
 JAX package's decoder on every bundled image, and its prefetcher in order.
 """
 import glob
@@ -198,18 +200,19 @@ def test_euroc_stereo_equals_jax(euroc_dir, rectify):
 
 
 def test_malaga_stereo_equals_jax(tmp_path):
-    img = tmp_path / "Images"
-    os.makedirs(img)
-    for i, (left, right, _) in enumerate(_kitti_pairs()):
-        stamp = f"img_CAMERA1_{1261228749.918590 + 0.05 * i:.6f}"
-        tds.save_gray(str(img / f"{stamp}_left.png"), left)
-        if i != 1:                     # a left image without its right: skipped
-            tds.save_gray(str(img / f"{stamp}_right.png"), right)
-    for count in (None, 1):
-        got_t = list(tds.iter_malaga_stereo(str(tmp_path), count=count))
-        got_j = list(jds.iter_malaga_stereo(str(tmp_path), count=count))
-        _frames_equal(got_t, got_j, ("left", "right"))
-        assert len(got_t) == (2 if count is None else 1)
+    for ext in ("png", "jpg"):         # JPEG takes the second image library
+        img = tmp_path / ext / "Images"
+        os.makedirs(img)
+        for i, (left, right, _) in enumerate(_kitti_pairs()):
+            stamp = f"img_CAMERA1_{1261228749.918590 + 0.05 * i:.6f}"
+            tds.save_gray(str(img / f"{stamp}_left.{ext}"), left)
+            if i != 1:                     # a left image without its right: skipped
+                tds.save_gray(str(img / f"{stamp}_right.{ext}"), right)
+        for count in (None, 1):
+            got_t = list(tds.iter_malaga_stereo(str(tmp_path / ext), count=count))
+            got_j = list(jds.iter_malaga_stereo(str(tmp_path / ext), count=count))
+            _frames_equal(got_t, got_j, ("left", "right"))
+            assert len(got_t) == (2 if count is None else 1)
 
 
 @pytest.mark.parametrize("name", ["kitti_camera", "icl_camera", "tum_camera",
@@ -244,18 +247,22 @@ def test_pfm_write_byte_identical_and_read(tmp_path, rng):
                                   jds.read_pfm(str(tmp_path / "c.pfm")))
 
 
-@pytest.mark.parametrize("ext", ["png", "pgm"])
+@pytest.mark.parametrize("ext", ["png", "pgm", "jpg", "bmp"])
 def test_save_gray_both_ways(tmp_path, rng, ext):
     img = rng.uniform(-20, 280, (37, 53)).astype(np.float32)
     want = np.clip(img, 0, 255).astype(np.uint8).astype(np.float32)
     tds.save_gray(str(tmp_path / f"t.{ext}"), img)          # the port's writer
     jds.save_gray(str(tmp_path / f"j.{ext}"), img)          # PIL's
+    if ext == "jpg":    # lossy: the port writes PIL's bytes, so both read back alike
+        assert (tmp_path / "t.jpg").read_bytes() == (tmp_path / "j.jpg").read_bytes()
+        want = jds.load_gray(str(tmp_path / "j.jpg"))
     np.testing.assert_array_equal(jds.load_gray(str(tmp_path / f"t.{ext}")), want)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / f"t.{ext}"), np.float32),
                                   want)
     np.testing.assert_array_equal(tds.load_gray(str(tmp_path / f"j.{ext}")), want)
-    np.testing.assert_array_equal(tds.decode_plain(str(tmp_path / f"j.{ext}")),
-                                  want.astype(np.uint8))
+    if ext in ("png", "pgm"):
+        np.testing.assert_array_equal(tds.decode_plain(str(tmp_path / f"j.{ext}")),
+                                      want.astype(np.uint8))
 
 
 @pytest.mark.parametrize("path", BUNDLED, ids=lambda p: os.path.relpath(p, ROOT))

@@ -22,6 +22,7 @@ metadata equal, every float array within 1e-5; it loads back into a
 meshed GraphSLAM with the same graph, ring and tracker state.
 """
 import json
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -70,10 +71,21 @@ def ckpt_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def meshed(ckpt_dir):
     """{(case, chunk): both ranks' reports}; the per-frame growth run saves
-    a checkpoint."""
+    a checkpoint.  The reference runs the tests read (``_jax_meshed`` and
+    ``_unmeshed``, cached) go on in two threads of this process meanwhile:
+    the ranks are processes of their own.  A failed reference run raises
+    again in the test that reads it."""
     specs = [_spec(case, chunk, str(ckpt_dir / "meshed.npz")
                    if (case, chunk) == ("growth", 0) else None) for case, chunk in RUNS]
-    reports = launch.run(checks.slam_runs, 2, specs, device="cpu")
+    references = [threading.Thread(target=lambda: [_jax_meshed(case) for case in CASES]),
+                  threading.Thread(target=lambda: [_unmeshed(*run) for run in RUNS])]
+    for thread in references:
+        thread.start()
+    try:
+        reports = launch.run(checks.slam_runs, 2, specs, device="cpu")
+    finally:
+        for thread in references:
+            thread.join()
     return {run: [rank[i] for rank in reports] for i, run in enumerate(RUNS)}
 
 

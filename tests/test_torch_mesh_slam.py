@@ -23,6 +23,7 @@ same ranks.  Every rank is held to:
 A ring budget or an edge capacity that the mesh size does not divide
 raises the JAX package's ValueError.
 """
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -70,8 +71,21 @@ def _spec(chunk):
 
 @lru_cache(maxsize=None)
 def _meshed(world):
-    """Every rank's report, for each chunk size."""
-    reports = launch.run(checks.slam_runs, world, [_spec(c) for c in CHUNKS], device="cpu")
+    """Every rank's report, for each chunk size.  The reference runs the
+    tests read (``_jax_meshed`` at this world size and ``_unmeshed``,
+    cached) go on in two threads of this process meanwhile: the ranks are
+    processes of their own.  A failed reference run raises again in the
+    test that reads it."""
+    references = [threading.Thread(target=lambda: [_jax_meshed(world, c) for c in CHUNKS]),
+                  threading.Thread(target=lambda: [_unmeshed(c) for c in CHUNKS])]
+    for thread in references:
+        thread.start()
+    try:
+        reports = launch.run(checks.slam_runs, world, [_spec(c) for c in CHUNKS],
+                             device="cpu")
+    finally:
+        for thread in references:
+            thread.join()
     return {c: [rank[i] for rank in reports] for i, c in enumerate(CHUNKS)}
 
 

@@ -2,7 +2,7 @@
 scripts/ab_motion_envelopes.py, on the CPU, over a cut pose list.
 
 ``SCENARIOS`` and ``VARIANTS`` equal JAX's.  Each variant's ``run`` on the
-15 deg/frame regime, cut to its first 16 poses in both packages and on the
+15 deg/frame regime, cut to its first 10 poses in both packages and on the
 JAX renderer's images (tests/torch_twins.py), builds the same camera and
 GraphSLAM config (sub-pixel refinement on; inverse-depth weighting and the
 smoother as the variant sets them) and gives equal maps, closures,
@@ -34,7 +34,7 @@ def test_scenarios_and_variants_match_jax():
 @pytest.mark.parametrize("variant", list(JAX["VARIANTS"]))
 def test_motion_envelope_run_matches_jax(monkeypatch, variant):
     share_renderer(monkeypatch)
-    cut_loops(monkeypatch, 16)
+    cut_loops(monkeypatch, 10)
     args_t = record_slam_args(monkeypatch, PORT["run"].__globals__)
     args_j = record_slam_args(monkeypatch, JAX["run"].__globals__)
     scn, tweaks = JAX["SCENARIOS"]["turn15deg"], JAX["VARIANTS"][variant]
@@ -45,7 +45,7 @@ def test_motion_envelope_run_matches_jax(monkeypatch, variant):
     counts = [(s.num_maps, s.num_closures, s.num_relocalizations, s.num_backstop_rejections)
               for s in (slam_t, slam_j)]
     assert counts[0] == counts[1] and counts[0][0] >= 2
-    assert len(slam_t.trajectory()) == 16
+    assert len(slam_t.trajectory()) == 10
     assert abs(err_t.ate_rmse - err_j.ate_rmse) <= 1e-4
     np.testing.assert_allclose(err_t.mean_translation_rmse, err_j.mean_translation_rmse,
                                atol=1e-4)
