@@ -104,13 +104,19 @@ Phases, any failure exits non-zero:
      image, and its prefetcher in order; 8g the second image library
      (io/images.py, g++) and its plain twin on the committed fixtures of
      test_data/torch_io (JPEG baseline with and without restart markers,
-     progressive 4:2:0, palette, 1-bit and Adam7 PNG, BMP): load_gray and
-     load_depth equal to MANIFEST.json's SHA-256 of the JAX package's; the
-     KITTI JPEG pairs through iter_malaga_stereo, then adapt_stereo ->
-     track_step on the card (K3, K1, K2 against their plain versions at
-     these frames, launches FAST 2 / BRIEF 2 / GN 6, counts and pose
-     against the CPU run); save_gray to .jpg byte for byte PIL's file; ms
-     per decode of the 376x1241 JPEG and the 480x640 progressive one;
+     progressive 4:2:0, palette, 1-bit and Adam7 PNG, BMP, and the
+     KITTI- and TUM-layout TIFF folders): load_gray and load_depth equal
+     to MANIFEST.json's SHA-256 of the JAX package's; the KITTI JPEG pairs
+     through iter_malaga_stereo and the KITTI TIFF pairs (8-bit LZW with
+     predictor 2, 16-bit) through iter_kitti_odometry, each then
+     adapt_stereo -> track_step on the card (K3, K1, K2 against their
+     plain versions at these frames, K2 within TIFF_GN_ATOL on the TIFF
+     pair, launches FAST 2 / BRIEF 2 / GN 6, counts and pose against the
+     CPU run); the TUM TIFF folder (16-bit and float32 depth) through
+     iter_tum_rgbd, then adapt_rgbd -> track_step(model="rgbd") (K3 and K1
+     bit-exact, counts and pose against the CPU run); save_gray to .jpg,
+     .tif and .gif byte for byte PIL's files; ms per decode of the
+     376x1241 JPEG, the 480x640 progressive one and four TIFF files;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
      runs this phase alone): 9a the rendered loop through
      GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
@@ -1100,6 +1106,7 @@ ENTRY_TOL = 5e-4             # 8f: entry()'s step, card vs CPU (tests/test_gn_pa
 KERNEL_NAMES = ("fast_scores_kernel", "brief_descriptors_kernel", "gn_burst_stereo_kernel")
 IMAGE_FIXTURES = os.path.join(ROOT, "test_data", "torch_io")   # 8g: files and MANIFEST.json
 DECODE_REPS = 20             # 8g: decodes per timed file
+TIFF_GN_ATOL = 2e-6          # 8g: K2 against its plain version at the TIFF pair
 
 
 def run_app(module: str, argv, tag: str):
@@ -1335,7 +1342,7 @@ def phase_host(dev, smi, report, frames_np, loop, ref_slam, ref_rows, ref_ms, ad
     print(f"native library {os.path.basename(so)} built and checked in "
           f"{time.perf_counter() - t0:.2f} s: {len(files)} bundled images equal to the plain "
           f"decoder, the prefetcher in order [{smi}]", flush=True)
-    launches["jpeg_vo"] = host_images(dev, smi, report)
+    launches.update(host_images(dev, smi, report))
     shutil.rmtree(HOST_DIR)
     return launches
 
@@ -1350,13 +1357,18 @@ def _sha_f32(arr) -> str:
 
 def host_images(dev, smi, report) -> dict:
     """8g: the files the native decoder refuses, on a machine with no PIL.
-    The committed fixtures decode through the second image library and its
-    plain twin to the manifest's SHA-256 of the JAX package's load_gray and
+    The committed fixtures (JPEG, PNG, BMP, and the KITTI- and TUM-layout
+    TIFF folders) decode through the second image library and its plain
+    twin to the manifest's SHA-256 of the JAX package's load_gray and
     load_depth; the KITTI JPEG pairs as a Malaga folder through
-    iter_malaga_stereo, then adapt_stereo -> track_step on the card (K3, K1
-    and K2 against their plain versions at these frames, the run against
-    the CPU's); save_gray to .jpg writes PIL's file; ms per decode.
-    Returns the VO run's launches."""
+    iter_malaga_stereo, and the KITTI TIFF pairs through
+    iter_kitti_odometry, then adapt_stereo -> track_step on the card (K3,
+    K1 and K2 against their plain versions at these frames, K2 within
+    TIFF_GN_ATOL on the TIFF pair, the run against the CPU's); the TUM TIFF
+    folder (16-bit and float32 depth) through iter_tum_rgbd, then
+    adapt_rgbd -> track_step(model="rgbd") (K3 and K1 bit-exact, the run
+    against the CPU's); save_gray to .jpg, .tif and .gif writes PIL's files;
+    ms per decode.  Returns the runs' launches by path."""
     import hashlib
     import shutil
 
@@ -1372,7 +1384,7 @@ def host_images(dev, smi, report) -> dict:
         manifest = json.load(f)
     t0 = time.perf_counter()
     so = images.build()
-    names = sorted(n for n in manifest if n != "save_gray")
+    names = sorted(n for n in manifest if not n.startswith("save_gray"))
     for name in names:
         path, want = os.path.join(IMAGE_FIXTURES, name), manifest[name]
         if native.try_decode(path) is not None:
@@ -1437,23 +1449,29 @@ def host_images(dev, smi, report) -> dict:
             float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
         fail("8g: VO on the JPEG frames differs between the card and the CPU")
 
-    # save_gray to .jpg writes PIL's file
-    want = manifest["save_gray"]
-    out = os.path.join(HOST_DIR, "save_gray" + want["extension"])
-    datasets.save_gray(out, datasets.load_gray(os.path.join(ROOT, want["source"])))
-    with open(out, "rb") as f:
-        file_ok = hashlib.sha256(f.read()).hexdigest() == want["pil_file_sha256"]
-    read_ok = (_sha_f32(datasets.load_gray(out)) == want["load_gray_sha256"]
-               and _sha_f32(images.gray_f32(images_plain.decode(out)))
-               == want["load_gray_sha256"])
-    print(f"8g save_gray({os.path.basename(out)}) of {want['source']}: PIL's file byte for "
-          f"byte {file_ok}, decode equal to the manifest (library and twin) {read_ok} [{smi}]",
-          flush=True)
-    if not (file_ok and read_ok):
-        fail("8g: save_gray's JPEG differs from PIL's")
+    # save_gray to .jpg, .tif and .gif writes PIL's files
+    for key in ("save_gray", "save_gray_tif", "save_gray_gif"):
+        want = manifest[key]
+        out = os.path.join(HOST_DIR, "save_gray" + want["extension"])
+        datasets.save_gray(out, datasets.load_gray(os.path.join(ROOT, want["source"])))
+        with open(out, "rb") as f:
+            file_ok = hashlib.sha256(f.read()).hexdigest() == want["pil_file_sha256"]
+        read_ok = (_sha_f32(datasets.load_gray(out)) == want["load_gray_sha256"]
+                   and _sha_f32(images.gray_f32(images_plain.decode(out)))
+                   == want["load_gray_sha256"])
+        print(f"8g save_gray({os.path.basename(out)}) of {want['source']}: PIL's file byte "
+              f"for byte {file_ok}, decode equal to the manifest (library and twin) "
+              f"{read_ok} [{smi}]", flush=True)
+        if not (file_ok and read_ok):
+            fail(f"8g: save_gray's {want['extension']} file differs from PIL's")
+
+    counts_tiff_vo = tiff_vo(dev, smi, report, manifest)
+    counts_tiff_rgbd = tiff_rgbd(dev, smi, report, manifest)
 
     # ms per decode on this machine's host
-    for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg"):
+    for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg",
+                 "kitti_tiff/image_0/000000.tif", "kitti_tiff/image_0/000001.tif",
+                 "tum_tiff/depth/0.tif", "tum_tiff/depth/1.tif"):
         path = os.path.join(IMAGE_FIXTURES, name)
         shape = images.decode(path).samples.shape
         t0 = time.perf_counter()
@@ -1471,6 +1489,128 @@ def host_images(dev, smi, report) -> dict:
               f"({os.path.getsize(path)} bytes) on the host: images.decode {lib_ms:.3f} ms, "
               f"load_gray {gray_ms:.3f} ms (mean of {DECODE_REPS}), plain twin "
               f"{plain_ms:.1f} ms (one call) [{smi}]", flush=True)
+    return {"jpeg_vo": counts, "tiff_vo": counts_tiff_vo, "tiff_rgbd": counts_tiff_rgbd}
+
+
+def tiff_vo(dev, smi, report, manifest) -> dict:
+    """8g: the KITTI TIFF folder (pair 0 8-bit LZW with predictor 2, pair 1
+    16-bit) through iter_kitti_odometry, then adapt_stereo -> track_step on
+    the card and on the CPU; K3 and K1 bit-exact and K2 within TIFF_GN_ATOL
+    at these frames.  Returns the card run's launches."""
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import datasets
+    from srrg2_proslam_tpu_torch.models.frontend import StereoAdaptorConfig
+    from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    seq = os.path.join(IMAGE_FIXTURES, "kitti_tiff")
+    frames = list(datasets.iter_kitti_odometry(seq))
+    same = len(frames) == 2 and all(
+        _sha_f32(getattr(fr, side)) == manifest[f"kitti_tiff/image_{k}/{i:06d}.tif"][
+            "load_gray_sha256"]
+        for i, fr in enumerate(frames) for k, side in ((0, "left"), (1, "right")))
+    print(f"8g iter_kitti_odometry over {seq} (pair 0 8-bit LZW + predictor 2, pair 1 16-bit): "
+          f"{len(frames)} frames, equal to the manifest: {same} [{smi}]", flush=True)
+    if not same:
+        fail("8g: iter_kitti_odometry's TIFF frames differ from the manifest")
+    cam = datasets.kitti_camera(*frames[0].left.shape)
+    adapt_cfg, track_cfg = StereoAdaptorConfig(), TrackerConfig()
+    gpu = [(torch.from_numpy(f.left).to(dev), torch.from_numpy(f.right).to(dev))
+           for f in frames]
+    errs, _ = check_kernels(main_path_inputs(gpu, cam, adapt_cfg, track_cfg), cam,
+                            adapt_cfg.extractor.detector_threshold, "KITTI TIFF frames 0/1")
+    for kname, err in errs.items():
+        report[kname]["max_abs_err_tiff"] = err
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
+    if errs["gn_burst"] > TIFF_GN_ATOL:
+        fail(f"8g: K2 at the TIFF frames {errs['gn_burst']} > {TIFF_GN_ATOL}")
+    kernels.reset_launch_counts()
+    rows, poses = run_vo(gpu, cam, dev, adapt_cfg, track_cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu_rows, cpu_poses = run_vo([(torch.from_numpy(f.left), torch.from_numpy(f.right))
+                                  for f in frames], cam, "cpu", adapt_cfg, track_cfg)
+    dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
+    for i, (g, c) in enumerate(zip(rows, cpu_rows)):
+        print(f"8g TIFF frame {i}: meas={g['meas']} matches={g['matches']} "
+              f"inliers={g['inliers']} map={g['map']} (cpu meas={c['meas']} "
+              f"matches={c['matches']} inliers={c['inliers']})", flush=True)
+    print(f"8g VO on the TIFF frames: launches {counts}; final pose vs the CPU run |dt| "
+          f"{dt.numpy()} angle {float(dang):.3e} [{smi}]", flush=True)
+    if counts != {"fast": 2, "brief": 2, "gn_burst": 6}:
+        fail(f"8g TIFF VO launches {counts} != fast 2, brief 2, gn_burst 6")
+    if any(g[k] != c[k] for g, c in zip(rows, cpu_rows) for k in ("meas", "matches", "inliers")
+           ) or not (float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
+        fail("8g: VO on the TIFF frames differs between the card and the CPU")
+    return counts
+
+
+def tiff_rgbd(dev, smi, report, manifest) -> dict:
+    """8g: the TUM TIFF folder (the ICL frames 0 and 1 at 640 x 480: gray
+    8-bit LZW intensity, frame 0's depth 16-bit Deflate, frame 1's float32
+    tiles with the float predictor) through iter_tum_rgbd, then adapt_rgbd
+    -> track_step(model="rgbd") on the card and on the CPU; K3 and K1
+    bit-exact at frame 0.  Returns the card run's launches."""
+    import torch
+
+    from srrg2_proslam_tpu_torch import kernels
+    from srrg2_proslam_tpu_torch.io import datasets
+    from srrg2_proslam_tpu_torch.models.frontend import DepthAdaptorConfig, adapt_rgbd
+    from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig, initial_state, track_step
+    from srrg2_proslam_tpu_torch.ops import se3
+
+    seq = os.path.join(IMAGE_FIXTURES, "tum_tiff")
+    frames = list(datasets.iter_tum_rgbd(seq))
+    same = len(frames) == 2 and all(
+        _sha_f32(fr.intensity) == manifest[f"tum_tiff/rgb/{i}.tif"]["load_gray_sha256"]
+        and _sha_f32(fr.depth) == manifest[f"tum_tiff/depth/{i}.tif"]["load_depth_sha256"]
+        for i, fr in enumerate(frames))
+    print(f"8g iter_tum_rgbd over {seq} (depth 16-bit and float32 TIFF): {len(frames)} frames, "
+          f"equal to the manifest: {same} [{smi}]", flush=True)
+    if not same:
+        fail("8g: iter_tum_rgbd's TIFF frames differ from the manifest")
+    cam = datasets.icl_camera()
+    dcfg, track_cfg = DepthAdaptorConfig(), TrackerConfig()
+    gpu = [(torch.from_numpy(f.intensity).to(dev), torch.from_numpy(f.depth).to(dev))
+           for f in frames]
+    errs = check_frontend(frontend_inputs(gpu[0][0][None], dcfg.extractor),
+                          dcfg.extractor.detector_threshold, "TUM TIFF frame 0")
+    for kname, err in errs.items():
+        report[kname]["max_abs_err_tiff_rgbd"] = err
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
+
+    def run(pairs, device):
+        state = initial_state(4096, track_cfg.landmark_estimator, device=device)
+        out, poses = [], []
+        for intensity, depth in pairs:
+            meas = adapt_rgbd(intensity, depth, dcfg)
+            state, stats, _ = track_step(state, meas.points, meas.desc, meas.valid, cam,
+                                         track_cfg, "rgbd")
+            out.append({"meas": int(stats.num_measurements), "matches": int(stats.num_matches),
+                        "inliers": int(stats.num_inliers)})
+            poses.append(state.T_lm_robot.detach().cpu())
+        return out, poses
+
+    kernels.reset_launch_counts()
+    rows, poses = run(gpu, dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu_rows, cpu_poses = run([(torch.from_numpy(f.intensity), torch.from_numpy(f.depth))
+                               for f in frames], "cpu")
+    dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
+    for i, (g, c) in enumerate(zip(rows, cpu_rows)):
+        print(f"8g TIFF RGB-D frame {i}: meas={g['meas']} matches={g['matches']} "
+              f"inliers={g['inliers']} (cpu meas={c['meas']} matches={c['matches']} "
+              f"inliers={c['inliers']})", flush=True)
+    print(f"8g RGB-D on the TIFF frames: launches {counts}; final pose vs the CPU run |dt| "
+          f"{dt.numpy()} angle {float(dang):.3e} [{smi}]", flush=True)
+    if counts != {"fast": 2, "brief": 2, "gn_burst": 0}:
+        fail(f"8g TIFF RGB-D launches {counts} != fast 2, brief 2, gn_burst 0")
+    if any(g[k] != c[k] for g, c in zip(rows, cpu_rows) for k in ("meas", "matches", "inliers")
+           ) or not (float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
+        fail("8g: RGB-D on the TIFF frames differs between the card and the CPU")
     return counts
 
 

@@ -4,7 +4,7 @@ The port's twin of apps/example_search_patterns.py (the reference's
 example_projective_search_patterns): rasterizes the square / circle /
 rhombus candidate regions of the projective correspondence finders onto a
 500x500 canvas with the SAME predicate the matcher evaluates —
-``_geometric_distance(delta, norm) <= radius`` over a dense pixel grid
+``_geometric_distance(dx, dy, norm) <= radius`` over a dense pixel grid
 (ops/matching.py) — at the reference's sample positions and radii, and
 writes the canvas as a PGM next to an ASCII thumbnail.  Same flags and
 printed lines as the JAX app, plus ``--device`` (default ``cuda``).
@@ -33,8 +33,8 @@ def paint(canvas: np.ndarray, norm: str, color: int, device=torch.device("cuda")
     r = torch.arange(H, dtype=torch.float32, device=device)[:, None]
     c = torch.arange(W, dtype=torch.float32, device=device)[None, :]
     for radius, row, col in SAMPLES:
-        delta = torch.stack([(c - col).expand(H, W), (r - row).expand(H, W)], dim=-1)
-        inside = _geometric_distance(delta, norm) <= radius
+        inside = _geometric_distance((c - col).expand(H, W), (r - row).expand(H, W),
+                                     norm) <= radius
         canvas[inside.cpu().numpy()] = color
     return canvas
 

@@ -1,0 +1,43 @@
+// Shared by the second image library's sources: the decoded image in the
+// mode PIL opens the file in, the error every decoder throws, and byte
+// readers.
+#pragma once
+
+#include <cstdint>
+#include <stdexcept>
+#include <vector>
+
+namespace pslx {
+
+struct Error : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+// PIL's modes; the codes are the library's interface (io/images.py MODES).
+enum Mode { MODE_1 = 0, MODE_L = 1, MODE_P = 2, MODE_I16 = 3, MODE_LA = 4, MODE_RGB = 5,
+            MODE_RGBA = 6, MODE_I16B = 7, MODE_I = 8, MODE_F = 9, MODE_CMYK = 10 };
+
+struct Image {
+  int w = 0, h = 0, channels = 1, bitdepth = 8, mode = MODE_L;
+  std::vector<uint8_t> data;     // interleaved, host order (int32 for I, float32 for F)
+  std::vector<uint8_t> palette;  // RGB triples (mode P)
+};
+
+// PIL raises DecompressionBombError above twice Image.MAX_IMAGE_PIXELS.
+constexpr uint64_t kMaxPixels = 178956970;
+inline bool too_many_pixels(uint64_t w, uint64_t h) {
+  return w > kMaxPixels || h > kMaxPixels || w * h > kMaxPixels;
+}
+
+inline uint32_t be16(const uint8_t* p) { return (uint32_t(p[0]) << 8) | p[1]; }
+inline uint32_t be32(const uint8_t* p) { return (be16(p) << 16) | be16(p + 2); }
+inline uint32_t le16(const uint8_t* p) { return uint32_t(p[0]) | (uint32_t(p[1]) << 8); }
+inline uint32_t le32(const uint8_t* p) { return le16(p) | (le16(p + 2) << 16); }
+
+std::vector<uint8_t> read_file(const char* path);
+Image decode_tiff(const std::vector<uint8_t>& file);
+Image decode_gif(const std::vector<uint8_t>& file);
+Image decode_pnm(const std::vector<uint8_t>& file);
+std::vector<uint8_t> encode_gif_gray(const uint8_t* px, int w, int h);
+
+}  // namespace pslx

@@ -1,24 +1,33 @@
 // Image files the repo's native decoder (native/src/image_decode.cpp) does
-// not read: JPEG (baseline and progressive Huffman), PNG of every colour
-// type, bit depth and interlace (palette, 1/2/4-bit, Adam7), and
-// uncompressed BMP; plus a baseline gray JPEG writer.
+// not read: JPEG (baseline, progressive and lossless Huffman, sequential
+// and progressive arithmetic; gray, YCbCr / RGB, CMYK / YCCK), PNG of
+// every colour type, bit depth and interlace (palette, 1/2/4-bit, Adam7),
+// and BMP (this file); TIFF (image_tiff.cpp), GIF and PNM / PFM
+// (image_gif_pnm.cpp); plus a baseline gray JPEG writer here and PIL's GIF
+// writer for mode L in image_gif_pnm.cpp.
 //
-// Each decoder returns the samples in the mode an image library that
-// follows PIL would open the file in (1, L, P, I;16, LA, RGB, RGBA), so
-// that the caller can apply PIL's per-mode gray rule.  JPEG decodes bit for
-// bit as libjpeg-turbo does in its 6.2 API with the default settings: the
+// Each decoder returns the samples in the mode PIL opens the file in (1,
+// L, P, I;16, I;16B, I, F, LA, RGB, RGBA, CMYK), so that the caller can
+// apply PIL's per-mode gray rule.  JPEG decodes bit for bit as
+// libjpeg-turbo does in its 6.2 API with the default settings: the
 // JDCT_ISLOW integer IDCT (jidctint.c), fancy upsampling (jdsample.c:
 // h2v1 / h1v2 / h2v2 triangle filters, replication for other integral
-// factors and for components at most 2 samples wide), and jdcolor.c's
-// fixed-point YCbCr -> RGB.  The writer follows jfdctint.c, jcdctmgr.c's
-// reciprocal quantisation, the Annex K Huffman tables and jcmarker.c's
-// marker layout (JFIF APP0, DQT, SOF0, DHT, SOS).
+// factors and for components at most 2 samples wide), jdcolor.c's
+// fixed-point YCbCr -> RGB and YCCK -> CMYK (PIL then inverts CMYK),
+// jdarith.c's arithmetic decoder and jdlossls.c's predictors.  The writer
+// follows jfdctint.c, jcdctmgr.c's reciprocal quantisation, the Annex K
+// Huffman tables and jcmarker.c's marker layout (JFIF APP0, DQT, SOF0,
+// DHT, SOS).
 //
-// Refused with a message (the caller raises it as a ValueError): arithmetic
-// coding, lossless and hierarchical JPEG, sample precision other than 8,
-// JPEG of 2 or 4 components (CMYK / YCCK), non-integral sampling ratios, a
+// Refused with a message (the caller raises it as a ValueError):
+// hierarchical JPEG, arithmetic-coded lossless JPEG, sample precision
+// other than 8 (PIL refuses it too), 2-component JPEG, non-integral
+// sampling ratios, subsampled lossless files and lossless files that
+// would need a colour conversion (libjpeg-turbo refuses them), DNL, a
 // progressive file whose first AC coefficients are never completed (the
-// decoder would smooth its blocks), compressed or 1/4/16-bit BMP.
+// decoder would smooth its blocks); BMP headers, depths, compressions and
+// bit-field layouts PIL does not read, RLE with a black / white palette and
+// 1/4-bit files whose palette is the gray ramp.
 
 #include <algorithm>
 #include <cstdint>
@@ -30,20 +39,9 @@
 #include <vector>
 #include <zlib.h>
 
-namespace {
+#include "image_common.h"
 
-struct Error : std::runtime_error {
-  using std::runtime_error::runtime_error;
-};
-
-enum Mode { MODE_1 = 0, MODE_L = 1, MODE_P = 2, MODE_I16 = 3, MODE_LA = 4, MODE_RGB = 5,
-            MODE_RGBA = 6 };
-
-struct Image {
-  int w = 0, h = 0, channels = 1, bitdepth = 8, mode = MODE_L;
-  std::vector<uint8_t> data;     // interleaved; 16-bit samples in host order
-  std::vector<uint8_t> palette;  // RGB triples (mode P)
-};
+namespace pslx {
 
 std::vector<uint8_t> read_file(const char* path) {
   FILE* f = std::fopen(path, "rb");
@@ -56,10 +54,11 @@ std::vector<uint8_t> read_file(const char* path) {
   return out;
 }
 
-uint32_t be16(const uint8_t* p) { return (uint32_t(p[0]) << 8) | p[1]; }
-uint32_t be32(const uint8_t* p) { return (be16(p) << 16) | be16(p + 2); }
-uint32_t le16(const uint8_t* p) { return uint32_t(p[0]) | (uint32_t(p[1]) << 8); }
-uint32_t le32(const uint8_t* p) { return le16(p) | (le16(p + 2) << 16); }
+}  // namespace pslx
+
+namespace {
+
+using namespace pslx;
 
 // ===========================================================================
 // JPEG decoder
@@ -214,7 +213,123 @@ struct Component {
   uint16_t qt[64] = {};  // natural order, latched at the component's first scan
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
   int coef_bits[64] = {};
+  std::vector<uint16_t> undiff;  // lossless: the reconstructed samples before the point transform
+  int point_transform = 0;
   int16_t* block(int bx, int by) { return &coef[(size_t(by) * bw + bx) * 64]; }
+};
+
+// T.81 Table D.2 as jaricom.c packs it: (Qe << 16) | (Next_Index_MPS << 8)
+// | (Switch_MPS << 7) | Next_Index_LPS; entry 113 is the fixed 0.5 estimate.
+const uint32_t kAriTab[114] = {
+#define V(qe, nmps, nlps, sw) ((uint32_t(qe) << 16) | (uint32_t(nmps) << 8) | ((sw) << 7) | (nlps))
+    V(0x5a1d, 1, 1, 1),    V(0x2586, 2, 14, 0),   V(0x1114, 3, 16, 0),   V(0x080b, 4, 18, 0),
+    V(0x03d8, 5, 20, 0),   V(0x01da, 6, 23, 0),   V(0x00e5, 7, 25, 0),   V(0x006f, 8, 28, 0),
+    V(0x0036, 9, 30, 0),   V(0x001a, 10, 33, 0),  V(0x000d, 11, 35, 0),  V(0x0006, 12, 9, 0),
+    V(0x0003, 13, 10, 0),  V(0x0001, 13, 12, 0),  V(0x5a7f, 15, 15, 1),  V(0x3f25, 16, 36, 0),
+    V(0x2cf2, 17, 38, 0),  V(0x207c, 18, 39, 0),  V(0x17b9, 19, 40, 0),  V(0x1182, 20, 42, 0),
+    V(0x0cef, 21, 43, 0),  V(0x09a1, 22, 45, 0),  V(0x072f, 23, 46, 0),  V(0x055c, 24, 48, 0),
+    V(0x0406, 25, 49, 0),  V(0x0303, 26, 51, 0),  V(0x0240, 27, 52, 0),  V(0x01b1, 28, 54, 0),
+    V(0x0144, 29, 56, 0),  V(0x00f5, 30, 57, 0),  V(0x00b7, 31, 59, 0),  V(0x008a, 32, 60, 0),
+    V(0x0068, 33, 62, 0),  V(0x004e, 34, 63, 0),  V(0x003b, 35, 32, 0),  V(0x002c, 9, 33, 0),
+    V(0x5ae1, 37, 37, 1),  V(0x484c, 38, 64, 0),  V(0x3a0d, 39, 65, 0),  V(0x2ef1, 40, 67, 0),
+    V(0x261f, 41, 68, 0),  V(0x1f33, 42, 69, 0),  V(0x19a8, 43, 70, 0),  V(0x1518, 44, 72, 0),
+    V(0x1177, 45, 73, 0),  V(0x0e74, 46, 74, 0),  V(0x0bfb, 47, 75, 0),  V(0x09f8, 48, 77, 0),
+    V(0x0861, 49, 78, 0),  V(0x0706, 50, 79, 0),  V(0x05cd, 51, 48, 0),  V(0x04de, 52, 50, 0),
+    V(0x040f, 53, 50, 0),  V(0x0363, 54, 51, 0),  V(0x02d4, 55, 52, 0),  V(0x025c, 56, 53, 0),
+    V(0x01f8, 57, 54, 0),  V(0x01a4, 58, 55, 0),  V(0x0160, 59, 56, 0),  V(0x0125, 60, 57, 0),
+    V(0x00f6, 61, 58, 0),  V(0x00cb, 62, 59, 0),  V(0x00ab, 63, 61, 0),  V(0x008f, 32, 61, 0),
+    V(0x5b12, 65, 65, 1),  V(0x4d04, 66, 80, 0),  V(0x412c, 67, 81, 0),  V(0x37d8, 68, 82, 0),
+    V(0x2fe8, 69, 83, 0),  V(0x293c, 70, 84, 0),  V(0x2379, 71, 86, 0),  V(0x1edf, 72, 87, 0),
+    V(0x1aa9, 73, 87, 0),  V(0x174e, 74, 72, 0),  V(0x1424, 75, 72, 0),  V(0x119c, 76, 74, 0),
+    V(0x0f6b, 77, 74, 0),  V(0x0d51, 78, 75, 0),  V(0x0bb6, 79, 77, 0),  V(0x0a40, 48, 77, 0),
+    V(0x5832, 81, 80, 1),  V(0x4d1c, 82, 88, 0),  V(0x438e, 83, 89, 0),  V(0x3bdd, 84, 90, 0),
+    V(0x34ee, 85, 91, 0),  V(0x2eae, 86, 92, 0),  V(0x299a, 87, 93, 0),  V(0x2516, 71, 86, 0),
+    V(0x5570, 89, 88, 1),  V(0x4ca9, 90, 95, 0),  V(0x44d9, 91, 96, 0),  V(0x3e22, 92, 97, 0),
+    V(0x3824, 93, 99, 0),  V(0x32b4, 94, 99, 0),  V(0x2e17, 86, 93, 0),  V(0x56a8, 96, 95, 1),
+    V(0x4f46, 97, 101, 0), V(0x47e5, 98, 102, 0), V(0x41cf, 99, 103, 0), V(0x3c3d, 100, 104, 0),
+    V(0x375e, 93, 99, 0),  V(0x5231, 102, 105, 0), V(0x4c0f, 103, 106, 0), V(0x4639, 104, 107, 0),
+    V(0x415e, 99, 103, 0), V(0x5627, 106, 105, 1), V(0x50e7, 107, 108, 0), V(0x4b85, 103, 109, 0),
+    V(0x5597, 109, 110, 0), V(0x504f, 107, 111, 0), V(0x5a10, 111, 110, 1), V(0x5522, 109, 112, 0),
+    V(0x59eb, 111, 112, 1), V(0x5a1d, 113, 113, 0)
+#undef V
+};
+
+// jdarith.c arith_decode over the scan's bytes: 0xFF00 is a data 0xFF; at
+// a marker it feeds zeros, as libjpeg does.
+struct ArithReader {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool marker = false;
+
+  ArithReader(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start) {}
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  int byte() {
+    if (marker || pos >= n) return 0;
+    int v = d[pos++];
+    if (v != 0xFF) return v;
+    while (pos < n && d[pos] == 0xFF) ++pos;
+    if (pos < n && d[pos] == 0) {
+      ++pos;
+      return 0xFF;
+    }
+    marker = true;
+    --pos;  // leave pos on the 0xFF of the marker
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kAriTab[sv & 0x7F];
+    int nl = int(e & 0xFF), nm = int((e >> 8) & 0xFF);
+    int64_t qe = e >> 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // Skip to the next marker other than a stuffed byte; returns its code.
+  int next_marker() {
+    marker = false;
+    for (;;) {
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) throw Error("JPEG: the data ends inside a scan");
+      int m = d[pos++];
+      if (m != 0) return m;
+    }
+  }
 };
 
 struct JpegDecoder {
@@ -223,7 +338,11 @@ struct JpegDecoder {
   bool qpresent[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  bool progressive = false, frame = false, jfif = false, adobe = false;
+  bool progressive = false, lossless = false, arith = false, frame = false, jfif = false,
+       adobe = false;
+  int arith_dc_l[4] = {0, 0, 0, 0}, arith_dc_u[4] = {1, 1, 1, 1}, arith_ac_k[4] = {5, 5, 5, 5};
+  uint8_t dc_stats[4][64], ac_stats[4][256];
+  bool ac_error = false;  // jdarith.c's ct = -1 after a bad code: no more coefficients
   int adobe_transform = -1, restart_interval = 0;
   std::vector<Component> comps;
 
@@ -238,11 +357,13 @@ struct JpegDecoder {
     width = int(be16(p + 3));
     int nc = p[5];
     if (height == 0 || width == 0) throw Error("JPEG: zero image size (DNL is not supported)");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Error("JPEG: " + std::to_string(nc) + " components are not supported "
-                  "(gray or YCbCr/RGB only; CMYK and YCCK are refused)");
+                  "(gray, YCbCr / RGB, CMYK / YCCK only)");
     if (len < size_t(6 + 3 * nc)) throw Error("JPEG: short SOF");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    lossless = marker == 0xC3;
+    arith = marker == 0xC9 || marker == 0xCA;
     for (int i = 0; i < nc; ++i) {
       Component c;
       c.id = p[6 + 3 * i];
@@ -265,7 +386,12 @@ struct JpegDecoder {
       c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
       c.wib = (c.dw + 7) / 8;
       c.hib = (c.dh + 7) / 8;
-      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      if (lossless) {
+        if (c.h != 1 || c.v != 1) throw Error("JPEG: subsampled lossless files are not supported");
+        c.undiff.assign(size_t(width) * height, 0);
+      } else {
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      }
       for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     frame = true;
@@ -320,6 +446,7 @@ struct JpegDecoder {
       sc.push_back(c);
     }
     int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    if (lossless) return read_lossless_scan(sc, ss, al, data_start);
     if (progressive) {
       bool bad = ss > se || se > 63 || al > 13 || (ss == 0 && se != 0) || (ss > 0 && ns != 1);
       if (bad) throw Error("JPEG: bad progressive scan parameters");
@@ -336,11 +463,12 @@ struct JpegDecoder {
       }
       bool needs_dc = ss == 0 && ah == 0;
       bool needs_ac = se > 0;
-      if ((needs_dc && !dc[c->dc_tbl].present) || (needs_ac && !ac[c->ac_tbl].present))
+      if (!arith && ((needs_dc && !dc[c->dc_tbl].present) || (needs_ac && !ac[c->ac_tbl].present)))
         throw Error("JPEG: missing Huffman table");
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
     }
 
+    if (arith) return read_arith_scan(sc, ss, se, ah, al, data_start);
     BitReader br(f.data(), f.size(), data_start);
     int last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0, restarts = 0;
@@ -378,6 +506,215 @@ struct JpegDecoder {
     for (;;) {
       int c = br.next_marker();
       if (c < 0xD0 || c > 0xD7) return br.pos - 2;
+    }
+  }
+
+  // A lossless scan (jdlhuff.c, jdlossls.c): per sample a Huffman-coded
+  // difference (SSSS 16: 32768) from the predictor ``psv`` of the left,
+  // upper and upper-left samples (the first row predicts from the left,
+  // the first column from above, the first sample 2^(7 - Pt)); samples
+  // are kept mod 2^16 and come out shifted left by Pt.
+  size_t read_lossless_scan(const std::vector<Component*>& sc, int psv, int pt,
+                            size_t data_start) {
+    if (psv < 1 || psv > 7 || pt > 7) throw Error("JPEG: bad lossless scan parameters");
+    if (restart_interval) throw Error("JPEG: restart markers in a lossless file are not supported");
+    for (auto* c : sc) {
+      if (!dc[c->dc_tbl].present) throw Error("JPEG: missing Huffman table");
+      c->latched = true;
+      c->point_transform = pt;
+    }
+    BitReader br(f.data(), f.size(), data_start);
+    const int w = width;
+    for (int y = 0; y < height; ++y)
+      for (int x = 0; x < w; ++x)
+        for (auto* c : sc) {
+          int s = decode_huff(br, dc[c->dc_tbl]);
+          int diff = s == 0 ? 0 : (s == 16 ? 32768 : extend(br.get(s), s));
+          uint16_t* u = c->undiff.data();
+          size_t i = size_t(y) * w + x;
+          int pred;
+          if (y == 0) {
+            pred = x == 0 ? (1 << (8 - pt - 1)) : u[i - 1];
+          } else if (x == 0) {
+            pred = u[i - w];
+          } else {
+            int ra = u[i - 1], rb = u[i - w], rc = u[i - w - 1];
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+          }
+          u[i] = uint16_t((diff + pred) & 0xFFFF);
+        }
+    for (;;) {
+      int c = br.next_marker();
+      if (c < 0xD0 || c > 0xD7) return br.pos - 2;
+    }
+  }
+
+  // An arithmetic-coded scan (jdarith.c): statistics zeroed at its start
+  // and at each restart, per table; sequential or the four progressive
+  // scan kinds.
+  size_t read_arith_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al,
+                         size_t data_start) {
+    ArithReader ar(f.data(), f.size(), data_start);
+    int ns = int(sc.size());
+    int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
+    auto reset_stats = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[sc[size_t(i)]->dc_tbl], 0, 64);
+          last_dc[i] = 0;
+          dc_context[i] = 0;
+        }
+        if (!progressive || ss) std::memset(ac_stats[sc[size_t(i)]->ac_tbl], 0, 256);
+      }
+      ar.reset();
+      ac_error = false;
+    };
+    reset_stats();
+    long units_x = ns == 1 ? sc[0]->wib : mcux, units_y = ns == 1 ? sc[0]->hib : mcuy;
+    long total = units_x * units_y;
+    int restarts = 0;
+    for (long u = 0; u < total; ++u) {
+      if (restart_interval && u > 0 && u % restart_interval == 0) {
+        int m = ar.next_marker();
+        if (m != 0xD0 + (restarts & 7)) throw Error("JPEG: restart marker out of sequence");
+        ++restarts;
+        reset_stats();
+      }
+      long ux = u % units_x, uy = u / units_x;
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[size_t(i)];
+        int nh = ns == 1 ? 1 : c.h, nv = ns == 1 ? 1 : c.v;
+        for (int by = 0; by < nv; ++by)
+          for (int bx = 0; bx < nh; ++bx) {
+            int16_t* blk = ns == 1 ? c.block(int(ux), int(uy))
+                                   : c.block(int(ux) * c.h + bx, int(uy) * c.v + by);
+            if (ac_error) continue;
+            if (!progressive) {
+              arith_dc(ar, c, blk, last_dc[i], dc_context[i], 0);
+              arith_ac_first(ar, c, blk, 1, 63, 0);
+            } else if (ss == 0 && ah == 0) {
+              arith_dc(ar, c, blk, last_dc[i], dc_context[i], al);
+            } else if (ss == 0) {
+              uint8_t fixed = 113;
+              if (ar.decode(&fixed)) blk[0] = int16_t(blk[0] | (1 << al));
+            } else if (ah == 0) {
+              arith_ac_first(ar, c, blk, ss, se, al);
+            } else {
+              arith_ac_refine(ar, c, blk, ss, se, al);
+            }
+          }
+      }
+    }
+    for (;;) {
+      int m = ar.next_marker();
+      if (m < 0xD0 || m > 0xD7) return ar.pos - 2;
+    }
+  }
+
+  void arith_dc(ArithReader& ar, Component& c, int16_t* blk, int& last_dc, int& context, int al) {
+    int tbl = c.dc_tbl;
+    uint8_t* st = dc_stats[tbl] + context;
+    if (ar.decode(st) == 0) {
+      context = 0;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = dc_stats[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ac_error = true;
+            return;
+          }
+          ++st;
+        }
+      }
+      if (m < ((1 << arith_dc_l[tbl]) >> 1)) context = 0;
+      else if (m > ((1 << arith_dc_u[tbl]) >> 1)) context = 12 + sign * 4;
+      else context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      last_dc = (last_dc + v) & 0xFFFF;
+    }
+    blk[0] = int16_t(uint32_t(last_dc) << al);
+  }
+
+  void arith_ac_first(ArithReader& ar, Component& c, int16_t* blk, int ss, int se, int al) {
+    int tbl = c.ac_tbl;
+    uint8_t fixed = 113;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ac_error = true;
+          return;
+        }
+      }
+      int sign = ar.decode(&fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ac_error = true;
+            return;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural.k[k]] = int16_t(uint32_t(v) << al);
+    }
+  }
+
+  void arith_ac_refine(ArithReader& ar, Component& c, int16_t* blk, int ss, int se, int al) {
+    int tbl = c.ac_tbl;
+    uint8_t fixed = 113;
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural.k[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural.k[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = int16_t(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = int16_t(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ac_error = true;
+          return;
+        }
+      }
     }
   }
 
@@ -490,12 +827,25 @@ struct JpegDecoder {
       if (len < 2 || pos + len > f.size()) throw Error("JPEG: truncated marker segment");
       const uint8_t* p = &f[pos + 2];
       size_t plen = len - 2;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         read_frame(p, plen, m);
-      } else if (m == 0xC3 || (m >= 0xC5 && m <= 0xC7)) {
-        throw Error("JPEG: lossless and hierarchical JPEG are not supported");
-      } else if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF) || m == 0xCC) {
-        throw Error("JPEG: arithmetic coding is not supported");
+      } else if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF)) {
+        throw Error("JPEG: hierarchical JPEG is not supported");
+      } else if (m == 0xCB) {
+        throw Error("JPEG: arithmetic-coded lossless JPEG is not supported");
+      } else if (m == 0xCC) {  // DAC: arithmetic conditioning
+        for (size_t i = 0; i + 1 < plen; i += 2) {
+          int tc = p[i] >> 4, tb = p[i] & 15, v = p[i + 1];
+          if (tb > 3) throw Error("JPEG: bad DAC table index");
+          if (tc == 0) {
+            arith_dc_l[tb] = v & 15;
+            arith_dc_u[tb] = v >> 4;
+            if (arith_dc_l[tb] > arith_dc_u[tb]) throw Error("JPEG: bad DAC value");
+          } else {
+            if (v < 1 || v > 63) throw Error("JPEG: bad DAC value");
+            arith_ac_k[tb] = v;
+          }
+        }
       } else if (m == 0xC4) {
         read_dht(p, plen);
       } else if (m == 0xDB) {
@@ -683,6 +1033,13 @@ struct JpegDecoder {
     std::vector<std::vector<uint8_t>> planes;
     for (auto& c : comps) {
       if (!c.latched) throw Error("JPEG: a component is in no scan");
+      if (lossless) {
+        std::vector<uint8_t> plane(c.undiff.size());
+        for (size_t i = 0; i < plane.size(); ++i)
+          plane[i] = uint8_t(c.undiff[i] << c.point_transform);
+        planes.push_back(std::move(plane));
+        continue;
+      }
       int stride = c.bw * 8;
       std::vector<uint8_t> plane(size_t(stride) * c.bh * 8);
       for (int by = 0; by < c.bh; ++by)
@@ -700,6 +1057,33 @@ struct JpegDecoder {
       img.data = std::move(planes[0]);
       return img;
     }
+    if (comps.size() == 4) {
+      // jdapimin.c: CMYK unless an Adobe marker says YCCK (transform 2, or
+      // any but 0); libjpeg hands over CMYK (jdcolor.c ycck_cmyk_convert)
+      // and PIL's "CMYK;I" inverts every channel.
+      bool ycck = adobe && adobe_transform != 0;
+      if (lossless && ycck)  // libjpeg-turbo converts no colours in a lossless file
+        throw Error("JPEG: a lossless YCCK file is not supported");
+      img.mode = MODE_CMYK;
+      img.channels = 4;
+      const size_t n = size_t(width) * height;
+      img.data.resize(n * 4);
+      auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+      YccTables t;
+      for (size_t i = 0; i < n; ++i) {
+        uint8_t* o = &img.data[4 * i];
+        if (ycck) {
+          int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
+          o[0] = clamp(y + t.cr_r[cr]);
+          o[1] = clamp(y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          o[2] = clamp(y + t.cb_b[cb]);
+        } else {
+          for (int k = 0; k < 3; ++k) o[k] = uint8_t(255 - planes[size_t(k)][i]);
+        }
+        o[3] = uint8_t(255 - planes[3][i]);
+      }
+      return img;
+    }
     // jdapimin.c default_decompress_parms: the colour space of 3 components
     bool ycc;
     if (jfif) {
@@ -709,6 +1093,7 @@ struct JpegDecoder {
     } else {
       ycc = !(comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66);
     }
+    if (lossless && ycc) throw Error("JPEG: a lossless YCbCr file is not supported");
     img.mode = MODE_RGB;
     img.channels = 3;
     img.data.resize(size_t(width) * height * 3);
@@ -718,26 +1103,32 @@ struct JpegDecoder {
         for (int k = 0; k < 3; ++k) img.data[3 * i + k] = planes[size_t(k)][i];
       return img;
     }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
-    auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0; i < 256; ++i) {
-      int64_t x = i - 128;
-      cr_r[i] = int((fix(1.40200) * x + 32768) >> 16);
-      cb_b[i] = int((fix(1.77200) * x + 32768) >> 16);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + 32768;
-    }
+    YccTables t;
     auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); };
     for (size_t i = 0; i < n; ++i) {
       int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
-      img.data[3 * i] = clamp(y + cr_r[cr]);
-      img.data[3 * i + 1] = clamp(y + int((cb_g[cb] + cr_g[cr]) >> 16));
-      img.data[3 * i + 2] = clamp(y + cb_b[cb]);
+      img.data[3 * i] = clamp(y + t.cr_r[cr]);
+      img.data[3 * i + 1] = clamp(y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+      img.data[3 * i + 2] = clamp(y + t.cb_b[cb]);
     }
     return img;
   }
+
+  // jdcolor.c build_ycc_rgb_table
+  struct YccTables {
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    YccTables() {
+      auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
+      for (int i = 0; i < 256; ++i) {
+        int64_t x = i - 128;
+        cr_r[i] = int((fix(1.40200) * x + 32768) >> 16);
+        cb_b[i] = int((fix(1.77200) * x + 32768) >> 16);
+        cr_g[i] = -fix(0.71414) * x;
+        cb_g[i] = -fix(0.34414) * x + 32768;
+      }
+    }
+  };
 };
 
 Image decode_jpeg(const std::vector<uint8_t>& file) {
@@ -922,62 +1313,222 @@ Image decode_png(const std::vector<uint8_t>& file) {
 }
 
 // ===========================================================================
-// BMP decoder (uncompressed 8-bit paletted, 24-bit and 32-bit)
+// BMP decoder, as BmpImagePlugin.py reads it: OS/2 (12-byte) and Windows
+// (40 to 124-byte) headers; 1/4/8-bit palette files raw or RLE8 / RLE4;
+// 16-bit (5-5-5, or 5-6-5 through bit fields), 24-bit and 32-bit files
+// raw or with PIL's bit-field layouts.  A palette that is the identity
+// gray ramp makes the file L (two entries black / white: 1), read with
+// 8 (1) bits per pixel whatever the file's depth, as PIL does.
 // ===========================================================================
 
 Image decode_bmp(const std::vector<uint8_t>& file) {
-  if (file.size() < 54) throw Error("BMP: truncated header");
+  if (file.size() < 18) throw Error("BMP: truncated header");
   uint32_t offset = le32(&file[10]), hsize = le32(&file[14]);
-  if (hsize < 40) throw Error("BMP: OS/2 headers are not supported");
-  int32_t width = int32_t(le32(&file[18])), height = int32_t(le32(&file[22]));
-  int bits = int(le16(&file[28]));
-  uint32_t compression = le32(&file[30]), colors = le32(&file[46]);
-  if (compression != 0) throw Error("BMP: compressed (RLE or bit-field) files are not supported");
-  if (bits != 8 && bits != 24 && bits != 32)
-    throw Error("BMP: " + std::to_string(bits) + "-bit files are not supported");
-  if (width <= 0 || height == 0) throw Error("BMP: bad size");
-  bool top_down = height < 0;
-  int h = top_down ? -height : height, w = width;
-  size_t stride = ((size_t(w) * bits + 31) / 32) * 4;
-  if (size_t(offset) + stride * h > file.size()) throw Error("BMP: truncated pixel data");
+  if (hsize != 12 && hsize != 40 && hsize != 52 && hsize != 56 && hsize != 64 && hsize != 108 &&
+      hsize != 124)
+    throw Error("BMP: header size " + std::to_string(hsize) + " is not supported");
+  if (14 + size_t(hsize) > file.size()) throw Error("BMP: truncated header");
+  const uint8_t* hd = &file[18];  // the header after its size field
+  int64_t width, height;
+  int bits;
+  uint32_t compression = 0, colors = 0, masks[4] = {0, 0, 0, 0};
+  bool top_down = false;
+  size_t pal_at = 14 + hsize;
+  int padding = 4;
+  if (hsize == 12) {
+    width = le16(hd);
+    height = le16(hd + 2);
+    bits = int(le16(hd + 6));
+    padding = 3;
+  } else {
+    top_down = hd[7] == 0xFF;
+    width = int32_t(le32(hd));
+    height = top_down ? int64_t(4294967296LL) - int64_t(le32(hd + 4)) : int64_t(le32(hd + 4));
+    bits = int(le16(hd + 10));
+    compression = le32(hd + 12);
+    colors = le32(hd + 28);
+    if (compression == 3) {
+      if (hsize >= 52) {
+        int n = hsize >= 56 ? 4 : 3;
+        for (int i = 0; i < n; ++i) masks[i] = le32(hd + 36 + 4 * i);
+      } else {
+        if (pal_at + 12 > file.size()) throw Error("BMP: truncated bit fields");
+        for (int i = 0; i < 3; ++i) masks[i] = le32(&file[pal_at + 4 * size_t(i)]);
+        pal_at += 12;
+      }
+    }
+  }
+  if (width <= 0 || height <= 0 || too_many_pixels(uint64_t(width), uint64_t(height)))
+    throw Error("BMP: bad size");
+  int w = int(width), h = int(height);
+  if (colors == 0) colors = bits < 32 ? (uint32_t(1) << bits) : 0;
+  if (offset == 14 + hsize && bits <= 8) offset += 4 * colors;
+  // PIL's mode and raw mode: bits per pixel read and how each becomes samples
+  enum { RAW_P, RAW_BGR15, RAW_BGR16, RAW_BGR, RAW_BYTES4 } raw;
+  int mode, rawbits = bits, order[4] = {2, 1, 0, -1};  // 32-bit: byte of R, G, B, A
+  if (bits == 1 || bits == 4 || bits == 8) {
+    mode = MODE_P;
+    raw = RAW_P;
+  } else if (bits == 16) {
+    mode = MODE_RGB;
+    raw = RAW_BGR15;
+  } else if (bits == 24) {
+    mode = MODE_RGB;
+    raw = RAW_BGR;
+  } else if (bits == 32) {
+    mode = MODE_RGB;
+    raw = RAW_BYTES4;
+  } else {
+    throw Error("BMP: " + std::to_string(bits) + "-bit pixels are not supported");
+  }
+  if (compression == 3) {
+    bool ok = false;
+    if (bits == 32) {
+      static const uint32_t layouts[8][4] = {
+          {0xFF0000, 0xFF00, 0xFF, 0}, {0xFF000000, 0xFF0000, 0xFF00, 0},
+          {0xFF000000, 0xFF00, 0xFF, 0}, {0xFF000000, 0xFF0000, 0xFF00, 0xFF},
+          {0xFF, 0xFF00, 0xFF0000, 0xFF000000}, {0xFF0000, 0xFF00, 0xFF, 0xFF000000},
+          {0xFF000000, 0xFF00, 0xFF, 0xFF0000}, {0, 0, 0, 0}};
+      for (auto& l : layouts) {
+        if (std::memcmp(l, masks, sizeof(masks))) continue;
+        ok = true;
+        if (!masks[0] && !masks[1] && !masks[2] && !masks[3]) {
+          order[0] = 2, order[1] = 1, order[2] = 0, order[3] = 3;  // BGRA
+        } else {
+          for (int c = 0; c < 4; ++c) {
+            order[c] = -1;
+            for (int k = 0; k < 4; ++k)
+              if (masks[c] == (0xFFu << (8 * k))) order[c] = k;
+          }
+        }
+        if (order[3] >= 0) mode = MODE_RGBA;
+      }
+    } else if (bits == 24) {
+      ok = masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF;
+    } else if (bits == 16) {
+      if (masks[0] == 0xF800 && masks[1] == 0x7E0 && masks[2] == 0x1F) {
+        ok = true;
+        raw = RAW_BGR16;
+      } else {
+        ok = masks[0] == 0x7C00 && masks[1] == 0x3E0 && masks[2] == 0x1F;
+      }
+    }
+    if (!ok) throw Error("BMP: this bit-field layout is not supported");
+  } else if (compression == 1 || compression == 2) {
+    if (bits > 8) throw Error("BMP: RLE needs a palette file");
+  } else if (compression != 0) {
+    throw Error("BMP: compression " + std::to_string(compression) + " is not supported");
+  }
   Image img;
   img.w = w;
   img.h = h;
-  if (bits == 8) {
-    if (colors == 0) colors = 256;
-    if (colors > 256 || 14 + size_t(hsize) + 4 * size_t(colors) > file.size())
-      throw Error("BMP: bad palette");
-    const uint8_t* pal = &file[14 + hsize];
-    bool gray = true;
+  bool gray = false;
+  if (mode == MODE_P) {
+    if (colors == 0 || colors > 65536) throw Error("BMP: bad palette size");
+    size_t avail = pal_at < file.size() ? file.size() - pal_at : 0;
+    size_t have = std::min<size_t>(avail, size_t(padding) * colors);
+    const uint8_t* pal = file.data() + pal_at;
+    gray = true;
     for (uint32_t i = 0; i < colors; ++i) {
       uint32_t v = colors == 2 ? (i ? 255 : 0) : i;
-      gray &= pal[4 * i] == v && pal[4 * i + 1] == v && pal[4 * i + 2] == v;
+      size_t at = size_t(i) * padding;
+      if (at + 3 > have || pal[at] != v || pal[at + 1] != v || pal[at + 2] != v) gray = false;
     }
-    if (gray && colors == 2) throw Error("BMP: 8-bit two-colour files are not supported");
-    img.mode = gray ? MODE_L : MODE_P;
-    img.channels = 1;
-    img.data.resize(size_t(w) * h);
-    for (uint32_t i = 0; i < colors && !gray; ++i) {
-      img.palette.push_back(pal[4 * i + 2]);
-      img.palette.push_back(pal[4 * i + 1]);
-      img.palette.push_back(pal[4 * i]);
+    if (gray) {
+      mode = colors == 2 ? MODE_1 : MODE_L;
+      rawbits = colors == 2 ? 1 : 8;
+    } else {
+      for (size_t i = 0; i + 3 <= have && i / padding < 256; i += size_t(padding)) {
+        img.palette.push_back(pal[i + 2]);
+        img.palette.push_back(pal[i + 1]);
+        img.palette.push_back(pal[i]);
+      }
     }
-  } else {
-    img.mode = MODE_RGB;
-    img.channels = 3;
-    img.data.resize(size_t(w) * h * 3);
   }
-  int step = bits / 8;
-  for (int y = 0; y < h; ++y) {
-    const uint8_t* row = &file[offset + stride * size_t(top_down ? y : h - 1 - y)];
-    uint8_t* dst = &img.data[size_t(y) * w * img.channels];
-    for (int x = 0; x < w; ++x) {
-      if (bits == 8) {
-        dst[x] = row[x];
+  img.mode = mode;
+  img.channels = mode == MODE_RGB ? 3 : (mode == MODE_RGBA ? 4 : 1);
+  img.data.assign(size_t(w) * h * img.channels, 0);
+  auto dst_row = [&](int r) { return top_down ? r : h - 1 - r; };  // file row r -> image row
+  if (compression == 1 || compression == 2) {  // BmpRleDecoder
+    if (mode == MODE_1) throw Error("BMP: RLE with a black / white palette is not supported");
+    bool rle4 = compression == 2;
+    std::vector<uint8_t> data;
+    size_t want = size_t(w) * h, pos = offset, x = 0;
+    while (data.size() < want) {
+      if (pos + 2 > file.size()) break;
+      int n = file[pos], byte = file[pos + 1];
+      pos += 2;
+      if (n) {
+        if (x + size_t(n) > size_t(w)) n = int(x > size_t(w) ? 0 : size_t(w) - x);
+        for (int i = 0; i < n; ++i)
+          data.push_back(uint8_t(rle4 ? ((i % 2 == 0) ? byte >> 4 : byte & 15) : byte));
+        x += size_t(n);
+      } else if (byte == 0) {
+        while (data.size() % size_t(w)) data.push_back(0);
+        x = 0;
+      } else if (byte == 1) {
+        break;
+      } else if (byte == 2) {
+        if (pos + 2 > file.size()) break;
+        pos += 2;  // PIL reads the delta from the two bytes after these
+        if (pos + 2 > file.size()) throw Error("BMP: truncated RLE delta");
+        size_t right = file[pos], up = file[pos + 1];
+        pos += 2;
+        data.insert(data.end(), right + up * size_t(w), 0);
+        x = data.size() % size_t(w);
       } else {
-        dst[3 * x] = row[step * x + 2];
-        dst[3 * x + 1] = row[step * x + 1];
-        dst[3 * x + 2] = row[step * x];
+        size_t count = rle4 ? size_t(byte) / 2 : size_t(byte);
+        size_t got = std::min(count, file.size() - pos);
+        for (size_t i = 0; i < got; ++i) {
+          uint8_t b = file[pos + i];
+          if (rle4) {
+            data.push_back(uint8_t(b >> 4));
+            data.push_back(uint8_t(b & 15));
+          } else {
+            data.push_back(b);
+          }
+        }
+        pos += got;
+        if (got < count) break;
+        x += size_t(byte);
+        if (pos % 2) ++pos;
+      }
+    }
+    if (data.size() < want) throw Error("BMP: not enough RLE image data");
+    for (int r = 0; r < h; ++r)
+      std::memcpy(&img.data[size_t(dst_row(r)) * w], &data[size_t(r) * w], size_t(w));
+    return img;
+  }
+  size_t stride = ((size_t(w) * bits + 31) >> 3) & ~size_t(3);
+  size_t need = (size_t(w) * rawbits + 7) / 8;
+  if (need > stride)  // PIL reads 8 bits per pixel on past each row (and past the file)
+    throw Error("BMP: a " + std::to_string(bits) + "-bit file whose palette is the gray ramp "
+                "is not supported");
+  if (size_t(offset) > file.size() || stride * h > file.size() - offset)
+    throw Error("BMP: truncated pixel data");
+  for (int r = 0; r < h; ++r) {
+    const uint8_t* row = &file[offset + stride * size_t(r)];
+    uint8_t* d = &img.data[size_t(dst_row(r)) * w * img.channels];
+    for (int x = 0; x < w; ++x) {
+      if (img.channels == 1) {
+        if (rawbits == 8) d[x] = row[x];
+        else if (rawbits == 4) d[x] = uint8_t((row[x >> 1] >> ((x & 1) ? 0 : 4)) & 15);
+        else d[x] = uint8_t((row[x >> 3] >> (7 - (x & 7))) & 1);
+      } else if (raw == RAW_BGR15 || raw == RAW_BGR16) {
+        uint32_t v = le16(row + 2 * x);
+        uint8_t* o = d + 3 * x;
+        if (raw == RAW_BGR15) {
+          o[0] = uint8_t(((v >> 10) & 31) * 255 / 31);
+          o[1] = uint8_t(((v >> 5) & 31) * 255 / 31);
+        } else {
+          o[0] = uint8_t(((v >> 11) & 31) * 255 / 31);
+          o[1] = uint8_t(((v >> 5) & 63) * 255 / 63);
+        }
+        o[2] = uint8_t((v & 31) * 255 / 31);
+      } else if (raw == RAW_BGR) {
+        for (int c = 0; c < 3; ++c) d[3 * x + c] = row[3 * x + 2 - c];
+      } else {
+        for (int c = 0; c < img.channels; ++c) d[img.channels * x + c] = row[4 * x + order[c]];
       }
     }
   }
@@ -990,7 +1541,15 @@ Image decode_any(const std::vector<uint8_t>& file) {
     return decode_jpeg(file);
   if (file.size() >= 8 && !std::memcmp(file.data(), png_sig, 8)) return decode_png(file);
   if (file.size() >= 2 && file[0] == 'B' && file[1] == 'M') return decode_bmp(file);
-  throw Error("not a JPEG, PNG or BMP file");
+  if (file.size() >= 4 && ((file[0] == 'I' && file[1] == 'I' && (file[2] == 42 || file[2] == 43) &&
+                            file[3] == 0) ||
+                           (file[0] == 'M' && file[1] == 'M' && file[2] == 0 &&
+                            (file[3] == 42 || file[3] == 43))))
+    return decode_tiff(file);
+  if (file.size() >= 6 && !std::memcmp(file.data(), "GIF8", 4)) return decode_gif(file);
+  if (file.size() >= 2 && file[0] == 'P' && std::strchr("0123456fy", file[1]) && file[1])
+    return decode_pnm(file);
+  throw Error("not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM file");
 }
 
 // ===========================================================================
@@ -1284,6 +1843,18 @@ uint8_t* pslx_decode_file(const char* path, int* w, int* h, int* channels, int* 
 uint8_t* pslx_encode_jpeg_gray(const uint8_t* pixels, int w, int h, int* size) {
   try {
     std::vector<uint8_t> out = encode_jpeg_gray(pixels, w, h);
+    *size = int(out.size());
+    return to_malloc(out);
+  } catch (const std::exception&) {
+    return nullptr;
+  }
+}
+
+// A gray [h, w] uint8 image -> the GIF PIL writes for mode L (malloc'd
+// bytes, *size set), or nullptr.
+uint8_t* pslx_encode_gif_gray(const uint8_t* pixels, int w, int h, int* size) {
+  try {
+    std::vector<uint8_t> out = encode_gif_gray(pixels, w, h);
     *size = int(out.size());
     return to_malloc(out);
   } catch (const std::exception&) {

@@ -4,17 +4,19 @@ Port of srrg2_proslam_tpu/io/datasets.py, needing neither PIL nor the JAX
 package.  An image decodes as the JAX package decodes it: through the
 native library (io/native.py, the repo's C++ decoder built at first use)
 when that reads the file, else through the port's second image library
-(io/images.py: JPEG, palette, 1/2/4-bit and interlaced PNG, BMP), which
-stands where the JAX package calls PIL and gives PIL's result; a file
-neither reads raises.  The readers of dataset folders take their files
-through the native prefetcher and decode the files it refuses on the
-calling thread.  ``decode_plain`` is the plain Python decoder the native
+(io/images.py: JPEG, PNG, BMP, TIFF, GIF, PNM and PFM in PIL's modes),
+which stands where the JAX package calls PIL and gives PIL's result; a
+file neither reads raises.  The readers of dataset folders take their
+files through the native prefetcher and decode the files it refuses on
+the calling thread.  ``decode_plain`` is the plain Python decoder the native
 one is held to: PNG 8- and 16-bit gray, gray+alpha, RGB and RGBA
 non-interlaced with all five scanline filters, binary P5 PGM with 8- or
 16-bit (big-endian) samples.  On the native path colour becomes gray as
 0.299 R + 0.587 G + 0.114 B in float64, then float32; on the other, as
-PIL's integer luma.  ``save_gray`` writes 8-bit PNG (zlib), PGM, baseline
-JPEG (quality 75) or 8-bit BMP by the file's extension, as PIL does.
+PIL's integer luma.  ``save_gray`` writes 8-bit PNG (zlib), PGM (also
+under .pbm / .ppm / .pnm / .pfm, as PIL writes mode L there), baseline
+JPEG (quality 75), 8-bit BMP, uncompressed TIFF or GIF by the file's
+extension, byte for byte as PIL does but for PNG.
 
 Layouts: the bundled test data (``test_data/kitti/*``, ``test_data/icl``);
 KITTI odometry (``image_0/ image_1/ times.txt``); TUM RGB-D (``rgb.txt
@@ -187,12 +189,14 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
 
 def save_gray(path: str, image) -> None:
     """Write a gray [H, W] image (0..255, clipped, truncated to uint8) in the
-    format the extension names: 8-bit PNG, binary PGM, baseline JPEG
-    (quality 75, as PIL writes it) or 8-bit BMP; ValueError otherwise."""
+    format the extension names: 8-bit PNG, binary PGM (.pgm, and .pbm /
+    .ppm / .pnm / .pfm, where PIL writes mode L as P5 too), baseline JPEG
+    (quality 75), 8-bit BMP, uncompressed TIFF or GIF, each as PIL writes
+    it; ValueError otherwise."""
     arr = np.clip(np.asarray(image), 0, 255).astype(np.uint8)
     rows, cols = arr.shape
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".pgm":
+    if ext in (".pgm", ".pbm", ".ppm", ".pnm", ".pfm"):   # PIL writes mode L as P5 under each
         blob = f"P5\n{cols} {rows}\n255\n".encode() + arr.tobytes()
     elif ext == ".png":
         lines = np.zeros((rows, cols + 1), np.uint8)   # filter byte 0 (None)
@@ -205,9 +209,14 @@ def save_gray(path: str, image) -> None:
         blob = images.encode_jpeg_gray(arr)
     elif ext == ".bmp":
         blob = images.encode_bmp_gray(arr)
+    elif ext in (".tif", ".tiff"):
+        blob = images.encode_tiff_gray(arr)
+    elif ext == ".gif":
+        blob = images.encode_gif_gray(arr)
     else:
         raise ValueError(f"save_gray: no writer for {ext or 'a name without extension'!r} "
-                         f"({path}); use .png, .pgm, .jpg, .jpeg or .bmp")
+                         f"({path}); use .png, .pgm, .pbm, .ppm, .pnm, .pfm, .jpg, .jpeg, "
+                         ".bmp, .tif, .tiff or .gif")
     with open(path, "wb") as f:
         f.write(blob)
 

@@ -1,23 +1,38 @@
 """The port's second image library: the files the native decoder refuses,
 read as the JAX package reads them through PIL.
 
-``csrc/image_extra.cpp`` decodes JPEG (baseline and progressive Huffman;
-gray, and YCbCr at any integral sampling such as 4:4:4, 4:2:2, 4:2:0 and
-4:1:1; restart intervals), PNG of every colour type, bit depth and
-interlace (palette, 1/2/4-bit, Adam7) and uncompressed 8/24/32-bit BMP,
-bit for bit as PIL with libjpeg-turbo does, and writes baseline gray JPEG
-byte for byte as PIL does by default.  It is compiled with g++ at first use
-into the git-ignored ``srrg2_proslam_tpu_torch/build/`` as ``io/native.py``
-compiles the repo's decoder; a failed build raises with the compiler's
-output.  ``images_plain.decode`` is the plain Python twin it is held to.
+``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp`` and
+``csrc/image_gif_pnm.cpp`` decode, bit for bit as PIL 12 with
+libjpeg-turbo and libtiff does:
+- JPEG: baseline, progressive and lossless (SOF3) Huffman, sequential and
+  progressive arithmetic coding; gray, YCbCr at any integral sampling
+  (4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0), RGB, CMYK and YCCK; restart
+  intervals;
+- PNG of every colour type, bit depth and interlace (palette, 1/2/4-bit,
+  Adam7);
+- BMP: 1/4/8-bit palette files raw or RLE, 16/24/32-bit raw or with PIL's
+  bit-field layouts, OS/2 headers;
+- TIFF: strips or tiles, planar configuration 1 (2 at 8 bits), no
+  compression, PackBits, LZW or Deflate, predictors 2 and 3; bilevel,
+  2/4/8-bit gray, 16-bit, signed 16/32-bit, float32, gray + alpha, RGB(A)
+  at 8/16 bits, palette, CMYK;
+- GIF (the first frame) and PNM: P1-P6 and Pf (PFM).
+It writes baseline gray JPEG (quality 75) and PIL's GIF for mode L byte for
+byte as PIL does; ``encode_tiff_gray`` and ``encode_bmp_gray`` give PIL's
+TIFF and BMP bytes in Python.  The library is compiled with g++ at first
+use into the git-ignored ``srrg2_proslam_tpu_torch/build/`` as
+``io/native.py`` compiles the repo's decoder; a failed build raises with
+the compiler's output.  ``images_plain.decode`` is the plain Python twin it
+is held to.
 
 A decoded file keeps PIL's mode, and ``gray_f32`` / ``depth_f32`` apply the
 JAX package's rule for files that take its PIL branch
 (``srrg2_proslam_tpu/io/datasets.py`` ``load_gray`` / ``load_depth``): L,
-I and I;16 as they are (16-bit / 256), every other mode through PIL's
-``convert("L")`` (integer luma for colour and palette entries, 0/255 for
-mode 1); depth is the first channel of the samples as PIL holds them
-(palette indices, 0/1, R of RGB).
+I and I;16 as they are (16-bit and 32-bit integers / 256), every other
+mode through PIL's ``convert("L")`` (integer luma for colour and palette
+entries, 0/255 for mode 1, I;16B clipped at 255, F clipped and truncated,
+CMYK through RGB); depth is the first channel of the samples as PIL holds
+them (palette indices, 0/1, R of RGB, C of CMYK, float values of F).
 """
 from __future__ import annotations
 
@@ -32,8 +47,12 @@ import numpy as np
 
 from . import native
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "image_extra.cpp"]
-MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA")   # the library's mode codes
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [_CSRC / name for name in ("image_extra.cpp", "image_tiff.cpp", "image_gif_pnm.cpp")]
+HEADERS = [_CSRC / "image_common.h"]
+MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA", "I;16B", "I", "F", "CMYK")   # mode codes
+
+UNKNOWN = "not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM file"
 
 _lib = None
 
@@ -41,7 +60,8 @@ _lib = None
 @dataclass(frozen=True)
 class Decoded:
     """A decoded file in PIL's mode: ``samples`` [H, W, C] uint8 (uint16
-    for I;16); ``palette`` [N, 3] uint8 for mode P."""
+    for I;16 and I;16B, int32 for I, float32 for F); ``palette`` [N, 3]
+    uint8 for mode P."""
     samples: np.ndarray
     mode: str
     palette: Optional[np.ndarray] = None
@@ -49,7 +69,7 @@ class Decoded:
 
 def build() -> Path:
     """Compile the library unless it exists; returns its path."""
-    return native.compile_library("libproslam_image_extra", SOURCES, ["-lz"])
+    return native.compile_library("libproslam_image_extra", SOURCES, ["-lz"], HEADERS)
 
 
 def library() -> ctypes.CDLL:
@@ -65,20 +85,24 @@ def library() -> ctypes.CDLL:
         lib.pslx_encode_jpeg_gray.restype = ctypes.POINTER(ctypes.c_uint8)
         lib.pslx_encode_jpeg_gray.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
                                               ctypes.POINTER(ctypes.c_int)]
+        lib.pslx_encode_gif_gray.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.pslx_encode_gif_gray.argtypes = lib.pslx_encode_jpeg_gray.argtypes
         lib.pslx_free.argtypes = [ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-def _take(ptr, count: int, lib) -> bytes:
-    data = bytes(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8 * count)).contents)
+def _take(ptr, count: int, lib) -> bytearray:
+    """The library's malloc'd buffer, copied (writable) and freed."""
+    data = bytearray(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8 * count)).contents)
     lib.pslx_free(ptr)
     return data
 
 
 def decode(path: str) -> Decoded:
-    """A JPEG, PNG or BMP file -> its samples in PIL's mode; ValueError
-    naming the file and the reason when the library does not read it."""
+    """A JPEG, PNG, BMP, TIFF, GIF or PNM / PFM file -> its samples in PIL's
+    mode; ValueError naming the file and the reason when the library does
+    not read it."""
     lib = library()
     w, h, c, d, m, n_pal = (ctypes.c_int() for _ in range(6))
     pal = ctypes.create_string_buffer(768)
@@ -87,10 +111,10 @@ def decode(path: str) -> Decoded:
                                pal, ctypes.byref(n_pal), err, len(err))
     if not ptr:
         raise ValueError(f"cannot read {path}: {err.value.decode()}")
-    dtype = np.uint16 if d.value == 16 else np.uint8
+    mode = MODES[m.value]
+    dtype = {8: np.uint8, 16: np.uint16, 32: np.float32 if mode == "F" else np.int32}[d.value]
     count = w.value * h.value * c.value * np.dtype(dtype).itemsize
     samples = np.frombuffer(_take(ptr, count, lib), dtype).reshape(h.value, w.value, c.value)
-    mode = MODES[m.value]
     palette = (np.frombuffer(pal.raw[:n_pal.value], np.uint8).reshape(-1, 3)
                if mode == "P" else None)
     return Decoded(samples, mode, palette)
@@ -102,13 +126,28 @@ def luma(rgb: np.ndarray) -> np.ndarray:
     return (19595 * x[..., 0] + 38470 * x[..., 1] + 7471 * x[..., 2] + 0x8000) >> 16
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB: 255 - K - C * (255 - K) / 255 per channel, its
+    rounded MULDIV255, clipped."""
+    x = cmyk.astype(np.int64)
+    nk = 255 - x[..., 3:4]
+    t = x[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+
+
 def gray_f32(img: Decoded) -> np.ndarray:
     """The JAX package's ``load_gray`` of a file PIL opens in ``img.mode``:
     float32 [H, W] in 0..255."""
     s = img.samples
-    if img.mode == "I;16":
+    if img.mode in ("I;16", "I"):
         return np.ascontiguousarray((s[:, :, 0] / 256).astype(np.float32))
-    if img.mode == "1":
+    if img.mode == "I;16B":       # PIL's I;16B -> L clips
+        gray = np.minimum(s[:, :, 0], 255)
+    elif img.mode == "F":         # F -> L: clipped, truncated, NaN to 0
+        gray = np.trunc(np.clip(np.nan_to_num(s[:, :, 0], nan=0, posinf=255, neginf=0), 0, 255))
+    elif img.mode == "CMYK":      # through RGB, as PIL converts
+        gray = luma(cmyk_to_rgb(s))
+    elif img.mode == "1":
         gray = s[:, :, 0].astype(np.int64) * 255
     elif img.mode == "P":
         palette = np.zeros((256, 3), np.uint8)   # PIL's entries past the PLTE are black
@@ -126,17 +165,40 @@ def depth_f32(img: Decoded) -> np.ndarray:
     return np.ascontiguousarray(img.samples[:, :, 0], dtype=np.float32)
 
 
-def encode_jpeg_gray(gray: np.ndarray) -> bytes:
-    """uint8 [H, W] -> a baseline JFIF JPEG as PIL writes it by default
-    (standard tables at quality 75, no optimisation)."""
+def _encode(name: str, gray: np.ndarray) -> bytes:
     arr = np.ascontiguousarray(gray, np.uint8)
     lib = library()
     size = ctypes.c_int()
-    ptr = lib.pslx_encode_jpeg_gray(arr.tobytes(), arr.shape[1], arr.shape[0],
-                                    ctypes.byref(size))
+    ptr = getattr(lib, f"pslx_encode_{name}_gray")(arr.tobytes(), arr.shape[1], arr.shape[0],
+                                                    ctypes.byref(size))
     if not ptr:
-        raise RuntimeError("the JPEG writer failed")
-    return _take(ptr, size.value, lib)
+        raise RuntimeError(f"the {name.upper()} writer failed")
+    return bytes(_take(ptr, size.value, lib))
+
+
+def encode_jpeg_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> a baseline JFIF JPEG as PIL writes it by default
+    (standard tables at quality 75, no optimisation)."""
+    return _encode("jpeg", gray)
+
+
+def encode_gif_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> the GIF PIL writes for mode L: the used gray levels as
+    the colour table, interlaced from 16 x 16 up, LZW."""
+    return _encode("gif", gray)
+
+
+def encode_tiff_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> the uncompressed little-endian TIFF PIL's own writer
+    gives mode L: one strip, nine tags, the pixels at byte 122."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    tags = [(256, 4, cols), (257, 4, rows), (258, 3, 8), (259, 3, 1), (262, 3, 1),
+            (273, 4, 122), (278, 4, rows), (279, 4, arr.size), (284, 3, 1)]
+    ifd = b"".join(struct.pack("<HHI", tag, kind, 1)
+                   + struct.pack("<I" if kind == 4 else "<H2x", value)
+                   for tag, kind, value in tags)
+    return b"II*\0" + struct.pack("<IH", 8, len(tags)) + ifd + bytes(4) + arr.tobytes()
 
 
 def encode_bmp_gray(gray: np.ndarray) -> bytes:

@@ -1,27 +1,32 @@
-"""The plain Python/numpy twin of ``csrc/image_extra.cpp``'s decoders.
+"""The plain Python/numpy twin of the second image library's decoders
+(``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp``,
+``csrc/image_gif_pnm.cpp``).
 
-``decode`` reads the same files as ``images.decode`` (JPEG baseline and
-progressive Huffman, PNG of every colour type, bit depth and interlace,
-uncompressed 8/24/32-bit BMP), refuses the same ones and returns the same
-``Decoded`` samples: entropy decoding in Python, libjpeg-turbo's integer
-IDCT, fancy upsampling and fixed-point YCbCr -> RGB vectorised in int64
-numpy.  The tests and ``chip_smoke.py`` hold the library to it; nothing on
-the readers' path calls it, and it is far slower than the library.
+``decode`` reads the same files as ``images.decode`` (JPEG baseline,
+progressive, lossless and arithmetic-coded; PNG of every colour type, bit
+depth and interlace; BMP raw, RLE and bit-field; TIFF strips and tiles
+with PackBits, LZW or Deflate and predictors 2 / 3; GIF; PNM P1-P6 and
+PFM), refuses the same ones and returns the same ``Decoded`` samples:
+entropy decoding and LZW in Python, libjpeg-turbo's integer IDCT, fancy
+upsampling and fixed-point YCbCr -> RGB vectorised in int64 numpy.  The
+tests and ``chip_smoke.py`` hold the library to it; nothing on the
+readers' path calls it, and it is far slower than the library.
 """
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
 import numpy as np
 
 from .datasets import _PNG_SIGNATURE, _unfilter
-from .images import Decoded
+from .images import UNKNOWN, Decoded
 
 
 def decode(path: str) -> Decoded:
-    """A JPEG, PNG or BMP file -> its samples in PIL's mode; ValueError
-    naming the file and the reason otherwise."""
+    """A JPEG, PNG, BMP, TIFF, GIF or PNM / PFM file -> its samples in PIL's
+    mode; ValueError naming the file and the reason otherwise."""
     with open(path, "rb") as f:
         blob = f.read()
     try:
@@ -31,7 +36,13 @@ def decode(path: str) -> Decoded:
             return _decode_png(blob)
         if blob[:2] == b"BM":
             return _decode_bmp(blob)
-        raise ValueError("not a JPEG, PNG or BMP file")
+        if blob[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+            return _decode_tiff(blob)
+        if blob[:4] == b"GIF8" and len(blob) >= 6:
+            return _decode_gif(blob)
+        if len(blob) >= 2 and blob[0] == ord("P") and blob[1] in b"0123456fy":
+            return _decode_pnm(blob)
+        raise ValueError(UNKNOWN)
     except (ValueError, IndexError, struct.error, zlib.error) as e:
         raise ValueError(f"cannot read {path}: {e}") from None
 
@@ -48,6 +59,7 @@ def _zigzag() -> list:
 
 
 NATURAL = _zigzag()   # zigzag index -> natural index, 16 guard entries of 63
+MAX_PIXELS = 178956970   # PIL raises DecompressionBombError above twice MAX_IMAGE_PIXELS
 
 
 def _huffman_lut(bits, vals) -> list:
@@ -89,6 +101,86 @@ class _Bits:
         v = self.peek16() >> (16 - n)
         self.pos += n
         return v
+
+
+# T.81 Table D.2 (Qe, Next_Index_MPS, Next_Index_LPS, Switch_MPS); entry 113
+# is jdarith.c's fixed 0.5 estimate.
+_ARITAB = [
+    (0x5a1d, 1, 1, 1), (0x2586, 2, 14, 0), (0x1114, 3, 16, 0), (0x080b, 4, 18, 0),
+    (0x03d8, 5, 20, 0), (0x01da, 6, 23, 0), (0x00e5, 7, 25, 0), (0x006f, 8, 28, 0),
+    (0x0036, 9, 30, 0), (0x001a, 10, 33, 0), (0x000d, 11, 35, 0), (0x0006, 12, 9, 0),
+    (0x0003, 13, 10, 0), (0x0001, 13, 12, 0), (0x5a7f, 15, 15, 1), (0x3f25, 16, 36, 0),
+    (0x2cf2, 17, 38, 0), (0x207c, 18, 39, 0), (0x17b9, 19, 40, 0), (0x1182, 20, 42, 0),
+    (0x0cef, 21, 43, 0), (0x09a1, 22, 45, 0), (0x072f, 23, 46, 0), (0x055c, 24, 48, 0),
+    (0x0406, 25, 49, 0), (0x0303, 26, 51, 0), (0x0240, 27, 52, 0), (0x01b1, 28, 54, 0),
+    (0x0144, 29, 56, 0), (0x00f5, 30, 57, 0), (0x00b7, 31, 59, 0), (0x008a, 32, 60, 0),
+    (0x0068, 33, 62, 0), (0x004e, 34, 63, 0), (0x003b, 35, 32, 0), (0x002c, 9, 33, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 38, 64, 0), (0x3a0d, 39, 65, 0), (0x2ef1, 40, 67, 0),
+    (0x261f, 41, 68, 0), (0x1f33, 42, 69, 0), (0x19a8, 43, 70, 0), (0x1518, 44, 72, 0),
+    (0x1177, 45, 73, 0), (0x0e74, 46, 74, 0), (0x0bfb, 47, 75, 0), (0x09f8, 48, 77, 0),
+    (0x0861, 49, 78, 0), (0x0706, 50, 79, 0), (0x05cd, 51, 48, 0), (0x04de, 52, 50, 0),
+    (0x040f, 53, 50, 0), (0x0363, 54, 51, 0), (0x02d4, 55, 52, 0), (0x025c, 56, 53, 0),
+    (0x01f8, 57, 54, 0), (0x01a4, 58, 55, 0), (0x0160, 59, 56, 0), (0x0125, 60, 57, 0),
+    (0x00f6, 61, 58, 0), (0x00cb, 62, 59, 0), (0x00ab, 63, 61, 0), (0x008f, 32, 61, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 66, 80, 0), (0x412c, 67, 81, 0), (0x37d8, 68, 82, 0),
+    (0x2fe8, 69, 83, 0), (0x293c, 70, 84, 0), (0x2379, 71, 86, 0), (0x1edf, 72, 87, 0),
+    (0x1aa9, 73, 87, 0), (0x174e, 74, 72, 0), (0x1424, 75, 72, 0), (0x119c, 76, 74, 0),
+    (0x0f6b, 77, 74, 0), (0x0d51, 78, 75, 0), (0x0bb6, 79, 77, 0), (0x0a40, 48, 77, 0),
+    (0x5832, 81, 80, 1), (0x4d1c, 82, 88, 0), (0x438e, 83, 89, 0), (0x3bdd, 84, 90, 0),
+    (0x34ee, 85, 91, 0), (0x2eae, 86, 92, 0), (0x299a, 87, 93, 0), (0x2516, 71, 86, 0),
+    (0x5570, 89, 88, 1), (0x4ca9, 90, 95, 0), (0x44d9, 91, 96, 0), (0x3e22, 92, 97, 0),
+    (0x3824, 93, 99, 0), (0x32b4, 94, 99, 0), (0x2e17, 86, 93, 0), (0x56a8, 96, 95, 1),
+    (0x4f46, 97, 101, 0), (0x47e5, 98, 102, 0), (0x41cf, 99, 103, 0), (0x3c3d, 100, 104, 0),
+    (0x375e, 93, 99, 0), (0x5231, 102, 105, 0), (0x4c0f, 103, 106, 0), (0x4639, 104, 107, 0),
+    (0x415e, 99, 103, 0), (0x5627, 106, 105, 1), (0x50e7, 107, 108, 0), (0x4b85, 103, 109, 0),
+    (0x5597, 109, 110, 0), (0x504f, 107, 111, 0), (0x5a10, 111, 110, 1), (0x5522, 109, 112, 0),
+    (0x59eb, 111, 112, 1), (0x5a1d, 113, 113, 0)]
+FIXED_BIN = 113
+
+
+class _Arith:
+    """jdarith.c's decoder over one restart interval's unstuffed bytes
+    (zeros past their end, as libjpeg feeds at a marker)."""
+    __slots__ = ("d", "pos", "c", "a", "ct")
+
+    def __init__(self, data: bytes):
+        self.d, self.pos, self.c, self.a, self.ct = data, 0, 0, 0, -16
+
+    def decode(self, stats, i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                byte = self.d[self.pos] if self.pos < len(self.d) else 0
+                self.pos += 1
+                self.c = (self.c << 8) | byte
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = stats[i]
+        qe, nm, nl, sw = _ARITAB[sv & 0x7F]
+        nl |= sw << 7
+        temp = self.a - qe
+        self.a = temp
+        temp <<= self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                self.a = qe
+                stats[i] = (sv & 0x80) ^ nm
+            else:
+                self.a = qe
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) ^ nm
+        return sv >> 7
 
 
 def _extend(v: int, s: int) -> int:
@@ -134,7 +226,9 @@ class _Jpeg:
     def __init__(self, blob: bytes):
         self.f = blob
         self.qtables, self.dc, self.ac = {}, {}, {}
-        self.comps, self.frame, self.progressive = [], False, False
+        self.comps, self.frame, self.progressive, self.lossless = [], False, False, False
+        self.arith = False
+        self.dac_l, self.dac_u, self.dac_k = [0] * 4, [1] * 4, [5] * 4
         self.jfif = self.adobe = False
         self.adobe_transform = -1
         self.restart_interval = 0
@@ -148,10 +242,11 @@ class _Jpeg:
         self.height, self.width, nc = struct.unpack(">HHB", p[1:6])
         if not self.height or not self.width:
             raise ValueError("JPEG: zero image size (DNL is not supported)")
-        if nc not in (1, 3):
-            raise ValueError(f"JPEG: {nc} components are not supported (gray or YCbCr/RGB "
-                             "only; CMYK and YCCK are refused)")
-        self.progressive = marker == 0xC2
+        if nc not in (1, 3, 4):
+            raise ValueError(f"JPEG: {nc} components are not supported (gray, YCbCr / RGB, "
+                             "CMYK / YCCK only)")
+        self.progressive, self.lossless = marker in (0xC2, 0xCA), marker == 0xC3
+        self.arith = marker in (0xC9, 0xCA)
         for i in range(nc):
             c = _Component(p[6 + 3 * i], p[7 + 3 * i] >> 4, p[7 + 3 * i] & 15, p[8 + 3 * i] & 3)
             if not (1 <= c.h <= 4 and 1 <= c.v <= 4):
@@ -168,7 +263,12 @@ class _Jpeg:
             c.dw = -(-self.width * c.h // self.hmax)
             c.dh = -(-self.height * c.v // self.vmax)
             c.wib, c.hib = -(-c.dw // 8), -(-c.dh // 8)
-            c.coef = [0] * (c.bw * c.bh * 64)
+            if self.lossless:
+                if c.h != 1 or c.v != 1:
+                    raise ValueError("JPEG: subsampled lossless files are not supported")
+                c.undiff = np.zeros((self.height, self.width), np.int64)
+            else:
+                c.coef = [0] * (c.bw * c.bh * 64)
         self.frame = True
 
     def read_dqt(self, p: bytes):
@@ -242,6 +342,8 @@ class _Jpeg:
                 raise ValueError("JPEG: bad table index in SOS")
             sc.append(c)
         ss, se, ah, al = p[1 + 2 * ns], p[2 + 2 * ns], p[3 + 2 * ns] >> 4, p[3 + 2 * ns] & 15
+        if self.lossless:
+            return self.read_lossless_scan(sc, ss, al, data_start)
         if self.progressive:
             if (ss > se or se > 63 or al > 13 or (ss == 0 and se != 0)
                     or (ss > 0 and ns != 1)):
@@ -253,12 +355,15 @@ class _Jpeg:
                 if c.tq not in self.qtables:
                     raise ValueError("JPEG: missing quantisation table")
                 c.qt = list(self.qtables[c.tq])
-            if ((ss == 0 and ah == 0 and c.dc_tbl not in self.dc)
-                    or (se > 0 and c.ac_tbl not in self.ac)):
+            if not self.arith and ((ss == 0 and ah == 0 and c.dc_tbl not in self.dc)
+                                   or (se > 0 and c.ac_tbl not in self.ac)):
                 raise ValueError("JPEG: missing Huffman table")
             for k in range(ss, se + 1):
                 c.coef_bits[k] = al
         intervals, end = self.scan_intervals(data_start)
+        if self.arith:
+            self.arith_scan(sc, intervals, ss, se, ah, al)
+            return end
         if ns == 1:
             ux, uy = sc[0].wib, sc[0].hib
         else:
@@ -282,6 +387,180 @@ class _Jpeg:
                         for bx in range(c.h):
                             base = ((y * c.v + by) * c.bw + x * c.h + bx) * 64
                             self.block(bits, c, base, last_dc, i, eobrun, ss, se, ah, al)
+        return end
+
+    def arith_scan(self, sc, intervals, ss, se, ah, al):
+        """jdarith.c: statistics zeroed per table at the scan's start and at
+        each restart; sequential or the four progressive scan kinds."""
+        ns = len(sc)
+        ux, uy = (sc[0].wib, sc[0].hib) if ns == 1 else (self.mcux, self.mcuy)
+        total = ux * uy
+        per = self.restart_interval or total
+        dc_stats = {c.dc_tbl: None for c in sc}
+        ac_stats = {c.ac_tbl: None for c in sc}
+        for r, start in enumerate(range(0, total, per)):
+            if r > 0 and intervals[r - 1][1] != (r - 1) & 7:
+                raise ValueError("JPEG: restart marker out of sequence")
+            dec = _Arith(intervals[r][0])
+            last_dc, context, state = [0] * ns, [0] * ns, {"error": False}
+            for c in sc:
+                if not self.progressive or (ss == 0 and ah == 0):
+                    dc_stats[c.dc_tbl] = [0] * 64
+                if not self.progressive or ss:
+                    ac_stats[c.ac_tbl] = [0] * 256
+            for u in range(start, min(start + per, total)):
+                x, y = u % ux, u // ux
+                for i, c in enumerate(sc):
+                    nh, nv = (1, 1) if ns == 1 else (c.h, c.v)
+                    for by in range(nv):
+                        for bx in range(nh):
+                            if state["error"]:
+                                continue
+                            if ns == 1:
+                                base = (y * c.bw + x) * 64
+                            else:
+                                base = ((y * c.v + by) * c.bw + x * c.h + bx) * 64
+                            dcs, acs = dc_stats[c.dc_tbl], ac_stats[c.ac_tbl]
+                            if not self.progressive:
+                                self.arith_dc(dec, c, dcs, base, last_dc, context, i, 0, state)
+                                self.arith_ac_first(dec, c, acs, base, 1, 63, 0, state)
+                            elif ss == 0 and ah == 0:
+                                self.arith_dc(dec, c, dcs, base, last_dc, context, i, al, state)
+                            elif ss == 0:
+                                if dec.decode([FIXED_BIN], 0):
+                                    c.coef[base] |= 1 << al
+                            elif ah == 0:
+                                self.arith_ac_first(dec, c, acs, base, ss, se, al, state)
+                            else:
+                                self.arith_ac_refine(dec, c, acs, base, ss, se, al, state)
+
+    def arith_dc(self, dec, c, stats, base, last_dc, context, i, al, state):
+        tbl = c.dc_tbl
+        st = context[i]
+        if dec.decode(stats, st) == 0:
+            context[i] = 0
+        else:
+            sign = dec.decode(stats, st + 1)
+            st += 2 + sign
+            m = dec.decode(stats, st)
+            if m:
+                st = 20
+                while dec.decode(stats, st):
+                    m <<= 1
+                    if m == 0x8000:
+                        state["error"] = True
+                        return
+                    st += 1
+            if m < (1 << self.dac_l[tbl]) >> 1:
+                context[i] = 0
+            elif m > (1 << self.dac_u[tbl]) >> 1:
+                context[i] = 12 + sign * 4
+            else:
+                context[i] = 4 + sign * 4
+            v = m
+            st += 14
+            m >>= 1
+            while m:
+                if dec.decode(stats, st):
+                    v |= m
+                m >>= 1
+            v += 1
+            last_dc[i] = (last_dc[i] + (-v if sign else v)) & 0xFFFF
+        c.coef[base] = _int16(last_dc[i] << al)
+
+    def arith_ac_first(self, dec, c, stats, base, ss, se, al, state):
+        fixed, k = [FIXED_BIN], ss
+        while k <= se:
+            st = 3 * (k - 1)
+            if dec.decode(stats, st):
+                break
+            while dec.decode(stats, st + 1) == 0:
+                st += 3
+                k += 1
+                if k > se:
+                    state["error"] = True
+                    return
+            sign = dec.decode(fixed, 0)
+            st += 2
+            m = dec.decode(stats, st)
+            if m and dec.decode(stats, st):
+                m <<= 1
+                st = 189 if k <= self.dac_k[c.ac_tbl] else 217
+                while dec.decode(stats, st):
+                    m <<= 1
+                    if m == 0x8000:
+                        state["error"] = True
+                        return
+                    st += 1
+            v = m
+            st += 14
+            m >>= 1
+            while m:
+                if dec.decode(stats, st):
+                    v |= m
+                m >>= 1
+            v += 1
+            c.coef[base + NATURAL[k]] = _int16((-v if sign else v) << al)
+            k += 1
+
+    def arith_ac_refine(self, dec, c, stats, base, ss, se, al, state):
+        fixed, coef, nat = [FIXED_BIN], c.coef, NATURAL
+        p1, m1 = 1 << al, -(1 << al)
+        kex = se
+        while kex > 0 and not coef[base + nat[kex]]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            st = 3 * (k - 1)
+            if k > kex and dec.decode(stats, st):
+                break
+            while True:
+                at = base + nat[k]
+                if coef[at]:
+                    if dec.decode(stats, st + 2):
+                        coef[at] += m1 if coef[at] < 0 else p1
+                    break
+                if dec.decode(stats, st + 1):
+                    coef[at] = m1 if dec.decode(fixed, 0) else p1
+                    break
+                st += 3
+                k += 1
+                if k > se:
+                    state["error"] = True
+                    return
+            k += 1
+
+    def read_lossless_scan(self, sc, psv, pt, data_start) -> int:
+        """jdlhuff.c / jdlossls.c: Huffman-coded differences from predictor
+        ``psv``; samples mod 2^16, shifted left by ``pt`` on output."""
+        if not 1 <= psv <= 7 or pt > 7:
+            raise ValueError("JPEG: bad lossless scan parameters")
+        if self.restart_interval:
+            raise ValueError("JPEG: restart markers in a lossless file are not supported")
+        for c in sc:
+            if c.dc_tbl not in self.dc:
+                raise ValueError("JPEG: missing Huffman table")
+            c.qt, c.point_transform = [], pt
+        intervals, end = self.scan_intervals(data_start)
+        bits = _Bits(intervals[0][0])
+        h, w = self.height, self.width
+        u = [c.undiff for c in sc]
+        luts = [self.dc[c.dc_tbl] for c in sc]
+        for y in range(h):
+            for x in range(w):
+                for k in range(len(sc)):
+                    s = bits.huff(luts[k])
+                    diff = 0 if s == 0 else 32768 if s == 16 else _extend(bits.get(s), s)
+                    a = u[k]
+                    if y == 0:
+                        pred = (1 << (7 - pt)) if x == 0 else a[y, x - 1]
+                    elif x == 0:
+                        pred = a[y - 1, x]
+                    else:
+                        ra, rb, rc = a[y, x - 1], a[y - 1, x], a[y - 1, x - 1]
+                        pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                                rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv - 1]
+                    a[y, x] = (diff + pred) & 0xFFFF
         return end
 
     def block(self, bits, c, base, last_dc, i, eobrun, ss, se, ah, al):
@@ -386,12 +665,25 @@ class _Jpeg:
             if n < 2 or pos + n > len(f):
                 raise ValueError("JPEG: truncated marker segment")
             p = f[pos + 2:pos + n]
-            if m in (0xC0, 0xC1, 0xC2):
+            if m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
                 self.read_frame(p, m)
-            elif m in (0xC3, 0xC5, 0xC6, 0xC7):
-                raise ValueError("JPEG: lossless and hierarchical JPEG are not supported")
-            elif 0xC9 <= m <= 0xCF and m != 0xC4:
-                raise ValueError("JPEG: arithmetic coding is not supported")
+            elif m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+                raise ValueError("JPEG: hierarchical JPEG is not supported")
+            elif m == 0xCB:
+                raise ValueError("JPEG: arithmetic-coded lossless JPEG is not supported")
+            elif m == 0xCC:
+                for i in range(0, len(p) - 1, 2):
+                    tc, tb, v = p[i] >> 4, p[i] & 15, p[i + 1]
+                    if tb > 3:
+                        raise ValueError("JPEG: bad DAC table index")
+                    if tc == 0:
+                        self.dac_l[tb], self.dac_u[tb] = v & 15, v >> 4
+                        if self.dac_l[tb] > self.dac_u[tb]:
+                            raise ValueError("JPEG: bad DAC value")
+                    else:
+                        if not 1 <= v <= 63:
+                            raise ValueError("JPEG: bad DAC value")
+                        self.dac_k[tb] = v
             elif m == 0xC4:
                 self.read_dht(p)
             elif m == 0xDB:
@@ -423,6 +715,8 @@ class _Jpeg:
     def plane(self, c) -> np.ndarray:
         if c.qt is None:
             raise ValueError("JPEG: a component is in no scan")
+        if self.lossless:
+            return (c.undiff << c.point_transform) & 0xFF
         blocks = np.array(c.coef, np.int64).reshape(c.bh, c.bw, 8, 8)
         x = blocks * np.array(c.qt, np.int64).reshape(8, 8)
         ws = _idct_1d(x.swapaxes(-1, -2), 11).swapaxes(-1, -2)   # columns
@@ -457,9 +751,19 @@ class _Jpeg:
         if self.f[:2] != b"\xff\xd8":
             raise ValueError("not a JPEG file")
         self.parse()
-        planes = [self.upsample(self.plane(c), c).astype(np.int64) for c in self.comps]
+        planes = [(self.plane(c) if self.lossless else self.upsample(self.plane(c), c))
+                  .astype(np.int64) for c in self.comps]
         if len(planes) == 1:
             return Decoded(planes[0].astype(np.uint8)[:, :, None], "L")
+        if len(planes) == 4:     # CMYK, or YCCK after an Adobe marker; PIL inverts ("CMYK;I")
+            k = 255 - planes[3]
+            if self.lossless and self.adobe and self.adobe_transform != 0:
+                raise ValueError("JPEG: a lossless YCCK file is not supported")
+            if self.adobe and self.adobe_transform != 0:
+                cmy = _ycc_to_rgb(*planes[:3])
+            else:
+                cmy = 255 - np.stack(planes[:3], -1)
+            return Decoded(np.concatenate([cmy, k[..., None]], -1).astype(np.uint8), "CMYK")
         ids = [c.id for c in self.comps]
         if self.jfif:
             ycc = True
@@ -469,14 +773,20 @@ class _Jpeg:
             ycc = ids != [82, 71, 66]
         if not ycc:
             return Decoded(np.stack(planes, -1).astype(np.uint8), "RGB")
-        yy, cb, cr = planes
-        fix = lambda v: int(v * 65536.0 + 0.5)   # noqa: E731
-        x = np.arange(256, dtype=np.int64) - 128
-        cr_r = (fix(1.40200) * x + 32768) >> 16
-        cb_b = (fix(1.77200) * x + 32768) >> 16
-        cr_g, cb_g = -fix(0.71414) * x, -fix(0.34414) * x + 32768
-        rgb = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb]], -1)
-        return Decoded(np.clip(rgb, 0, 255).astype(np.uint8), "RGB")
+        if self.lossless:         # libjpeg-turbo converts no colours in a lossless file
+            raise ValueError("JPEG: a lossless YCbCr file is not supported")
+        return Decoded(_ycc_to_rgb(*planes).astype(np.uint8), "RGB")
+
+
+def _ycc_to_rgb(yy, cb, cr) -> np.ndarray:
+    """jdcolor.c's fixed-point YCbCr -> RGB (its tables), clipped."""
+    fix = lambda v: int(v * 65536.0 + 0.5)   # noqa: E731
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + 32768) >> 16
+    cb_b = (fix(1.77200) * x + 32768) >> 16
+    cr_g, cb_g = -fix(0.71414) * x, -fix(0.34414) * x + 32768
+    rgb = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255)
 
 
 def _int16(v: int) -> int:
@@ -566,38 +876,720 @@ def _decode_png(blob: bytes) -> Decoded:
 
 # ---- BMP ---------------------------------------------------------------------
 
+_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+_BMP_LAYOUTS32 = [(0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+                  (0xFF000000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                  (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                  (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)]
+
+
+def _bmp_rle(blob: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
+    """BmpRleDecoder: the indices in file row order, [h, w]."""
+    data, want, x = bytearray(), w * h, 0
+    while len(data) < want:
+        if pos + 2 > len(blob):
+            break
+        n, byte = blob[pos], blob[pos + 1]
+        pos += 2
+        if n:
+            n = max(0, w - x) if x + n > w else n
+            if rle4:
+                data += bytes((byte >> 4) if i % 2 == 0 else (byte & 15) for i in range(n))
+            else:
+                data += bytes([byte]) * n
+            x += n
+        elif byte == 0:
+            data += bytes(-len(data) % w)
+            x = 0
+        elif byte == 1:
+            break
+        elif byte == 2:
+            if pos + 2 > len(blob):
+                break
+            pos += 2                       # PIL reads the delta from the next two bytes
+            if pos + 2 > len(blob):
+                raise ValueError("BMP: truncated RLE delta")
+            right, up = blob[pos], blob[pos + 1]
+            pos += 2
+            data += bytes(right + up * w)
+            x = len(data) % w
+        else:
+            count = byte // 2 if rle4 else byte
+            got = blob[pos:pos + count]
+            pos += len(got)
+            data += bytes(v for b in got for v in (b >> 4, b & 15)) if rle4 else got
+            if len(got) < count:
+                break
+            x += byte
+            pos += pos % 2
+    if len(data) < want:
+        raise ValueError("BMP: not enough RLE image data")
+    return np.frombuffer(bytes(data[:want]), np.uint8).reshape(h, w)
+
+
 def _decode_bmp(blob: bytes) -> Decoded:
-    if len(blob) < 54:
+    if len(blob) < 18:
         raise ValueError("BMP: truncated header")
-    offset, hsize = struct.unpack("<I", blob[10:14])[0], struct.unpack("<I", blob[14:18])[0]
-    if hsize < 40:
-        raise ValueError("BMP: OS/2 headers are not supported")
-    width, height, _, bits, compression = struct.unpack("<iiHHI", blob[18:34])
-    colors = struct.unpack("<I", blob[46:50])[0]
-    if compression != 0:
-        raise ValueError("BMP: compressed (RLE or bit-field) files are not supported")
-    if bits not in (8, 24, 32):
-        raise ValueError(f"BMP: {bits}-bit files are not supported")
-    if width <= 0 or height == 0:
+    offset, hsize = struct.unpack("<II", blob[10:18])
+    if hsize not in _BMP_HEADERS:
+        raise ValueError(f"BMP: header size {hsize} is not supported")
+    if 14 + hsize > len(blob):
+        raise ValueError("BMP: truncated header")
+    hd, pal_at, padding = blob[18:14 + hsize], 14 + hsize, 4
+    compression, colors, masks, top_down = 0, 0, (0, 0, 0, 0), False
+    if hsize == 12:
+        width, height, _, bits = struct.unpack("<HHHH", hd[:8])
+        padding = 3
+    else:
+        top_down = hd[7] == 0xFF
+        width, height, _, bits, compression = struct.unpack("<iIHHI", hd[:16])
+        height = 2 ** 32 - height if top_down else height
+        colors = struct.unpack("<I", hd[28:32])[0]
+        if compression == 3:
+            if hsize >= 52:
+                masks = struct.unpack("<4I" if hsize >= 56 else "<3I", hd[36:52 if hsize >= 56
+                                                                       else 48])
+            else:
+                if pal_at + 12 > len(blob):
+                    raise ValueError("BMP: truncated bit fields")
+                masks = struct.unpack("<3I", blob[pal_at:pal_at + 12])
+                pal_at += 12
+            masks = tuple(masks) + (0,) * (4 - len(masks))
+    if width <= 0 or height <= 0 or width * height > MAX_PIXELS:
         raise ValueError("BMP: bad size")
-    h = abs(height)
-    stride = (width * bits + 31) // 32 * 4
-    if offset + stride * h > len(blob):
+    w, h = width, height
+    colors = colors or (1 << bits if bits < 32 else 0)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits in (1, 4, 8):
+        mode, raw = "P", "P"
+    elif bits in (16, 24, 32):
+        mode, raw = "RGB", {16: "BGR;15", 24: "BGR", 32: "BYTES4"}[bits]
+    else:
+        raise ValueError(f"BMP: {bits}-bit pixels are not supported")
+    order, rawbits = [2, 1, 0, -1], bits
+    if compression == 3:
+        ok = False
+        if bits == 32 and masks in _BMP_LAYOUTS32:
+            ok = True
+            if masks == (0, 0, 0, 0):
+                order = [2, 1, 0, 3]
+            else:
+                order = [next((k for k in range(4) if m == 0xFF << (8 * k)), -1) for m in masks]
+            mode = "RGBA" if order[3] >= 0 else mode
+        elif bits == 24:
+            ok = masks[:3] == (0xFF0000, 0xFF00, 0xFF)
+        elif bits == 16:
+            if masks[:3] == (0xF800, 0x7E0, 0x1F):
+                ok, raw = True, "BGR;16"
+            else:
+                ok = masks[:3] == (0x7C00, 0x3E0, 0x1F)
+        if not ok:
+            raise ValueError("BMP: this bit-field layout is not supported")
+    elif compression in (1, 2):
+        if bits > 8:
+            raise ValueError("BMP: RLE needs a palette file")
+    elif compression != 0:
+        raise ValueError(f"BMP: compression {compression} is not supported")
+    palette = None
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise ValueError("BMP: bad palette size")
+        pal = blob[pal_at:pal_at + padding * colors]
+        ramp = (0, 255) if colors == 2 else range(colors)
+        gray = all(pal[i * padding:i * padding + 3] == bytes([v]) * 3 for i, v in enumerate(ramp))
+        if gray:
+            mode, rawbits = ("1", 1) if colors == 2 else ("L", 8)
+        else:
+            n = min(len(pal) // padding, 256)
+            entries = np.frombuffer(pal[:n * padding], np.uint8).reshape(n, padding)
+            palette = np.ascontiguousarray(entries[:, 2::-1])
+    if compression in (1, 2):
+        if mode == "1":
+            raise ValueError("BMP: RLE with a black / white palette is not supported")
+        rows = _bmp_rle(blob, offset, w, h, compression == 2)
+        rows = rows if top_down else rows[::-1]
+        return Decoded(np.ascontiguousarray(rows[:, :, None]), mode, palette)
+    stride = ((w * bits + 31) >> 3) & ~3
+    if (w * rawbits + 7) // 8 > stride:   # PIL reads 8 bits per pixel on past each row
+        raise ValueError(f"BMP: a {bits}-bit file whose palette is the gray ramp is not "
+                         "supported")
+    if offset > len(blob) or offset + stride * h > len(blob):
         raise ValueError("BMP: truncated pixel data")
     rows = np.frombuffer(blob, np.uint8, stride * h, offset).reshape(h, stride)
-    if height > 0:
+    if not top_down:
         rows = rows[::-1]
-    if bits != 8:
-        px = rows[:, :width * bits // 8].reshape(h, width, bits // 8)
-        return Decoded(np.ascontiguousarray(px[:, :, 2::-1]), "RGB")
-    colors = colors or 256
-    if colors > 256 or 14 + hsize + 4 * colors > len(blob):
-        raise ValueError("BMP: bad palette")
-    pal = np.frombuffer(blob, np.uint8, 4 * colors, 14 + hsize).reshape(colors, 4)
-    ramp = np.array([0, 255]) if colors == 2 else np.arange(colors)
-    gray = bool((pal[:, :3] == ramp[:, None]).all())
-    if gray and colors == 2:
-        raise ValueError("BMP: 8-bit two-colour files are not supported")
-    samples = np.ascontiguousarray(rows[:, :width, None])
-    return (Decoded(samples, "L") if gray
-            else Decoded(samples, "P", np.ascontiguousarray(pal[:, 2::-1])))
+    if mode in ("P", "L", "1"):
+        if rawbits == 8:
+            px = rows[:, :w]
+        else:
+            bitsarr = np.unpackbits(rows, axis=1)[:, :w * rawbits].reshape(h, w, rawbits)
+            px = (bitsarr.astype(np.int64) << np.arange(rawbits - 1, -1, -1)).sum(-1)
+        return Decoded(np.ascontiguousarray(px[:, :, None], dtype=np.uint8), mode, palette)
+    if raw in ("BGR;15", "BGR;16"):
+        v = rows[:, :2 * w].copy().view("<u2").astype(np.int64)
+        if raw == "BGR;15":
+            r, g = (v >> 10) & 31, (v >> 5) & 31
+            rgb = [r * 255 // 31, g * 255 // 31]
+        else:
+            r, g = (v >> 11) & 31, (v >> 5) & 63
+            rgb = [r * 255 // 31, g * 255 // 63]
+        rgb.append((v & 31) * 255 // 31)
+        return Decoded(np.stack(rgb, -1).astype(np.uint8), "RGB")
+    if raw == "BGR":
+        px = rows[:, :3 * w].reshape(h, w, 3)
+        return Decoded(np.ascontiguousarray(px[:, :, ::-1]), "RGB")
+    px = rows[:, :4 * w].reshape(h, w, 4)
+    chans = order if mode == "RGBA" else order[:3]
+    return Decoded(np.ascontiguousarray(px[:, :, chans]), mode)
+
+
+# ---- TIFF --------------------------------------------------------------------
+
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("B", 1), 7: ("B", 1), 8: ("H", 2),
+               9: ("I", 4), 2: (None, 1), 5: (None, 8), 10: (None, 8), 11: (None, 4),
+               12: (None, 8), 16: (None, 8)}
+_TIFF_COMPRESSIONS = (1, 5, 8, 32946, 32773)
+
+
+def _tiff_tags(blob: bytes):
+    if blob[:2] not in (b"II", b"MM"):
+        raise ValueError("not a TIFF file")
+    e = ">" if blob[:2] == b"MM" else "<"
+    magic = struct.unpack(e + "H", blob[2:4])[0]
+    if magic == 43:
+        raise ValueError("TIFF: BigTIFF is not supported")
+    if magic != 42:
+        raise ValueError("not a TIFF file")
+    if len(blob) < 8:
+        raise ValueError("TIFF: truncated header")
+    ifd = struct.unpack(e + "I", blob[4:8])[0]
+    if ifd + 2 > len(blob):
+        raise ValueError("TIFF: truncated file")
+    tags = {}
+    for i in range(struct.unpack(e + "H", blob[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * i
+        if at + 12 > len(blob):
+            raise ValueError("TIFF: truncated file")
+        tag, kind, count = struct.unpack(e + "HHI", blob[at:at + 8])
+        if kind not in _TIFF_TYPES:
+            continue
+        code, size = _TIFF_TYPES[kind]
+        nbytes = size * count
+        pos = at + 8 if nbytes <= 4 else struct.unpack(e + "I", blob[at + 8:at + 12])[0]
+        if pos + nbytes > len(blob):
+            raise ValueError("TIFF: truncated file")
+        if tag in tags:
+            continue
+        if code is None:
+            tags[tag] = None          # a non-integer value: only an error if it is read
+        else:
+            tags[tag] = list(struct.unpack(f"{e}{count}{code}", blob[pos:pos + nbytes]))
+    return e, tags
+
+
+def _tiff_layout(photo, sf, bps, extra, big):
+    """PIL's OPEN_INFO entry -> (kind, mode, invert, swapped when compressed,
+    alpha)."""
+    n, b = len(bps), bps[0]
+    what = (f"TIFF: photometric {photo}, sample format {sf}, {','.join(map(str, bps))}-bit "
+            f"samples" + (f", extra samples {','.join(map(str, extra))}" if extra else ""))
+    refuse = ValueError(what + " is not supported")
+    if any(v != b for v in bps):
+        raise refuse
+    if photo in (0, 1) and n == 1 and not extra:
+        inv = photo == 0
+        if sf == 1 and b == 1:
+            return "bilevel", "1", inv, False, 0
+        if sf == 1 and b in (2, 4) or b == 8 and (sf == 1 or (sf == 2 and not inv)):
+            return "gray", "L", inv, False, 0
+        if sf == 1 and b == 16 and not (big and inv):
+            return "u16", "I;16B" if big else "I;16", False, False, 0
+        if sf == 2 and b == 16 and not inv:
+            return "i16s", "I", False, big, 0
+        if (sf == 2 or sf == 1 and not big) and b == 32 and not inv:
+            return "i32", "I", False, big, 0
+        if sf == 3 and b == 32:
+            return "f32", "F", False, big, 0
+        raise refuse
+    if photo == 1 and n == 2 and b == 8 and sf == 1 and extra == [2]:
+        return "la", "LA", False, False, 0
+    if photo == 2 and sf == 1 and b in (8, 16) and n >= 3 and n == 3 + len(extra):
+        alpha = 0
+        if n == 4 and not extra:
+            alpha = 2
+        elif extra:
+            if any(extra[1:]) or not (n <= 6 if b == 8 else n == 4) or extra[0] > 2:
+                raise refuse
+            alpha = extra[0]
+        return "rgb", "RGBA" if alpha else "RGB", False, False, alpha
+    if photo == 3 and n == 1 and not extra and sf == 1 and b in (1, 2, 4, 8):
+        return "palette", "P", False, False, 0
+    if (photo == 5 and sf == 1 and n == 4 + len(extra) and not any(extra)
+            and (b == 8 and len(extra) <= 2 or b == 16 and not extra)):
+        return "cmyk", "CMYK", False, False, 0
+    raise refuse
+
+
+def _unlzw_tiff(data: bytes, want: int) -> bytes:
+    """libtiff's LZWDecode: MSB-first codes of 9 to 12 bits, the width
+    growing one code early; 256 clears the table, 257 ends the strip."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise ValueError("TIFF: old-style LZW is not supported")
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    out = bytearray()
+    total, pos, width, old = len(data) * 8, 0, 9, None
+    data = data + bytes(4)
+    while len(out) < want:
+        if pos + width > total:
+            break
+        i = pos >> 3
+        code = ((int.from_bytes(data[i:i + 3], "big") >> (24 - width - (pos & 7)))
+                & ((1 << width) - 1))
+        pos += width
+        if code == 257:
+            break
+        if code == 256:
+            del table[258:]
+            width = 9
+            if pos + width > total:
+                break
+            i = pos >> 3
+            code = (int.from_bytes(data[i:i + 3], "big") >> (24 - width - (pos & 7))) & 511
+            pos += width
+            if code == 257:
+                break
+            if code >= 256:
+                raise ValueError("TIFF: corrupt LZW data")
+            out += table[code]
+            old = table[code]
+            continue
+        if old is None:
+            raise ValueError("TIFF: corrupt LZW data (no clear code first)")
+        n_free = len(table)
+        if code > n_free or n_free >= 4096:
+            raise ValueError("TIFF: corrupt LZW data")
+        entry = table[code] if code < n_free else old + old[:1]
+        table.append(old + entry[:1])
+        out += entry
+        if len(table) >= (1 << width) - 1 and width < 12:
+            width += 1
+        old = entry
+    return bytes(out[:want])
+
+
+def _unpack_bits(data: bytes, want: int) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n and len(out) < want:
+        c = data[i] - 256 if data[i] > 127 else data[i]
+        i += 1
+        if c >= 0:
+            out += data[i:i + c + 1]
+            i += c + 1
+        elif c != -128:
+            if i >= n:
+                break
+            out += bytes([data[i]]) * (1 - c)
+            i += 1
+    return bytes(out[:want])
+
+
+def _inflate(data: bytes, want: int) -> bytes:
+    d = zlib.decompressobj()
+    try:
+        return d.decompress(data, want)
+    except zlib.error:
+        raise ValueError("TIFF: corrupt Deflate data") from None
+
+
+def _decode_tiff(blob: bytes) -> Decoded:
+    e, tags = _tiff_tags(blob)
+    big = e == ">"
+
+    def get(tag, default=None):
+        v = tags.get(tag, default)
+        if v is None and tag in tags:
+            raise ValueError(f"TIFF: tag {tag} has a non-integer type")
+        return v
+
+    if 256 not in tags or 257 not in tags:
+        raise ValueError("TIFF: missing dimensions")
+    w, h = get(256)[0], get(257)[0]
+    if not w or not h or w * h > MAX_PIXELS:
+        raise ValueError("TIFF: bad image size")
+    compression, photo = get(259, [1])[0], get(262, [0])[0]
+    fill, orientation = get(266, [1])[0], get(274, [1])[0]
+    planar, predictor = get(284, [1])[0], get(317, [1])[0]
+    if 0xBC01 in tags:
+        raise ValueError("TIFF: Windows Media Photo is not supported")
+    if fill != 1:
+        raise ValueError(f"TIFF: fill order {fill} is not supported")
+    if orientation != 1:
+        raise ValueError(f"TIFF: orientation {orientation} is not supported")
+    if compression not in _TIFF_COMPRESSIONS:
+        raise ValueError(f"TIFF: compression {compression} is not supported (none, PackBits, "
+                         "LZW and Deflate only)")
+    if planar not in (1, 2):
+        raise ValueError("TIFF: bad planar configuration")
+    sfs = get(339, [])
+    if len(sfs) > 1 and any(v != 1 for v in sfs):
+        raise ValueError("TIFF: per-sample formats are not supported")
+    sf = sfs[0] if sfs else 1
+    bps, extra, spp = get(258, [1]) or [1], get(338, []), get(277, [1])[0]
+    if not 1 <= spp <= 6:
+        raise ValueError("TIFF: bad samples per pixel")
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise ValueError("TIFF: unknown data organization")
+    kind, mode, inv, swapped, alpha = _tiff_layout(photo, sf, bps, extra, big)
+    b, raw = bps[0], compression == 1
+    if planar == 2 and spp > 1 and b != 8:
+        raise ValueError("TIFF: planar configuration 2 is supported for 8-bit samples only")
+    if not raw and predictor == 2 and b < 8:
+        raise ValueError(f"TIFF: horizontal differencing at {b} bits is not supported")
+    if not raw and predictor == 3 and not (sf == 3 and b == 32):
+        raise ValueError("TIFF: the floating-point predictor needs 32-bit float samples")
+    if not raw and predictor not in (1, 2, 3):
+        raise ValueError(f"TIFF: predictor {predictor} is not supported")
+    tiled = 324 in tags
+    if tiled:
+        cw, ch = get(322, [0])[0], get(323, [0])[0]
+        if not cw or not ch:
+            raise ValueError("TIFF: bad tile size")
+        offsets, counts = get(324), get(325, [])
+    else:
+        if 273 not in tags:
+            raise ValueError("TIFF: no strips or tiles")
+        cw, ch = w, get(278, [h])[0]
+        offsets, counts = get(273), get(279, [])
+        if ch == 0 or ch > h:
+            ch = h
+    planes, nsamp = (spp, 1) if planar == 2 else (1, spp)
+    across, down = -(-w // cw), -(-h // ch)
+    per_plane = across * down
+    if len(offsets) < per_plane * planes:
+        raise ValueError("TIFF: too few strip or tile offsets")
+    if not raw and len(counts) < per_plane * planes:
+        raise ValueError("TIFF: missing byte counts")
+    rowbytes = (cw * nsamp * b + 7) // 8
+    per_row = cw * nsamp
+    vals = np.zeros((h, w, spp), np.uint32)
+    for pl in range(planes):
+        for ci in range(per_plane):
+            x0, y0 = (ci % across) * cw, (ci // across) * ch
+            rows = ch if tiled else min(ch, h - y0)
+            want = rows * rowbytes
+            off = offsets[pl * per_plane + ci]
+            if raw:
+                rows = min(rows, h - y0)
+                data = blob[off:off + rows * rowbytes]
+                if off > len(blob) or len(data) < rows * rowbytes:
+                    raise ValueError("TIFF: truncated image data")
+                order = e
+            else:
+                cnt = counts[pl * per_plane + ci]
+                if off > len(blob) or off + cnt > len(blob):
+                    raise ValueError("TIFF: truncated image data")
+                src = blob[off:off + cnt]
+                if compression == 5:
+                    data = _unlzw_tiff(src, want)
+                elif compression == 32773:
+                    data = _unpack_bits(src, want)
+                else:
+                    data = _inflate(src, want)
+                if len(data) < want:
+                    raise ValueError("TIFF: not enough image data in a strip or tile")
+                order = e
+            buf = np.frombuffer(data, np.uint8, rows * rowbytes).reshape(rows, rowbytes)
+            if not raw and predictor == 3:
+                acc = buf.astype(np.uint64)
+                for lane in range(nsamp):
+                    acc[:, lane::nsamp] = np.cumsum(acc[:, lane::nsamp], axis=1)
+                planes_b = (acc & 0xFF).astype(np.uint32).reshape(rows, 4, -1)
+                chunk = ((planes_b[:, 0] << 24) | (planes_b[:, 1] << 16) | (planes_b[:, 2] << 8)
+                         | planes_b[:, 3])[:, :per_row]
+            else:
+                if b == 8:
+                    chunk = buf.astype(np.uint32)
+                elif b in (16, 32):
+                    chunk = buf.view(f"{order}u{b // 8}").astype(np.uint32)
+                else:
+                    bits = np.unpackbits(buf, axis=1)[:, :per_row * b].reshape(rows, per_row, b)
+                    chunk = (bits.astype(np.uint32) << np.arange(b - 1, -1, -1,
+                                                                 dtype=np.uint32)).sum(-1)
+                chunk = chunk[:, :per_row].astype(np.uint64)
+                if not raw and predictor == 2:
+                    for lane in range(nsamp):
+                        chunk[:, lane::nsamp] = np.cumsum(chunk[:, lane::nsamp], axis=1)
+                    chunk &= (1 << b) - 1
+                chunk = chunk.astype(np.uint32)
+            if swapped and not raw:     # PIL reads libtiff's host order as big-endian
+                chunk = chunk.astype(f"<u{b // 8}").view(f">u{b // 8}").astype(np.uint32)
+            keep_rows, keep_cols = min(rows, h - y0), min(cw, w - x0)
+            block = chunk[:keep_rows].reshape(keep_rows, cw, nsamp)[:, :keep_cols]
+            if planar == 2:
+                vals[y0:y0 + keep_rows, x0:x0 + keep_cols, pl] = block[..., 0]
+            else:
+                vals[y0:y0 + keep_rows, x0:x0 + keep_cols] = block
+    v = vals.astype(np.int64)
+    if kind == "bilevel":
+        return Decoded((1 - v if inv else v).astype(np.uint8), "1")
+    if kind == "gray":
+        v = v * {2: 85, 4: 17, 8: 1}[b]
+        return Decoded((255 - v if inv else v).astype(np.uint8), "L")
+    if kind == "la":
+        return Decoded(v.astype(np.uint8), "LA")
+    if kind == "palette":
+        cmap = get(320, [])
+        if not cmap or len(cmap) % 3:
+            raise ValueError("TIFF: palette image without a colour map")
+        pal = (np.array(cmap, np.int64).reshape(3, -1).T >> 8).astype(np.uint8)
+        return Decoded(v.astype(np.uint8), "P", np.ascontiguousarray(pal))
+    if kind == "u16":
+        return Decoded(v.astype(np.uint16), mode)
+    if kind == "i16s":
+        return Decoded(v.astype(np.uint16).view(np.int16).astype(np.int32), "I")
+    if kind == "i32":
+        return Decoded(vals.view(np.int32).copy(), "I")
+    if kind == "f32":
+        return Decoded(vals.view(np.float32).copy(), "F")
+    out = (v >> (8 if b == 16 else 0))[:, :, :4 if kind == "cmyk" or alpha else 3]
+    if alpha == 1:     # Unpack.c unpackRGBa: associated alpha divided out
+        a = out[:, :, 3:]
+        out = np.concatenate([np.where(a == 0, 0, np.minimum(out[:, :, :3] * 255
+                                                             // np.maximum(a, 1), 255)), a], -1)
+    return Decoded(out.astype(np.uint8), mode)
+
+
+# ---- GIF -----------------------------------------------------------------------
+
+def _palette_needed(p: bytes) -> bool:
+    return any(not (i // 3 == p[i] == p[i + 1] == p[i + 2]) for i in range(0, len(p), 3))
+
+
+def _interlaced_rows(h: int) -> list:
+    return [y for start, step in ((0, 8), (4, 8), (2, 4), (1, 2)) for y in range(start, h, step)]
+
+
+def _unlzw_gif(data: bytes, bits: int, want: int) -> bytes:
+    """GifDecode.c: LSB-first codes from the initial size + 1 up to 12 bits."""
+    if not 1 <= bits <= 11:
+        raise ValueError("GIF: bad LZW code size")
+    clear, eoi = 1 << bits, (1 << bits) + 1
+    base = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table, out = list(base), bytearray()
+    pos, total, width, old = 0, len(data) * 8, bits + 1, None
+    data = data + bytes(4)
+    while len(out) < want and pos + width <= total:
+        i = pos >> 3
+        code = (int.from_bytes(data[i:i + 3], "little") >> (pos & 7)) & ((1 << width) - 1)
+        pos += width
+        if code == clear:
+            table, width, old = list(base), bits + 1, None
+            continue
+        if code == eoi:
+            break
+        if old is None:
+            if code >= clear:
+                raise ValueError("GIF: corrupt LZW data")
+            out += table[code]
+            old = code
+            continue
+        n = len(table)
+        if code > n or (code == n and n >= 4096):
+            raise ValueError("GIF: corrupt LZW data")
+        entry = table[code] if code < n else table[old] + table[old][:1]
+        if n < 4096:
+            table.append(table[old] + entry[:1])
+            if len(table) == 1 << width and width < 12:
+                width += 1
+        out += entry
+        old = code
+    return bytes(out[:want])
+
+
+def _decode_gif(blob: bytes) -> Decoded:
+    if len(blob) < 13 or blob[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    sw, sh, flags = blob[6] | blob[7] << 8, blob[8] | blob[9] << 8, blob[10]
+    pos, palette = 13, None
+    if flags & 128:
+        n = 3 << ((flags & 7) + 1)
+        if pos + n > len(blob):
+            raise ValueError("GIF: truncated colour table")
+        palette = blob[pos:pos + n] if _palette_needed(blob[pos:pos + n]) else None
+        pos += n
+    transparency = None
+    while True:
+        if pos >= len(blob):
+            raise ValueError("GIF: no image in the file")
+        s = blob[pos]
+        pos += 1
+        if s == ord("!"):
+            if pos >= len(blob):
+                raise ValueError("GIF: truncated extension")
+            label, first = blob[pos], True
+            pos += 1
+            while pos < len(blob) and blob[pos]:
+                n = blob[pos]
+                if pos + 1 + n > len(blob):
+                    raise ValueError("GIF: truncated extension")
+                if label == 0xF9 and first and n >= 4 and blob[pos + 1] & 1:
+                    transparency = blob[pos + 4]
+                first = False
+                pos += 1 + n
+            pos += 1
+        elif s == ord(","):
+            break
+        elif s == ord(";"):
+            raise ValueError("GIF: no image in the file")
+    if pos + 9 > len(blob):
+        raise ValueError("GIF: truncated image descriptor")
+    x0, y0, fw, fh = struct.unpack("<HHHH", blob[pos:pos + 8])
+    lflags = blob[pos + 8]
+    pos += 9
+    if lflags & 128:
+        n = 3 << ((lflags & 7) + 1)
+        if pos + n > len(blob):
+            raise ValueError("GIF: truncated colour table")
+        palette = blob[pos:pos + n] if _palette_needed(blob[pos:pos + n]) else None
+        pos += n
+    if pos >= len(blob):
+        raise ValueError("GIF: truncated image data")
+    bits, data = blob[pos], bytearray()
+    pos += 1
+    while pos < len(blob) and blob[pos]:
+        n = blob[pos]
+        if pos + 1 + n > len(blob):
+            raise ValueError("GIF: truncated image data")
+        data += blob[pos + 1:pos + 1 + n]
+        pos += 1 + n
+    w, h = max(sw, x0 + fw), max(sh, y0 + fh)
+    if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
+        raise ValueError("GIF: bad image size")
+    px = _unlzw_gif(bytes(data), bits, fw * fh)
+    if len(px) < fw * fh:
+        raise ValueError("GIF: truncated image data")
+    canvas = np.full((h, w), transparency or 0, np.uint8)
+    frame = np.frombuffer(px, np.uint8).reshape(fh, fw)
+    rows = _interlaced_rows(fh) if lflags & 64 else list(range(fh))
+    canvas[[y0 + r for r in rows], x0:x0 + fw] = frame
+    if palette is None:
+        return Decoded(canvas[:, :, None], "L")
+    return Decoded(canvas[:, :, None], "P", np.frombuffer(palette, np.uint8).reshape(-1, 3))
+
+
+# ---- PNM / PFM -------------------------------------------------------------------
+
+_PNM_SPACE = b" \t\n\r\v\f"
+
+
+def _pnm_token(blob: bytes, pos: int):
+    """PpmImagePlugin._read_token -> (token, position past its whitespace)."""
+    tok = bytearray()
+    while len(tok) <= 10 and pos < len(blob):
+        c = blob[pos]
+        pos += 1
+        if c in _PNM_SPACE:
+            if not tok:
+                continue
+            break
+        if c == ord("#"):
+            while pos < len(blob) and blob[pos] not in b"\r\n":
+                pos += 1
+            pos += pos < len(blob)
+            continue
+        tok.append(c)
+    if not tok:
+        raise ValueError("PNM: the header ends early")
+    if len(tok) > 10:
+        raise ValueError("PNM: token too long in the header")
+    return bytes(tok), pos
+
+
+def _pnm_int(tok: bytes) -> int:
+    if not tok.lstrip(b"+-").isdigit():
+        raise ValueError("PNM: bad number in the header")
+    return int(tok)
+
+
+def _strip_comments(body: bytes) -> bytes:
+    return re.sub(rb"#[^\r\n]*(\r|\n)?", b"", body)
+
+
+def _decode_pnm(blob: bytes) -> Decoded:
+    pos, magic = 0, bytearray()
+    while pos < len(blob) and len(magic) < 6 and blob[pos] not in _PNM_SPACE:
+        magic.append(blob[pos])
+        pos += 1
+    if pos < len(blob) and len(magic) < 6:
+        pos += 1
+    if bytes(magic) not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"Pf"):
+        raise ValueError(f"PNM: magic {bytes(magic).decode('latin-1')} is not supported")
+    tok, pos = _pnm_token(blob, pos)
+    w = _pnm_int(tok)
+    tok, pos = _pnm_token(blob, pos)
+    h = _pnm_int(tok)
+    if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
+        raise ValueError("PNM: bad image size")
+    kind = chr(magic[1])
+    if kind == "f":
+        tok, pos = _pnm_token(blob, pos)
+        try:
+            scale = float(tok)
+        except ValueError:
+            scale = 0.0
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError("PFM: the scale must be finite and non-zero")
+        if pos + 4 * w * h > len(blob):
+            raise ValueError("PFM: truncated image data")
+        data = np.frombuffer(blob, "<f4" if scale < 0 else ">f4", w * h, pos).reshape(h, w)
+        return Decoded(np.ascontiguousarray(data[::-1, :, None], np.float32), "F")
+    if kind == "4":
+        stride = (w + 7) // 8
+        if pos + stride * h > len(blob):
+            raise ValueError("PBM: truncated image data")
+        rows = np.frombuffer(blob, np.uint8, stride * h, pos).reshape(h, stride)
+        bits = np.unpackbits(rows, axis=1)[:, :w]
+        return Decoded((1 - bits)[:, :, None].astype(np.uint8), "1")
+    if kind == "1":
+        body = bytes(c for c in _strip_comments(blob[pos:]) if c not in _PNM_SPACE)
+        if body.strip(b"01"):
+            raise ValueError("PBM: invalid token in the data")
+        if len(body) < w * h:
+            raise ValueError("PBM: truncated image data")
+        bits = np.frombuffer(body[:w * h], np.uint8).reshape(h, w) == ord("0")
+        return Decoded(bits[:, :, None].astype(np.uint8), "1")
+    tok, pos = _pnm_token(blob, pos)
+    maxval = _pnm_int(tok)
+    if not 0 < maxval < 65536:
+        raise ValueError("PNM: maxval must be in 1..65535")
+    bands = 3 if kind in "36" else 1
+    wide = bands == 1 and maxval > 255
+    out_max, count = (65535 if wide else 255), w * h * bands
+    if kind in "23":
+        tokens = _strip_comments(blob[pos:]).split()[:count]
+        if any(len(t) > 10 for t in tokens):
+            raise ValueError("PNM: token too long in the data")
+        v = np.array([_pnm_int(t) for t in tokens], np.int64)
+        if (v < 0).any() or (v > maxval).any():
+            raise ValueError("PNM: sample out of range")
+        if len(v) < count:
+            raise ValueError("PNM: truncated image data")
+        vals = np.rint(v / maxval * out_max).astype(np.int64)
+    else:
+        two = maxval > 255
+        if pos + count * (2 if two else 1) > len(blob):
+            raise ValueError("PNM: truncated image data")
+        v = np.frombuffer(blob, ">u2" if two else np.uint8, count, pos).astype(np.int64)
+        if maxval == 255 or (wide and maxval == 65535):
+            vals = v
+        else:
+            vals = np.minimum(out_max, np.rint(v / maxval * out_max)).astype(np.int64)
+    vals = vals.reshape(h, w, bands)
+    if wide:
+        return Decoded(vals.astype(np.int32), "I")
+    return Decoded(vals.astype(np.uint8), "RGB" if bands == 3 else "L")

@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -42,12 +42,13 @@ def _cxx() -> str:
     return cxx
 
 
-def compile_library(stem: str, sources: List[Path], libs: List[str]) -> Path:
+def compile_library(stem: str, sources: List[Path], libs: List[str],
+                    headers: Sequence[Path] = ()) -> Path:
     """Compile ``sources`` into ``BUILD_DIR/<stem>_<hash>.so`` unless a
-    library of the same sources and flags exists; returns its path.  Raises
-    with the compiler's output on failure."""
+    library of the same sources, ``headers`` and flags exists; returns its
+    path.  Raises with the compiler's output on failure."""
     digest = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(CXX_FLAGS + libs).encode())

@@ -72,11 +72,11 @@ class Matches(NamedTuple):
 
 
 def _min2(masked_cost: torch.Tensor):
-    """Row-wise (best, second-best, argmin) of a [..., N, M] masked cost matrix."""
+    """Row-wise (best, second-best, argmin) of a [..., N, M] masked cost
+    matrix.  It overwrites each row's best entry of ``masked_cost`` with _BIG."""
     best_idx = torch.argmin(masked_cost, dim=-1)
-    d1 = masked_cost.amin(dim=-1)
-    without_best = masked_cost.scatter(-1, best_idx[..., None], _BIG)
-    d2 = without_best.amin(dim=-1)
+    d1 = torch.gather(masked_cost, -1, best_idx[..., None])[..., 0]   # the row minimum
+    d2 = masked_cost.scatter_(-1, best_idx[..., None], _BIG).amin(dim=-1)
     return d1, d2, best_idx
 
 
@@ -85,7 +85,6 @@ def match_cost_matrix(cost: torch.Tensor, feasible: torch.Tensor,
     """Bijective mutual-best matching with Lowe's ratio test on [..., N, M];
     on a mesh [N, M] is the rank's block of N * size rows."""
     masked = torch.where(feasible, cost, _BIG)
-    d1, d2, best_b = _min2(masked)
     rows = torch.arange(cost.shape[-2], device=cost.device)
     if mesh is None:
         col_best_a = torch.argmin(masked, dim=-2)
@@ -95,6 +94,7 @@ def match_cost_matrix(cost: torch.Tensor, feasible: torch.Tensor,
         rows = rows + mesh.rank * cost.shape[-2]
         key = masked.to(torch.int64) * n_rows + rows[:, None]
         col_best_a = mesh.all_min(key.amin(dim=-2), "tracker") % n_rows
+    d1, d2, best_b = _min2(masked)     # ``masked`` is ours to overwrite
     mutual = torch.gather(col_best_a, -1, best_b) == rows
     lowe_ok = d1 <= lowe_ratio * d2
     ok = (d1 <= max_distance) & lowe_ok & mutual
@@ -132,12 +132,13 @@ def match_epipolar(uv_left, desc_left, valid_left, uv_right, desc_right,
                              config.lowe_ratio)
 
 
-def _geometric_distance(delta: torch.Tensor, norm: str) -> torch.Tensor:
+def _geometric_distance(dx: torch.Tensor, dy: torch.Tensor, norm: str) -> torch.Tensor:
+    """The search region's distance of pixel offsets (dx, dy)."""
     if norm == "square":
-        return delta.abs().amax(dim=-1)
+        return torch.maximum(dx.abs(), dy.abs())
     if norm == "rhombus":
-        return delta.abs().sum(dim=-1)
-    return torch.sqrt(torch.sum(delta * delta, dim=-1) + 1e-12)
+        return dx.abs() + dy.abs()
+    return torch.sqrt(dx * dx + dy * dy + 1e-12)
 
 
 def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
@@ -149,10 +150,36 @@ def match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc,
     ``force_stage >= 0`` pins the stage; otherwise the tightest stage whose
     matching ratio reaches ``minimum_matching_ratio`` wins (the loosest if
     none does).  On a mesh the measurement rows are the rank's block.
+
+    On the host (CPU tensors, no mesh) only the valid rows and columns enter
+    the matrices.  A row or column that is not valid is infeasible at every
+    stage, and taking the others in their order keeps argmin's ties, so
+    every row's match and the stage are the whole matrices' to the bit.
     """
+    if mesh is None and meas_uv.device.type == "cpu":
+        rows, cols = meas_valid.nonzero()[:, 0], proj_valid.nonzero()[:, 0]
+        if rows.numel() and cols.numel():
+            m, stage = _match_projective(meas_uv[rows], meas_desc[rows], meas_valid[rows],
+                                         proj_uv[cols], proj_desc[cols], proj_valid[cols],
+                                         config, force_stage)
+            n = meas_uv.shape[0]
+            idx = torch.full((n,), -1, dtype=torch.int32)
+            idx[rows] = torch.where(m.mask, cols[m.idx.clamp_min(0).long()].to(torch.int32), -1)
+            distance = torch.full((n,), _BIG, dtype=m.distance.dtype)
+            distance[rows] = m.distance
+            mask = torch.zeros(n, dtype=torch.bool)
+            mask[rows] = m.mask
+            return Matches(idx=idx, distance=distance, mask=mask), stage
+    return _match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc, proj_valid,
+                             config, force_stage, mesh)
+
+
+def _match_projective(meas_uv, meas_desc, meas_valid, proj_uv, proj_desc, proj_valid,
+                      config: ProjectiveMatcherConfig, force_stage: int = -1, mesh=None):
+    """match_projective over the whole matrices."""
     cost = distance_matrix(meas_desc, proj_desc).to(torch.float32)
-    delta = meas_uv[:, None, :] - proj_uv[None, :, :]
-    geo = _geometric_distance(delta, config.norm)
+    geo = _geometric_distance(meas_uv[:, None, 0] - proj_uv[None, :, 0],
+                              meas_uv[:, None, 1] - proj_uv[None, :, 1], config.norm)
     base_valid = meas_valid[:, None] & proj_valid[None, :]
     device = cost.device
 

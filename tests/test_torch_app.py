@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu_torch.io import boss as tboss, datasets as tds  # noqa: E402
 

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu_torch.io import datasets as tds  # noqa: E402
 from tests.test_torch_app import TEST_DATA, _jax, _port, _result  # noqa: E402

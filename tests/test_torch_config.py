@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.utils import config as jcfg  # noqa: E402
 

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.io.datasets import kitti_camera as j_kitti_camera  # noqa: E402
 from srrg2_proslam_tpu.models import landmarks as jlm  # noqa: E402

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from torch_printout import printout_diff  # noqa: E402
 from torch_twins import app_twins  # noqa: E402

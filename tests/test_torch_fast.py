@@ -24,7 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops.fast_pallas import fast_scores_pallas  # noqa: E402
 

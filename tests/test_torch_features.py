@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops import features as JF  # noqa: E402
 from srrg2_proslam_tpu.ops.brief_pallas import (  # noqa: E402

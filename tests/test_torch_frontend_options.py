@@ -40,7 +40,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.models import frontend as jfe  # noqa: E402
 from srrg2_proslam_tpu.ops import features as JF, matching as JM  # noqa: E402

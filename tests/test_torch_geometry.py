@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops import pinhole as jp, se3 as js  # noqa: E402
 from srrg2_proslam_tpu.ops.triangulation import triangulate_rectified as j_tri  # noqa: E402

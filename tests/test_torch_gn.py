@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops import gn as jgn, se3 as jse3  # noqa: E402
 from srrg2_proslam_tpu.ops.gn_pallas import gn_burst_stereo as j_burst  # noqa: E402

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 import __graft_entry__ as jentry  # noqa: E402
 from srrg2_proslam_tpu import viz as jviz  # noqa: E402

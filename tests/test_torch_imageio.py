@@ -13,8 +13,10 @@ PNG; BMP), by ``tests/torch_imagefiles.py`` where it does not (4:1:1 and
 the committed fixtures of ``test_data/torch_io/`` against their manifest.
 Bounds, every case: the port's ``load_gray`` and ``load_depth`` equal to
 the JAX package's to the bit; the library's samples, mode and palette equal
-to the twin's; ``save_gray`` to ``.jpg`` / ``.jpeg`` / ``.bmp`` byte-identical
-with PIL's file for the same array.
+to the twin's; ``save_gray`` to ``.jpg`` / ``.jpeg`` / ``.bmp`` / ``.tif`` /
+``.tiff`` / ``.gif`` / ``.pfm`` byte-identical with PIL's file for the same
+array (TIFF, GIF, PNM and PFM reading: ``test_torch_imageio_tiff.py`` and
+``test_torch_imageio_more.py``).
 """
 import hashlib
 import io
@@ -32,7 +34,8 @@ from srrg2_proslam_tpu.io import boss as jboss, datasets as jds  # noqa: E402
 
 from srrg2_proslam_tpu_torch.io import boss as tboss, datasets as tds  # noqa: E402
 from srrg2_proslam_tpu_torch.io import images, images_plain  # noqa: E402
-from torch_imagefiles import jpeg_color_bytes, png_bytes  # noqa: E402
+from torch_imagefiles import (jpeg_arith_bytes, jpeg_color_bytes,  # noqa: E402
+                              jpeg_lossless_bytes, png_bytes)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FIXTURES = os.path.join(REPO, "test_data", "torch_io")
@@ -185,7 +188,7 @@ def test_bmp_equals_jax(tmp_path, kind):
 
 # ---- the committed fixtures --------------------------------------------------
 
-FIXTURE_NAMES = sorted(n for n in MANIFEST if n != "save_gray")
+FIXTURE_NAMES = sorted(n for n in MANIFEST if not n.startswith("save_gray"))
 
 
 @pytest.mark.parametrize("name", FIXTURE_NAMES)
@@ -273,7 +276,8 @@ def test_boss_jpeg_log_equals_jax(tmp_path):
 # ---- save_gray -------------------------------------------------------------------
 
 SAVE_CASES = [(".jpg", (37, 53)), (".jpeg", (8, 8)), (".JPG", (1, 1)), (".jpg", "kitti"),
-              (".bmp", (37, 53)), (".bmp", (5, 3))]
+              (".bmp", (37, 53)), (".bmp", (5, 3)), (".tiff", (4, 4)), (".gif", (4, 4)),
+              (".tif", "kitti"), (".gif", "kitti"), (".gif", (37, 53)), (".pfm", (5, 3))]
 SAVE_IDS = [f"{e[1:]}-{s if isinstance(s, str) else '%dx%d' % s}" for e, s in SAVE_CASES]
 
 
@@ -301,7 +305,7 @@ def test_save_gray_matches_the_manifest(tmp_path):
     assert _sha(tds.load_gray(path)) == want["load_gray_sha256"]
 
 
-@pytest.mark.parametrize("name", ["x.tiff", "x.gif", "x", "x.jpg.txt"])
+@pytest.mark.parametrize("name", ["x.webp", "x.jp2", "x", "x.jpg.txt"])
 def test_save_gray_refuses_other_extensions(tmp_path, name):
     path = tmp_path / name
     with pytest.raises(ValueError, match="save_gray"):
@@ -334,14 +338,13 @@ def _first_scans(blob: bytes, n: int) -> bytes:
 
 
 UNSUPPORTED = {
-    "arithmetic": (lambda: _sof_patched(_jpeg(), marker=0xC9), "arithmetic"),
     "12-bit": (lambda: _sof_patched(_jpeg(), offset=0, value=12), "precision"),
-    "lossless": (lambda: _sof_patched(_jpeg(), marker=0xC3), "lossless"),
     "hierarchical": (lambda: _sof_patched(_jpeg(), marker=0xC5), "hierarchical"),
-    "cmyk": (lambda: _jpeg("CMYK"), "CMYK"),
     "two-components": (lambda: _sof_patched(_jpeg("RGB"), offset=5, value=2), "components"),
     "incomplete-progressive": (lambda: _first_scans(_jpeg("RGB", progressive=True), 2),
                                "smoothing"),
+    "arithmetic-lossless": (lambda: jpeg_lossless_bytes(_image(22, 9, 13, 1), 1, 0).replace(
+        b"\xff\xc3", b"\xff\xcb", 1), "arithmetic-coded lossless"),
 }
 
 
@@ -357,13 +360,75 @@ def test_unsupported_jpeg_raises_naming_the_file(tmp_path, variant):
         assert path in str(err.value)
 
 
-def test_a_file_no_decoder_reads_raises(tmp_path):
-    path = tmp_path / "x.gif"
-    path.write_bytes(b"GIF89a" + bytes(32))
+# Refused before this slice, read now: PIL's CMYK JPEG (Adobe, inverted), YCCK
+# (tests/torch_imagefiles.py::jpeg_color_bytes with an Adobe transform 2),
+# lossless SOF3 (::jpeg_lossless_bytes) in gray, RGB and CMYK, and
+# arithmetic coding, sequential and progressive (::jpeg_arith_bytes, with
+# restart markers and a DAC segment).
+FORMERLY_REFUSED = {
+    "cmyk": lambda: _jpeg("CMYK"),
+    "cmyk-progressive": lambda: _jpeg("CMYK", progressive=True, quality=90),
+    "ycck-420": lambda: jpeg_color_bytes(None, ((2, 2), (1, 1), (1, 1), (2, 2)), 80,
+                                         planes=_image(9, 23, 41, 4), adobe=2),
+    "cmyk-no-adobe-marker": lambda: jpeg_color_bytes(None, ((1, 1),) * 4, 80,
+                                                     planes=_image(10, 23, 41, 4), adobe=None),
+    "lossless": lambda: jpeg_lossless_bytes(_image(11, 17, 23, 1), 1, 0),
+    "lossless-predictor7-pt2": lambda: jpeg_lossless_bytes(_image(12, 17, 23, 1), 7, 2),
+    "lossless-rgb-predictor4": lambda: jpeg_lossless_bytes(_image(13, 17, 23, 3), 4, 0,
+                                                           adobe=0),
+    "lossless-rgb-scan-per-component": lambda: jpeg_lossless_bytes(
+        _image(14, 17, 23, 3), 6, 1, interleave=False, adobe=0),
+    "lossless-cmyk-predictor5": lambda: jpeg_lossless_bytes(_image(15, 17, 23, 4), 5, 0),
+    "arithmetic": lambda: jpeg_arith_bytes(_image(18, 17, 23, 1), ((1, 1),), 75),
+    "arithmetic-420-restart": lambda: jpeg_arith_bytes(
+        _image(19, 37, 53, 3), ((2, 2), (1, 1), (1, 1)), 90, restart_mcus=3),
+    "arithmetic-conditioning": lambda: jpeg_arith_bytes(
+        _image(20, 17, 23, 3), ((1, 1),) * 3, 95, dac={(0, 0): 0x52, (1, 0): 12}),
+    "arithmetic-progressive-422": lambda: jpeg_arith_bytes(
+        _image(21, 21, 40, 3), ((2, 1), (1, 1), (1, 1)), 70, progressive=True,
+        restart_mcus=2),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_jpeg_reads_as_jax(tmp_path, variant):
+    path = str(tmp_path / f"{variant}.jpg")
+    with open(path, "wb") as f:
+        f.write(FORMERLY_REFUSED[variant]())
+    _assert_port_equals_jax(path)
+    _assert_library_equals_twin(path)
+    assert images.decode(path).mode == Image.open(path).mode
+
+
+LOSSLESS_REFUSED = {
+    "ycbcr": (lambda: jpeg_lossless_bytes(_image(16, 9, 13, 3), 1, 0), "lossless YCbCr"),
+    "ycck": (lambda: jpeg_lossless_bytes(_image(17, 9, 13, 4), 1, 0, adobe=2), "lossless YCCK"),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(LOSSLESS_REFUSED))
+def test_lossless_jpeg_pil_cannot_convert_raises(tmp_path, variant):
+    """libjpeg-turbo converts no colours in a lossless file, so PIL raises on
+    these; so does the port, naming the file."""
+    make, reason = LOSSLESS_REFUSED[variant]
+    path = str(tmp_path / f"{variant}.jpg")
+    with open(path, "wb") as f:
+        f.write(make())
+    with pytest.raises(OSError):
+        Image.open(path).load()
     for read in (tds.load_gray, tds.load_depth, images_plain.decode):
-        with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
+        with pytest.raises(ValueError, match=reason) as err:
+            read(path)
+        assert path in str(err.value)
+
+
+def test_a_file_no_decoder_reads_raises(tmp_path):
+    path = tmp_path / "x.webp"
+    path.write_bytes(b"RIFF\x24\0\0\0WEBPVP8 " + bytes(32))
+    for read in (tds.load_gray, tds.load_depth, images_plain.decode):
+        with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM"):
             read(str(path))
-    with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM"):
         list(tds._decoded([str(path)]))          # the folder readers' path
 
 

@@ -26,7 +26,7 @@ import torch
 import yaml
 from PIL import Image
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.io import datasets as jds, native as jnative  # noqa: E402
 from srrg2_proslam_tpu.io import rectify as jrect  # noqa: E402

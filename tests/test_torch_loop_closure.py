@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.models import landmarks as jlm, loop_closure as jlc  # noqa: E402
 from srrg2_proslam_tpu.ops import se3 as jse3  # noqa: E402

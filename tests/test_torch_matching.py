@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops import hamming as jh, matching as jm  # noqa: E402
 
@@ -45,7 +45,7 @@ def test_distance_matrix_exact(rng):
 def test_min2_ties_take_first_index(rng):
     cost = rng.randint(0, 6, (50, 40)).astype(np.float32)  # many ties
     cost[3] = 2.0
-    d1, d2, idx = tm._min2(torch.from_numpy(cost))
+    d1, d2, idx = tm._min2(torch.from_numpy(cost.copy()))   # _min2 writes its input
     e1, e2, eidx = jm._min2(jnp.asarray(cost))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(eidx))
     np.testing.assert_array_equal(d1.numpy(), np.asarray(e1))
@@ -105,3 +105,39 @@ def test_match_projective_matches_jax(rng, norm, force_stage):
     _same(got, ref)
     assert int(s_t) == int(s_j)
     assert s_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("valid_share", [0.0, 0.05, 0.3, 1.0])
+@pytest.mark.parametrize("force_stage", [-1, 1])
+@pytest.mark.parametrize("norm", ["circle", "rhombus"])
+def test_host_projective_path_equals_whole_matrices(rng, valid_share, force_stage, norm):
+    """The host path (valid rows and columns only) against the whole
+    matrices, to the bit, on a sparse arena with tied descriptors, and
+    against JAX."""
+    n, m = 140, 600
+    proj_uv = rng.uniform(0, 120, (m, 2)).astype(np.float32)
+    proj_desc = _desc(rng, m)
+    proj_desc[300:340] = proj_desc[200:240]  # tied columns
+    pick = rng.choice(m, n, replace=False)
+    meas_uv = (proj_uv[pick] + rng.normal(0, 8, (n, 2))).astype(np.float32)
+    meas_desc = proj_desc[pick].copy()
+    meas_desc[rng.uniform(size=meas_desc.shape) < 0.06] *= -1
+    meas_desc[:10] = meas_desc[10:20]  # tied rows
+    mv = rng.uniform(size=n) < max(valid_share, 0.5)
+    pv = rng.uniform(size=m) < valid_share
+    pv[pick[:5]] = valid_share > 0
+    args = (meas_uv, meas_desc, mv, proj_uv, proj_desc, pv)
+    cfg = tm.ProjectiveMatcherConfig(norm=norm)
+    got, s_t = tm.match_projective(*map(torch.from_numpy, args), cfg, force_stage)
+    whole, s_w = tm._match_projective(*map(torch.from_numpy, args), cfg, force_stage)
+    for field in ("idx", "distance", "mask"):
+        a, b = getattr(got, field), getattr(whole, field)
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        assert torch.equal(a, b), field
+    assert s_t.dtype == s_w.dtype and int(s_t) == int(s_w)
+    ref, s_j = jm.match_projective(*map(jnp.asarray, args),
+                                   jm.ProjectiveMatcherConfig(norm=norm), force_stage)
+    _same(got, ref)
+    assert int(s_t) == int(s_j)
+    if valid_share >= 0.3:
+        assert int(got.count) > 5

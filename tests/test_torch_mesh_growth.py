@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -68,17 +68,23 @@ def ckpt_dir(tmp_path_factory):
     return tmp_path_factory.mktemp("ckpt")
 
 
+def _saves(case, chunk, path) -> str | None:
+    """The per-frame growth run saves a checkpoint to ``path``."""
+    return str(path) if (case, chunk) == ("growth", 0) else None
+
+
 @pytest.fixture(scope="module")
 def meshed(ckpt_dir):
-    """{(case, chunk): both ranks' reports}; the per-frame growth run saves
+    """{(case, chunk): both ranks' reports}; the per-frame growth runs save
     a checkpoint.  The reference runs the tests read (``_jax_meshed`` and
     ``_unmeshed``, cached) go on in two threads of this process meanwhile:
     the ranks are processes of their own.  A failed reference run raises
     again in the test that reads it."""
-    specs = [_spec(case, chunk, str(ckpt_dir / "meshed.npz")
-                   if (case, chunk) == ("growth", 0) else None) for case, chunk in RUNS]
+    specs = [_spec(case, chunk, _saves(case, chunk, ckpt_dir / "meshed.npz"))
+             for case, chunk in RUNS]
     references = [threading.Thread(target=lambda: [_jax_meshed(case) for case in CASES]),
-                  threading.Thread(target=lambda: [_unmeshed(*run) for run in RUNS])]
+                  threading.Thread(target=lambda: [
+                      _unmeshed(*run, _saves(*run, ckpt_dir / "plain.npz")) for run in RUNS])]
     for thread in references:
         thread.start()
     try:
@@ -91,6 +97,8 @@ def meshed(ckpt_dir):
 
 @lru_cache(maxsize=None)
 def _unmeshed(case, chunk, checkpoint=None):
+    """The port's unmeshed run; saving a checkpoint after it leaves its
+    report as it is and adds ``resumed_equal``."""
     one = spmd.Mesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
     return checks.slam_run(one, dict(_spec(case, chunk, checkpoint), meshed=False))
 
@@ -108,8 +116,8 @@ def _jax_meshed(case):
 
 
 @pytest.mark.parametrize("case,chunk", RUNS, ids=[f"{c}-chunk{k}" for c, k in RUNS])
-def test_meshed_growth_and_eviction_equal_unmeshed(meshed, case, chunk):
-    ref = _unmeshed(case, chunk)
+def test_meshed_growth_and_eviction_equal_unmeshed(meshed, ckpt_dir, case, chunk):
+    ref = _unmeshed(case, chunk, _saves(case, chunk, ckpt_dir / "plain.npz"))
     if case == "growth":
         assert ref["counters"]["num_maps"] > 2 and ref["counters"]["num_relocalizations"] >= 1
     else:
@@ -132,7 +140,7 @@ def test_meshed_growth_and_eviction_agree_with_jax_mesh(meshed, case):
 
 def test_meshed_checkpoint_equals_unmeshed_save(meshed, ckpt_dir):
     assert all(rank["resumed_equal"] for rank in meshed[("growth", 0)])
-    plain = _unmeshed("growth", 0, str(ckpt_dir / "plain.npz"))
+    plain = _unmeshed("growth", 0, _saves("growth", 0, ckpt_dir / "plain.npz"))
     assert plain["resumed_equal"]
     got, ref = np.load(ckpt_dir / "meshed.npz"), np.load(ckpt_dir / "plain.npz")
     assert sorted(got.files) == sorted(ref.files)

@@ -11,7 +11,8 @@ stays well under a minute and the two can run side by side), through
 parallel/launch.py: each rank a spawned process, both chunk modes on the
 same ranks.  Every rank is held to:
 
-* the port's unmeshed run of the same frames: per-frame status and local
+* the port's unmeshed run of the same frames (one run, shared by the two
+  files): per-frame status and local
   map, map, edge, closure, relocalisation, loss and eviction counts,
   closure events, relocalisation rollbacks and replays equal, every pose
   within 1e-4 m (equal bit for bit in the runs seen);
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -45,6 +46,7 @@ from srrg2_proslam_tpu_torch.models import slam as ts  # noqa: E402
 from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # noqa: E402
 from srrg2_proslam_tpu_torch.parallel import checks, launch, spmd  # noqa: E402
 from tests.test_torch_slam import CAM, _config  # noqa: E402
+from tests.torch_shared import digest, shared  # noqa: E402
 
 # tests/test_mesh_orchestrator.py::_config
 KW = dict(splitting=dict(maximum_translation_m=1.2), loop=dict(minimum_age_difference=1),
@@ -91,8 +93,12 @@ def _meshed(world):
 
 @lru_cache(maxsize=None)
 def _unmeshed(chunk):
-    one = spmd.Mesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
-    return checks.slam_run(one, dict(_spec(chunk), meshed=False))
+    """The port's unmeshed run, shared with tests/test_torch_mesh_slam4.py
+    (tests/torch_shared.py)."""
+    def run():
+        one = spmd.Mesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+        return checks.slam_run(one, dict(_spec(chunk), meshed=False))
+    return shared(digest("mesh_slam_unmeshed", chunk, repr(KW)), run)
 
 
 @lru_cache(maxsize=None)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.io import datasets as jax_datasets  # noqa: E402
 from srrg2_proslam_tpu.models import frontend as jax_frontend  # noqa: E402

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.ops import gn as jgn, pgo as jpgo, se3 as jse3  # noqa: E402
 

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.models import frontend as jfe, slam as js  # noqa: E402
 from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig as JLoopCfg  # noqa: E402
@@ -41,6 +41,7 @@ from srrg2_proslam_tpu_torch.io import synthetic as tsyn  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend, slam as ts  # noqa: E402
 from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # noqa: E402
 from tests.test_torch_slam import CAM, COUNTERS, _config, _scenario  # noqa: E402
+from tests.torch_shared import digest, shared  # noqa: E402
 
 JAX_ATOL = 1e-5
 RGBD_JAX_ATOL = 1e-4
@@ -94,6 +95,13 @@ def _kw(name):
 
 
 def _run_jax(cam, config, frames, model="stereo"):
+    """The JAX package's per-frame run and ``flush``, shared by every file
+    that runs the same frames and config (tests/torch_shared.py)."""
+    key = digest("run_jax", repr(cam), repr(config), model, [list(f) for f in frames])
+    return shared(key, lambda: _run_jax_once(cam, config, frames, model))
+
+
+def _run_jax_once(cam, config, frames, model):
     j = js.GraphSLAM(cam, config, model=model)
     statuses = _watch(j)
     for p, d, ok, stamp in frames:

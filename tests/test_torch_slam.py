@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.io import synthetic as jsyn  # noqa: E402
 from srrg2_proslam_tpu.metrics import trajectory as jtm  # noqa: E402

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from srrg2_proslam_tpu.io import datasets as jds  # noqa: E402
 from srrg2_proslam_tpu.models import frontend as jfe, tracker as jtr  # noqa: E402

@@ -12,7 +12,7 @@ import os
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from torch_printout import printout_diff, run_as_main  # noqa: E402
 

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from torch_twins import (  # noqa: E402
     config_fields, cut_loops, record_slam_args, share_renderer,

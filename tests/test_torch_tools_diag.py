@@ -15,7 +15,7 @@ import types
 import numpy as np
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from torch_printout import captured, run_as_main  # noqa: E402
 from test_torch_tools_e2e import CPU, SCRIPTS, _agree  # noqa: E402

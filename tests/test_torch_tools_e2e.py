@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from torch_printout import captured, printout_diff, run_as_main  # noqa: E402
 from torch_twins import config_fields  # noqa: E402

@@ -120,15 +120,23 @@ def _codes(bits, vals):
     return table
 
 
-def jpeg_color_bytes(rgb: np.ndarray, factors, quality: int = 75) -> bytes:
+def jpeg_color_bytes(rgb: np.ndarray, factors, quality: int = 75, planes=None,
+                     adobe=None) -> bytes:
     """[H, W, 3] uint8 RGB -> a baseline JFIF JPEG whose components have the
     sampling factors ``factors`` ((h, v) per component; box-averaged
-    chroma, float DCT)."""
-    h_img, w_img, _ = rgb.shape
-    x = rgb.astype(np.float64)
-    ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
-                    128 - 0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2],
-                    128 + 0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2]], -1)
+    chroma, float DCT).  With ``planes`` [H, W, N] the components are those
+    samples as they are (``rgb`` unused); with ``adobe`` an Adobe APP14
+    marker of that transform replaces the JFIF one (N = 4: CMYK for 0, YCCK
+    for 2)."""
+    if planes is None:
+        x = rgb.astype(np.float64)
+        ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+                        128 - 0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2],
+                        128 + 0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2]],
+                       -1)
+    else:
+        ycc = np.asarray(planes, np.float64)
+    h_img, w_img, n_comp = ycc.shape
     hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
     mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
     scale = 5000 // quality if quality < 50 else 200 - 2 * quality
@@ -144,7 +152,7 @@ def jpeg_color_bytes(rgb: np.ndarray, factors, quality: int = 75) -> bytes:
         full = np.pad(ycc[..., ci], ((0, ph - h_img), (0, pw - w_img)), mode="edge")
         planes.append(full.reshape(ph // sy, sy, pw // sx, sx).mean(axis=(1, 3)))
     dc, ac = _codes(_DC_BITS, _DC_VALS), _codes(_AC_BITS, list(_AC_VALS))
-    bits, last = [], [0, 0, 0]
+    bits, last = [], [0] * n_comp
 
     def put(code, length):
         bits.append(format(code, f"0{length}b") if length else "")
@@ -193,11 +201,738 @@ def jpeg_color_bytes(rgb: np.ndarray, factors, quality: int = 75) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
 
     comps = b"".join(bytes([i + 1, (fh << 4) | fv, 0]) for i, (fh, fv) in enumerate(factors))
-    return (b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    app = (seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") if adobe is None
+           else seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)))
+    return (b"\xff\xd8" + app
             + seg(0xDB, b"\x00" + bytes(int(v) for v in q[zz]))
-            + seg(0xC0, struct.pack(">BHHB", 8, h_img, w_img, 3) + comps)
+            + seg(0xC0, struct.pack(">BHHB", 8, h_img, w_img, n_comp) + comps)
             + seg(0xC4, b"\x00" + bytes(_DC_BITS) + bytes(_DC_VALS))
             + seg(0xC4, b"\x10" + bytes(_AC_BITS) + _AC_VALS)
-            + seg(0xDA, b"\x03" + b"".join(bytes([i + 1, 0x00]) for i in range(3))
+            + seg(0xDA, bytes([n_comp]) + b"".join(bytes([i + 1, 0x00]) for i in range(n_comp))
                   + b"\x00\x3f\x00")
             + bytes(data) + b"\xff\xd9")
+
+
+# ---- TIFF ----------------------------------------------------------------------
+
+def lzw_tiff(data: bytes) -> bytes:
+    """TIFF LZW (libtiff's encoder): MSB-first codes, 9 to 12 bits, the width
+    growing one code early, a clear code first and before the table fills."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc, nacc = (acc << width) | code, nacc + width
+        while nacc >= 8:
+            out.append((acc >> (nacc - 8)) & 0xFF)
+            nacc -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = reset()
+    put(256, width)
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 4093:
+            put(256, width)
+            table, nxt, width = reset()
+        elif nxt >= 1 << width:
+            width += 1
+        w = bytes([byte])
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt >= 1 << width and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeat packets, the rest as
+    literal packets (both at most 128 bytes)."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(samples: np.ndarray, bps: int, order: str, predictor: int) -> np.ndarray:
+    """[rows, cols, n] samples -> [rows, bytes] as stored (predictor applied)."""
+    rows, cols, n = samples.shape
+    flat = samples.reshape(rows, cols * n)
+    if predictor == 3:                         # floating point: MSB-first byte planes
+        u = np.ascontiguousarray(flat, np.float32).view(np.uint32).astype(np.int64)
+        planes = np.concatenate([(u >> s) & 0xFF for s in (24, 16, 8, 0)], axis=1)
+        diff = planes.copy()
+        diff[:, n:] = planes[:, n:] - planes[:, :-n]
+        return (diff & 0xFF).astype(np.uint8)
+    if bps == 32 and flat.dtype == np.float32:
+        flat = flat.view(np.uint32)
+    v = flat.astype(np.int64) & ((1 << bps) - 1)
+    if predictor == 2:
+        d = v.copy()
+        d[:, n:] = v[:, n:] - v[:, :-n]
+        v = d & ((1 << bps) - 1)
+    if bps >= 8:
+        return v.astype(f"{order}u{bps // 8}").view(np.uint8).reshape(rows, -1)
+    bits = ((v[:, :, None] >> np.arange(bps - 1, -1, -1)) & 1).reshape(rows, -1)
+    return np.packbits(bits.astype(np.uint8), axis=1)
+
+
+def tiff_bytes(samples: np.ndarray, bps: int, photometric: int, sample_format: int = 1,
+               extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
+               tile=None, rows_per_strip=None, big_endian: bool = False, colormap=None,
+               tags=()) -> bytes:
+    """A one-image TIFF of ``samples`` [H, W, N] (ints, or float32 for sample
+    format 3): strips of ``rows_per_strip`` rows or ``tile`` = (width,
+    length) tiles, planar configuration 1 or 2, compression 1 / 5 (LZW) /
+    8 or 32946 (Deflate) / 32773 (PackBits), predictor 1 / 2 / 3, either
+    byte order; ``colormap`` [3, 2**bps] for palette files; ``tags`` extra
+    (tag, type, values) entries."""
+    e = ">" if big_endian else "<"
+    h, w, n = samples.shape
+    compress = {1: bytes, 5: lzw_tiff, 8: lambda d: zlib.compress(d, 6),
+                32946: lambda d: zlib.compress(d, 9), 32773: packbits}[compression]
+    planes = [samples[:, :, k:k + 1] for k in range(n)] if planar == 2 else [samples]
+    chunks = []
+    if tile:
+        tw, tl = tile
+        for plane in planes:
+            padded = np.zeros((-(-h // tl) * tl, -(-w // tw) * tw, plane.shape[2]), plane.dtype)
+            padded[:h, :w] = plane
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    chunks.append(compress(_tiff_rows(padded[y:y + tl, x:x + tw], bps, e,
+                                                      predictor).tobytes()))
+    else:
+        rps = rows_per_strip or h
+        for plane in planes:
+            for y in range(0, h, rps):
+                chunks.append(compress(_tiff_rows(plane[y:y + rps], bps, e, predictor).tobytes()))
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * n), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [n]), (284, 3, [planar])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if sample_format != 1:
+        entries.append((339, 3, [sample_format] * n))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap).reshape(-1))))
+    entries += list(tags)
+    data = bytearray(b"MM\0*" if big_endian else b"II*\0") + bytes(4)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        if len(data) % 2:
+            data += b"\0"
+    counts = [len(c) for c in chunks]
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
+                    (325, 4, counts)]
+    else:
+        entries += [(273, 4, offsets), (278, 4, [rows_per_strip or h]), (279, 4, counts)]
+    entries.sort(key=lambda t: t[0])
+    ifd = len(data)
+    data[4:8] = struct.pack(e + "I", ifd)
+    body = bytearray(struct.pack(e + "H", len(entries)))
+    spill = bytearray()
+    spill_at = ifd + 2 + 12 * len(entries) + 4
+    for tag, kind, values in entries:
+        code, size = {3: ("H", 2), 4: ("I", 4)}[kind]
+        raw = struct.pack(f"{e}{len(values)}{code}", *values)
+        if len(raw) <= 4:
+            value = raw + bytes(4 - len(raw))
+        else:
+            value = struct.pack(e + "I", spill_at + len(spill))
+            spill += raw
+            if len(spill) % 2:
+                spill += b"\0"
+        body += struct.pack(e + "HHI", tag, kind, len(values)) + value
+    return bytes(data + body + bytes(4) + spill)
+
+
+# ---- GIF -----------------------------------------------------------------------
+
+def lzw_gif(indices, bits: int) -> bytes:
+    """GIF LZW of palette indices: LSB-first codes, a clear code first and
+    when the table fills, the width growing when the next code needs it."""
+    clear, out, acc, nacc = 1 << bits, bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc, nacc = acc | code << nacc, nacc + width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc, nacc = acc >> 8, nacc - 8
+
+    width, nxt, table = bits + 1, clear + 2, {}
+    put(clear, width)
+    prefix = None
+    for c in map(int, indices):
+        if prefix is None:
+            prefix = c
+            continue
+        if (prefix, c) in table:
+            prefix = table[(prefix, c)]
+            continue
+        put(prefix, width)
+        if nxt >= 4096:
+            put(clear, width)
+            width, nxt, table = bits + 1, clear + 2, {}
+        else:
+            table[(prefix, c)] = nxt
+            nxt += 1
+            if nxt > 1 << width and width < 12:
+                width += 1
+        prefix = c
+    if prefix is not None:
+        put(prefix, width)
+        nxt += 1
+        if nxt > 1 << width and width < 12:
+            width += 1
+    put(clear + 1, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def _blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_bytes(frames, screen, global_palette=None, version=b"GIF89a") -> bytes:
+    """A GIF of ``frames``: dicts with ``indices`` [h, w], ``offset`` (x, y),
+    and optionally ``palette`` (a local colour table, [2**k, 3]),
+    ``interlace``, ``transparency`` (an index: a graphic control extension)
+    and ``bits`` (the LZW code size, default 8)."""
+    def table(p):
+        p = np.asarray(p, np.uint8).reshape(-1, 3)
+        k = max(1, int(np.ceil(np.log2(len(p)))))
+        full = np.zeros((1 << k, 3), np.uint8)
+        full[:len(p)] = p
+        return k - 1, full.tobytes()
+
+    flags, gtable = 0, b""
+    if global_palette is not None:
+        size, gtable = table(global_palette)
+        flags = 128 | size
+    out = bytearray(version + struct.pack("<HHBBB", screen[0], screen[1], flags, 0, 0) + gtable)
+    for fr in frames:
+        idx = np.asarray(fr["indices"])
+        h, w = idx.shape
+        if fr.get("transparency") is not None:
+            out += b"!\xf9\x04" + bytes([1, 0, 0, fr["transparency"], 0])
+        lflags, ltable = 0, b""
+        if fr.get("palette") is not None:
+            size, ltable = table(fr["palette"])
+            lflags = 128 | size
+        rows = list(range(h))
+        if fr.get("interlace"):
+            lflags |= 64
+            rows = [y for s, d in ((0, 8), (4, 8), (2, 4), (1, 2)) for y in range(s, h, d)]
+        x0, y0 = fr.get("offset", (0, 0))
+        bits = fr.get("bits", 8)
+        out += b"," + struct.pack("<HHHHB", x0, y0, w, h, lflags) + ltable + bytes([bits])
+        out += _blocks(lzw_gif(idx[rows].reshape(-1), bits))
+    return bytes(out + b";")
+
+
+# ---- BMP -----------------------------------------------------------------------
+
+def rle_bmp(indices: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 / RLE4 of [h, w] palette indices, rows bottom-up: encoded runs,
+    absolute runs (padded to 16 bits), a delta over each row's first two
+    pixels when they are 0, end of line and end of bitmap."""
+    out = bytearray()
+    for row in indices[::-1]:
+        row = [int(v) for v in row]
+        x, w = 0, len(row)
+        if w > 2 and row[0] == row[1] == 0:
+            out += bytes([0, 2, 2, 0])
+            x = 2
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or w - x < 3:
+                out += bytes([run if not rle4 else min(run, 255),
+                              row[x] if not rle4 else (row[x] << 4) | row[x]])
+                x += run
+                continue
+            n = 3
+            while x + n < w and n < 254 and not (x + n + 2 < w and row[x + n] == row[x + n + 1]
+                                                 == row[x + n + 2]):
+                n += 1
+            if rle4:
+                n -= n % 2
+                vals = row[x:x + n]
+                body = bytes((vals[i] << 4) | vals[i + 1] for i in range(0, n, 2))
+            else:
+                body = bytes(row[x:x + n])
+            out += bytes([0, n]) + body + (b"\0" if len(body) % 2 else b"")
+            x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def bmp_bytes(pixels: np.ndarray, bits: int, header: int = 40, compression: int = 0,
+              palette=None, masks=None, top_down: bool = False, colors_field=None) -> bytes:
+    """A BMP of ``pixels``: palette indices [h, w] for 1/4/8 bits (``palette``
+    [n, 3] RGB), RGB [h, w, 3] for 16 (5-5-5, or the ``masks`` given), 24
+    and 32 bits (``masks`` (R, G, B, A) bit fields for compression 3); an
+    OS/2 (12-byte) or a Windows header of ``header`` bytes; compression 1 /
+    2 for RLE8 / RLE4."""
+    h, w = pixels.shape[:2]
+    pad = 3 if header == 12 else 4
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if pad == 4:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    if compression in (1, 2):
+        data = rle_bmp(pixels, compression == 2)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = pixels if top_down else pixels[::-1]
+        if bits <= 8:
+            bitsarr = ((rows[:, :, None].astype(np.int64) >> np.arange(bits - 1, -1, -1)) & 1)
+            packed = np.packbits(bitsarr.reshape(h, -1).astype(np.uint8), axis=1)
+        elif bits == 16:
+            r, g, b = (rows[..., k].astype(np.int64) for k in range(3))
+            if masks and masks[0] == 0xF800:
+                v = (r >> 3) << 11 | (g >> 2) << 5 | (b >> 3)
+            else:
+                v = (r >> 3) << 10 | (g >> 3) << 5 | (b >> 3)
+            packed = v.astype("<u2").view(np.uint8).reshape(h, -1)
+        elif bits == 24:
+            packed = np.ascontiguousarray(rows[:, :, ::-1]).reshape(h, -1)
+        else:
+            m = masks or (0xFF0000, 0xFF00, 0xFF, 0)
+            v = np.zeros((h, w), np.int64)
+            for k in range(4):
+                if m[k]:
+                    shift = (m[k] & -m[k]).bit_length() - 1
+                    v |= rows[..., k].astype(np.int64) << shift
+            packed = v.astype("<u4").view(np.uint8).reshape(h, -1)
+        data = np.zeros((h, stride), np.uint8)
+        data[:, :packed.shape[1]] = packed
+        data = data.tobytes()
+    n_colors = len(pal) // pad
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        extra = b""
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(data), 2835, 2835,
+                           n_colors if colors_field is None else colors_field, 0)
+        extra = b""
+        if compression == 3:
+            fields = struct.pack("<4I", *(tuple(masks) + (0,) * (4 - len(masks))))
+            if header >= 52:
+                info += fields[:16 if header >= 56 else 12]
+            else:
+                extra = fields[:12]
+        info += bytes(header - len(info))
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + extra
+            + pal + data)
+
+
+def jpeg_lossless_bytes(samples: np.ndarray, predictor: int = 1, pt: int = 0,
+                        interleave: bool = True, adobe=None) -> bytes:
+    """[H, W, N] uint8 -> a lossless (SOF3) Huffman JPEG: predictor 1-7,
+    point transform ``pt``, the components in one interleaved scan or one
+    scan each; JFIF, or an Adobe marker of transform ``adobe``."""
+    h, w, n = samples.shape
+    bits_table = [0, 0, 0, 0, 17] + [0] * 11           # 17 codes of 5 bits: SSSS 0..16
+    codes = _codes(bits_table, list(range(17)))
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+    def diffs(plane):
+        v = plane.astype(np.int64) >> pt
+        out = np.zeros_like(v)
+        for y in range(h):
+            for x in range(w):
+                if y == 0:
+                    pred = (1 << (8 - pt - 1)) if x == 0 else v[y, x - 1]
+                elif x == 0:
+                    pred = v[y - 1, x]
+                else:
+                    ra, rb, rc = v[y, x - 1], v[y - 1, x], v[y - 1, x - 1]
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+                out[y, x] = ((v[y, x] - pred + 32768) & 0xFFFF) - 32768
+        return out
+
+    def scan(comp_ids, d):
+        stream = []
+        for y in range(h):
+            for x in range(w):
+                for ci in comp_ids:
+                    v = int(d[ci][y, x])
+                    size = 16 if v == -32768 else abs(v).bit_length()
+                    code, length = codes[size]
+                    stream.append(format(code, f"0{length}b"))
+                    if 0 < size < 16:
+                        stream.append(format(v if v >= 0 else v + (1 << size) - 1, f"0{size}b"))
+        s = "".join(stream)
+        s += "1" * (-len(s) % 8)
+        data = bytearray()
+        for i in range(0, len(s), 8):
+            b = int(s[i:i + 8], 2)
+            data += bytes([b, 0]) if b == 0xFF else bytes([b])
+        sos = seg(0xDA, bytes([len(comp_ids)]) + b"".join(bytes([c + 1, 0x00]) for c in comp_ids)
+                  + bytes([predictor, 0, pt]))
+        return sos + bytes(data)
+
+    d = [diffs(samples[:, :, c]) for c in range(n)]
+    scans = scan(list(range(n)), d) if interleave else b"".join(scan([c], d) for c in range(n))
+    app = (seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") if adobe is None
+           else seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)))
+    comps = b"".join(bytes([c + 1, 0x11, 0]) for c in range(n))
+    return (b"\xff\xd8" + app + seg(0xC3, struct.pack(">BHHB", 8, h, w, n) + comps)
+            + seg(0xC4, b"\x00" + bytes(bits_table) + bytes(range(17))) + scans + b"\xff\xd9")
+
+
+# ---- arithmetic-coded JPEG (jcarith.c) ----------------------------------------
+
+def _aritab():
+    import srrg2_proslam_tpu_torch.io.images_plain as plain
+    return plain._ARITAB
+
+
+class _ArithEncoder:
+    """jcarith.c's arith_encode and its termination."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.ct, self.sc, self.zc, self.buffer = 0, 0x10000, 11, 0, 0, -1
+        self.tab = _aritab()
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _flush_zeros(self):
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, stats, i, val):
+        sv = stats[i]
+        qe, nm, nl, sw = self.tab[sv & 0x7F]
+        nl |= sw << 7
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._flush_zeros()
+                        for _ in range(self.sc):
+                            self._emit(0xFF)
+                            self._emit(0)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_zeros()
+                for _ in range(self.sc):
+                    self._emit(0xFF)
+                    self._emit(0)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _shift(v: int, al: int) -> int:
+    """A coefficient's point transform: its magnitude shifted, toward 0."""
+    return (v >> al) if v >= 0 else -((-v) >> al)
+
+
+def jpeg_arith_bytes(samples: np.ndarray, factors, quality: int = 75, progressive=False,
+                     restart_mcus: int = 0, dac=None) -> bytes:
+    """[H, W, N] uint8 component samples (1 gray, 3 YCbCr under JFIF) -> an
+    arithmetic-coded JPEG: sequential (SOF9) or progressive (SOF10: DC first
+    at Al 1, AC 1-5 and 6-63 first at Al 1, DC and AC refinements at Al 0);
+    ``restart_mcus`` > 0 puts a restart marker every that many MCUs; ``dac``
+    {(class, table): value} writes a DAC conditioning segment."""
+    h_img, w_img, n = samples.shape
+    x = samples.astype(np.float64)
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    q = np.clip((_LUM_Q * scale + 50) // 100, 1, 255)
+    nn = np.arange(8)
+    basis = np.cos((2 * nn[None, :] + 1) * nn[:, None] * np.pi / 16) * np.where(
+        nn[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))
+    zz = _zigzag()
+    coef = []                                   # per component: {(by, bx): zigzag ints}
+    for ci, (fh, fv) in enumerate(factors):
+        sx, sy = hmax // fh, vmax // fv
+        pw, ph = mcux * 8 * hmax, mcuy * 8 * vmax
+        full = np.pad(x[..., ci], ((0, ph - h_img), (0, pw - w_img)), mode="edge")
+        plane = full.reshape(ph // sy, sy, pw // sx, sx).mean(axis=(1, 3))
+        blocks = {}
+        for by in range(plane.shape[0] // 8):
+            for bx in range(plane.shape[1] // 8):
+                blk = plane[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8] - 128
+                c = np.round(basis @ blk @ basis.T / q.reshape(8, 8)).astype(int)
+                blocks[(by, bx)] = [int(v) for v in c.reshape(-1)[zz]]
+        coef.append(blocks)
+    dac = dac or {}
+    dc_l = [dac.get((0, t), 0x10) & 15 for t in range(4)]
+    dc_u = [dac.get((0, t), 0x10) >> 4 for t in range(4)]
+    ac_k = [dac.get((1, t), 5) for t in range(4)]
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+    def blocks_of_scan(comps):
+        """Each MCU's blocks (component, (by, bx)) in scan order."""
+        if len(comps) == 1:
+            ci = comps[0]
+            fh, fv = factors[ci]
+            wib = -(-(-(-w_img * fh // hmax)) // 8)
+            hib = -(-(-(-h_img * fv // vmax)) // 8)
+            return [[(ci, (by, bx))] for by in range(hib) for bx in range(wib)]
+        return [[(ci, (my * factors[ci][1] + v, mx * factors[ci][0] + u))
+                 for ci in comps for v in range(factors[ci][1]) for u in range(factors[ci][0])]
+                for my in range(mcuy) for mx in range(mcux)]
+
+    def scan(comps, ss, se, ah, al):
+        mcus = blocks_of_scan(comps)
+        out, enc = bytearray(), None
+        dc_stats, ac_stats, last, ctx = {}, {}, {}, {}
+        fixed = [113]
+        for i, mcu in enumerate(mcus):
+            if restart_mcus and i % restart_mcus == 0 and i:
+                out += enc.finish() + bytes([0xFF, 0xD0 + (i // restart_mcus - 1) % 8])
+                enc = None
+            if enc is None:
+                enc = _ArithEncoder()
+                dc_stats = {0: [0] * 64}
+                ac_stats = {0: [0] * 256}
+                last = {ci: 0 for ci in comps}
+                ctx = {ci: 0 for ci in comps}
+            for ci, key in mcu:
+                zzc = coef[ci][key]
+                if ss == 0 and ah == 0:                      # DC (sequential or first)
+                    v0 = zzc[0] >> al
+                    diff, st0 = v0 - last[ci], ctx[ci]
+                    stats = dc_stats[0]
+                    if diff == 0:
+                        enc.encode(stats, st0, 0)
+                        ctx[ci] = 0
+                    else:
+                        last[ci] = v0
+                        enc.encode(stats, st0, 1)
+                        if diff > 0:
+                            enc.encode(stats, st0 + 1, 0)
+                            st, ctx[ci], v = st0 + 2, 4, diff
+                        else:
+                            enc.encode(stats, st0 + 1, 1)
+                            st, ctx[ci], v = st0 + 3, 8, -diff
+                        m, v = 0, v - 1
+                        if v:
+                            enc.encode(stats, st, 1)
+                            m, v2, st = 1, v, 20
+                            v2 >>= 1
+                            while v2:
+                                enc.encode(stats, st, 1)
+                                m <<= 1
+                                st += 1
+                                v2 >>= 1
+                        enc.encode(stats, st, 0)
+                        if m < (1 << dc_l[0]) >> 1:
+                            ctx[ci] = 0
+                        elif m > (1 << dc_u[0]) >> 1:
+                            ctx[ci] += 8
+                        st += 14
+                        m >>= 1
+                        while m:
+                            enc.encode(stats, st, 1 if m & v else 0)
+                            m >>= 1
+                    if progressive:
+                        continue
+                if ss == 0 and ah:                           # DC refinement
+                    enc.encode(fixed, 0, (zzc[0] >> al) & 1)
+                    continue
+                lo, hi = (1, 63) if not progressive else (ss, se)
+                stats = ac_stats[0]
+                vals = [_shift(v, al) for v in zzc]
+                ke = hi
+                while ke > 0 and ke >= lo and not vals[ke]:
+                    ke -= 1
+                if ah == 0:                                  # sequential / AC first
+                    k = lo
+                    while k <= ke:
+                        st = 3 * (k - 1)
+                        enc.encode(stats, st, 0)
+                        while not vals[k]:
+                            enc.encode(stats, st + 1, 0)
+                            st += 3
+                            k += 1
+                        v = vals[k]
+                        enc.encode(stats, st + 1, 1)
+                        enc.encode(fixed, 0, 0 if v > 0 else 1)
+                        v = abs(v)
+                        st += 2
+                        m, v = 0, v - 1
+                        if v:
+                            enc.encode(stats, st, 1)
+                            m, v2 = 1, v >> 1
+                            if v2:
+                                enc.encode(stats, st, 1)
+                                m <<= 1
+                                st = 189 if k <= ac_k[0] else 217
+                                v2 >>= 1
+                                while v2:
+                                    enc.encode(stats, st, 1)
+                                    m <<= 1
+                                    st += 1
+                                    v2 >>= 1
+                        enc.encode(stats, st, 0)
+                        st += 14
+                        m >>= 1
+                        while m:
+                            enc.encode(stats, st, 1 if m & v else 0)
+                            m >>= 1
+                        k += 1
+                    if k <= hi:
+                        enc.encode(stats, 3 * (k - 1), 1)
+                else:                                        # AC refinement
+                    prev = [_shift(v, ah) for v in zzc]
+                    kex = ke
+                    while kex > 0 and not prev[kex]:
+                        kex -= 1
+                    k = lo
+                    while k <= ke:
+                        st = 3 * (k - 1)
+                        if k > kex:
+                            enc.encode(stats, st, 0)
+                        while True:
+                            v = abs(vals[k])
+                            if v:
+                                if v >> 1:
+                                    enc.encode(stats, st + 2, v & 1)
+                                else:
+                                    enc.encode(stats, st + 1, 1)
+                                    enc.encode(fixed, 0, 0 if vals[k] > 0 else 1)
+                                break
+                            enc.encode(stats, st + 1, 0)
+                            st += 3
+                            k += 1
+                        k += 1
+                    if k <= hi:
+                        enc.encode(stats, 3 * (k - 1), 1)
+        out += enc.finish()
+        sos = seg(0xDA, bytes([len(comps)]) + b"".join(bytes([ci + 1, 0x00]) for ci in comps)
+                  + bytes([ss, se, (ah << 4) | al]))
+        return sos + bytes(out)
+
+    if progressive:
+        scans = [scan(list(range(n)), 0, 0, 0, 1)]
+        scans += [scan([ci], 1, 5, 0, 1) for ci in range(n)]
+        scans += [scan([ci], 6, 63, 0, 1) for ci in range(n)]
+        scans += [scan(list(range(n)), 0, 0, 1, 0)]
+        scans += [scan([ci], 1, 63, 1, 0) for ci in range(n)]
+    else:
+        scans = [scan(list(range(n)), 0, 63, 0, 0)]
+    comps = b"".join(bytes([i + 1, (fh << 4) | fv, 0]) for i, (fh, fv) in enumerate(factors))
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    head += seg(0xDB, b"\x00" + bytes(int(v) for v in q[zz]))
+    head += seg(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, h_img, w_img, n) + comps)
+    if dac:
+        head += seg(0xCC, b"".join(bytes([(c << 4) | t, v]) for (c, t), v in dac.items()))
+    if restart_mcus:
+        head += seg(0xDD, struct.pack(">H", restart_mcus))
+    return head + b"".join(scans) + b"\xff\xd9"
