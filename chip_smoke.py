@@ -114,9 +114,14 @@ Phases, any failure exits non-zero:
      pair, launches FAST 2 / BRIEF 2 / GN 6, counts and pose against the
      CPU run); the TUM TIFF folder (16-bit and float32 depth) through
      iter_tum_rgbd, then adapt_rgbd -> track_step(model="rgbd") (K3 and K1
-     bit-exact, counts and pose against the CPU run); save_gray to .jpg,
-     .tif and .gif byte for byte PIL's files; ms per decode of the
-     376x1241 JPEG, the 480x640 progressive one and four TIFF files;
+     bit-exact, counts and pose against the CPU run); the KITTI TGA folder
+     (RLE) as the TIFF one (launches_tga_vo, max_abs_err_tga); the later
+     fixtures (CCITT G3 / G4, JPEG and YCbCr TIFF, orientation 6, BigTIFF
+     with fill order 2, a block-smoothed progressive JPEG, RLE TGA, DDS,
+     SGI, PCX, ICO, QOI, IM, XBM, MSP, lossless WebP) to the manifest; save_gray to .jpg,
+     .tif, .gif, .tga, .sgi, .pcx, .dds and .im byte for byte PIL's files;
+     ms per decode of the 376x1241 JPEG, the 480x640 progressive one, four
+     TIFF files, a KITTI TGA, a DDS and three of the later fixtures;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
      runs this phase alone): 9a the rendered loop through
      GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
@@ -1367,8 +1372,12 @@ def host_images(dev, smi, report) -> dict:
     TIFF_GN_ATOL on the TIFF pair, the run against the CPU's); the TUM TIFF
     folder (16-bit and float32 depth) through iter_tum_rgbd, then
     adapt_rgbd -> track_step(model="rgbd") (K3 and K1 bit-exact, the run
-    against the CPU's); save_gray to .jpg, .tif and .gif writes PIL's files;
-    ms per decode.  Returns the runs' launches by path."""
+    against the CPU's); the KITTI TGA folder (RLE) as the TIFF one; the
+    later fixtures (CCITT, JPEG and YCbCr TIFF, orientation 6, BigTIFF with
+    fill order 2, a block-smoothed progressive JPEG, TGA, DDS, SGI, PCX,
+    ICO, QOI, IM, XBM, MSP, lossless WebP) to the manifest; save_gray to .jpg, .tif, .gif,
+    .tga, .sgi, .pcx, .dds and .im writes PIL's files; ms per decode.
+    Returns the runs' launches by path."""
     import hashlib
     import shutil
 
@@ -1450,7 +1459,7 @@ def host_images(dev, smi, report) -> dict:
         fail("8g: VO on the JPEG frames differs between the card and the CPU")
 
     # save_gray to .jpg, .tif and .gif writes PIL's files
-    for key in ("save_gray", "save_gray_tif", "save_gray_gif"):
+    for key in sorted(k for k in manifest if k.startswith("save_gray")):
         want = manifest[key]
         out = os.path.join(HOST_DIR, "save_gray" + want["extension"])
         datasets.save_gray(out, datasets.load_gray(os.path.join(ROOT, want["source"])))
@@ -1465,13 +1474,18 @@ def host_images(dev, smi, report) -> dict:
         if not (file_ok and read_ok):
             fail(f"8g: save_gray's {want['extension']} file differs from PIL's")
 
-    counts_tiff_vo = tiff_vo(dev, smi, report, manifest)
+    counts_tiff_vo = kitti_folder_vo(dev, smi, report, manifest, "kitti_tiff", "tiff",
+                                     "pair 0 8-bit LZW + predictor 2, pair 1 16-bit")
+    counts_tga_vo = kitti_folder_vo(dev, smi, report, manifest, "kitti_tga", "tga",
+                                    "run-length-encoded TGA")
     counts_tiff_rgbd = tiff_rgbd(dev, smi, report, manifest)
 
     # ms per decode on this machine's host
     for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg",
                  "kitti_tiff/image_0/000000.tif", "kitti_tiff/image_0/000001.tif",
-                 "tum_tiff/depth/0.tif", "tum_tiff/depth/1.tif"):
+                 "tum_tiff/depth/0.tif", "tum_tiff/depth/1.tif",
+                 "kitti_tga/image_0/000000.tga", "icl_dxt1.dds", "kitti_ccitt_g4.tif",
+                 "icl_jpeg_ycbcr_420.tif", "icl_progressive_3_scans.jpg"):
         path = os.path.join(IMAGE_FIXTURES, name)
         shape = images.decode(path).samples.shape
         t0 = time.perf_counter()
@@ -1489,14 +1503,17 @@ def host_images(dev, smi, report) -> dict:
               f"({os.path.getsize(path)} bytes) on the host: images.decode {lib_ms:.3f} ms, "
               f"load_gray {gray_ms:.3f} ms (mean of {DECODE_REPS}), plain twin "
               f"{plain_ms:.1f} ms (one call) [{smi}]", flush=True)
-    return {"jpeg_vo": counts, "tiff_vo": counts_tiff_vo, "tiff_rgbd": counts_tiff_rgbd}
+    return {"jpeg_vo": counts, "tiff_vo": counts_tiff_vo, "tga_vo": counts_tga_vo,
+            "tiff_rgbd": counts_tiff_rgbd}
 
 
-def tiff_vo(dev, smi, report, manifest) -> dict:
-    """8g: the KITTI TIFF folder (pair 0 8-bit LZW with predictor 2, pair 1
-    16-bit) through iter_kitti_odometry, then adapt_stereo -> track_step on
-    the card and on the CPU; K3 and K1 bit-exact and K2 within TIFF_GN_ATOL
-    at these frames.  Returns the card run's launches."""
+def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: str) -> dict:
+    """8g: a KITTI-layout fixture folder (``kitti_tiff``: pair 0 8-bit LZW
+    with predictor 2, pair 1 16-bit; ``kitti_tga``: RLE TGA) through
+    iter_kitti_odometry, then adapt_stereo -> track_step on the card and on
+    the CPU; K3 and K1 bit-exact and K2 within TIFF_GN_ATOL at these frames
+    (``max_abs_err_<label>`` in the kernels line).  Returns the card run's
+    launches."""
     import torch
 
     from srrg2_proslam_tpu_torch import kernels
@@ -1505,27 +1522,29 @@ def tiff_vo(dev, smi, report, manifest) -> dict:
     from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig
     from srrg2_proslam_tpu_torch.ops import se3
 
-    seq = os.path.join(IMAGE_FIXTURES, "kitti_tiff")
+    seq = os.path.join(IMAGE_FIXTURES, folder)
+    ext = {"tiff": "tif", "tga": "tga"}[label]
+    name = label.upper()
     frames = list(datasets.iter_kitti_odometry(seq))
     same = len(frames) == 2 and all(
-        _sha_f32(getattr(fr, side)) == manifest[f"kitti_tiff/image_{k}/{i:06d}.tif"][
+        _sha_f32(getattr(fr, side)) == manifest[f"{folder}/image_{k}/{i:06d}.{ext}"][
             "load_gray_sha256"]
         for i, fr in enumerate(frames) for k, side in ((0, "left"), (1, "right")))
-    print(f"8g iter_kitti_odometry over {seq} (pair 0 8-bit LZW + predictor 2, pair 1 16-bit): "
+    print(f"8g iter_kitti_odometry over {seq} ({what}): "
           f"{len(frames)} frames, equal to the manifest: {same} [{smi}]", flush=True)
     if not same:
-        fail("8g: iter_kitti_odometry's TIFF frames differ from the manifest")
+        fail(f"8g: iter_kitti_odometry's {name} frames differ from the manifest")
     cam = datasets.kitti_camera(*frames[0].left.shape)
     adapt_cfg, track_cfg = StereoAdaptorConfig(), TrackerConfig()
     gpu = [(torch.from_numpy(f.left).to(dev), torch.from_numpy(f.right).to(dev))
            for f in frames]
     errs, _ = check_kernels(main_path_inputs(gpu, cam, adapt_cfg, track_cfg), cam,
-                            adapt_cfg.extractor.detector_threshold, "KITTI TIFF frames 0/1")
+                            adapt_cfg.extractor.detector_threshold, f"KITTI {name} frames 0/1")
     for kname, err in errs.items():
-        report[kname]["max_abs_err_tiff"] = err
+        report[kname][f"max_abs_err_{label}"] = err
         report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
     if errs["gn_burst"] > TIFF_GN_ATOL:
-        fail(f"8g: K2 at the TIFF frames {errs['gn_burst']} > {TIFF_GN_ATOL}")
+        fail(f"8g: K2 at the {name} frames {errs['gn_burst']} > {TIFF_GN_ATOL}")
     kernels.reset_launch_counts()
     rows, poses = run_vo(gpu, cam, dev, adapt_cfg, track_cfg)
     torch.cuda.synchronize()
@@ -1534,16 +1553,16 @@ def tiff_vo(dev, smi, report, manifest) -> dict:
                                   for f in frames], cam, "cpu", adapt_cfg, track_cfg)
     dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
     for i, (g, c) in enumerate(zip(rows, cpu_rows)):
-        print(f"8g TIFF frame {i}: meas={g['meas']} matches={g['matches']} "
+        print(f"8g {name} frame {i}: meas={g['meas']} matches={g['matches']} "
               f"inliers={g['inliers']} map={g['map']} (cpu meas={c['meas']} "
               f"matches={c['matches']} inliers={c['inliers']})", flush=True)
-    print(f"8g VO on the TIFF frames: launches {counts}; final pose vs the CPU run |dt| "
+    print(f"8g VO on the {name} frames: launches {counts}; final pose vs the CPU run |dt| "
           f"{dt.numpy()} angle {float(dang):.3e} [{smi}]", flush=True)
     if counts != {"fast": 2, "brief": 2, "gn_burst": 6}:
-        fail(f"8g TIFF VO launches {counts} != fast 2, brief 2, gn_burst 6")
+        fail(f"8g {name} VO launches {counts} != fast 2, brief 2, gn_burst 6")
     if any(g[k] != c[k] for g, c in zip(rows, cpu_rows) for k in ("meas", "matches", "inliers")
            ) or not (float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
-        fail("8g: VO on the TIFF frames differs between the card and the CPU")
+        fail(f"8g: VO on the {name} frames differs between the card and the CPU")
     return counts
 
 

@@ -18,12 +18,23 @@ layout (the city pairs 0 and 1 cut to their middle 640 columns, pair 0 as
 8-bit LZW with predictor 2, pair 1 as 16-bit samples 256 x the gray) and
 ``tum_tiff/`` in the TUM RGB-D layout (ICL frames 0 and 1 at their full
 640 x 480: the gray intensity as 8-bit LZW, frame 0's depth as
-16-bit Deflate, frame 1's as float32 tiles with the float predictor).
+16-bit Deflate, frame 1's as float32 tiles with the float predictor);
+``kitti_tga/`` in the KITTI odometry layout (the same cut pairs as
+run-length-encoded TGA, written by PIL); and one small file per family the
+port's later decoders read (written by PIL where it writes the variant,
+else by ``tests/torch_imagefiles.py``): CCITT Group 4 and Group 3 2-D
+bilevel TIFF, JPEG-compressed YCbCr 4:2:0 TIFF in two strips behind
+JPEGTables, YCbCr 4:2:2 LZW TIFF with ReferenceBlackWhite, an
+orientation-6 TIFF, a BigTIFF with fill order 2, a progressive JPEG cut
+after three scans (block-smoothed on decoding) and an RLE RGB TGA; and,
+written by PIL from the same crops, a DXT1 DDS, an SGI, an RGB PCX, a PNG
+ICO, a QOI, an IM, a lossless WebP and the bilevel crop as XBM and MSP.
 ``MANIFEST.json`` holds, for each file, the SHA-256 of
 the float32 bytes of the JAX package's ``load_gray`` and ``load_depth``
 and their shape; and for ``save_gray`` of KITTI left 0 to ``.jpg``, the
 SHA-256 of PIL's file and of the JAX package's ``load_gray`` of it, and
-the same for ``save_gray`` to ``.tif`` and ``.gif``.
+the same for ``save_gray`` to ``.tif``, ``.gif``, ``.tga``, ``.sgi``,
+``.pcx``, ``.dds`` and ``.im``.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import io
 import json
 import os
 import sys
+import tempfile
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +54,8 @@ import numpy as np  # noqa: E402
 from PIL import Image  # noqa: E402
 
 from srrg2_proslam_tpu.io import datasets as jds  # noqa: E402
-from torch_imagefiles import png_bytes, tiff_bytes  # noqa: E402
+from torch_imagefiles import (lzw_tiff, png_bytes, split_jpeg_tables,  # noqa: E402
+                              tiff_bytes, tiff_chunks_bytes, ycbcr_units)
 
 OUT = os.path.join(ROOT, "test_data", "torch_io")
 KITTI = os.path.join(ROOT, "test_data", "kitti", "city")
@@ -89,6 +102,82 @@ def tiff_folders():
         f.write("# timestamp filename\n0.000000 depth/0.tif\n0.033333 depth/1.tif\n")
 
 
+def tga_folder():
+    """kitti_tga/: the cut KITTI pairs 0 and 1 as run-length-encoded TGA."""
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(OUT, "kitti_tga", sub), exist_ok=True)
+    for i in (0, 1):
+        for sub, side in (("image_0", "left"), ("image_1", "right")):
+            gray = np.asarray(Image.open(os.path.join(KITTI, f"image_{side}_{i}.png")))
+            Image.fromarray(np.ascontiguousarray(gray[:, KITTI_COLS])).save(
+                os.path.join(OUT, "kitti_tga", sub, f"{i:06d}.tga"), compression="tga_rle")
+    with open(os.path.join(OUT, "kitti_tga", "times.txt"), "w") as f:
+        f.write("0.000000e+00\n1.036300e-01\n")
+
+
+def later_families(rgb: Image.Image, kitti: Image.Image):
+    """One small file per family of the TIFF, JPEG and TGA decoders added
+    after the TIFF folders (see the module docstring)."""
+    bilevel = kitti.crop((400, 100, 640, 260)).convert("1")
+    bilevel.save(os.path.join(OUT, "kitti_ccitt_g4.tif"), compression="group4")
+    bilevel.save(os.path.join(OUT, "kitti_ccitt_g3_2d.tif"), compression="group3",
+                 tiffinfo={292: 1})
+    crop = rgb.crop((240, 200, 368, 296))                    # 128 x 96
+    strips, tables = [], b""
+    for y in (0, 48):
+        buf = io.BytesIO()
+        crop.crop((0, y, 128, y + 48)).save(buf, "JPEG", quality=85, subsampling=2)
+        tables, rest = split_jpeg_tables(buf.getvalue())
+        strips.append(rest)
+    with open(os.path.join(OUT, "icl_jpeg_ycbcr_420.tif"), "wb") as f:
+        f.write(tiff_chunks_bytes(128, 96, strips, [
+            (258, 3, [8, 8, 8]), (259, 3, [7]), (262, 3, [6]), (277, 3, [3]), (284, 3, [1]),
+            (347, 7, list(tables)), (530, 3, [2, 2])], rows_per_strip=48))
+    ycc = np.asarray(crop.convert("YCbCr")).astype(np.int64)
+    cb = ycc[:, 0::2, 1]
+    cr = ycc[:, 0::2, 2]
+    with open(os.path.join(OUT, "icl_ycbcr_422_lzw.tif"), "wb") as f:
+        f.write(tiff_chunks_bytes(128, 96, [lzw_tiff(ycbcr_units(ycc[:, :, 0], cb, cr, 2, 1))], [
+            (258, 3, [8, 8, 8]), (259, 3, [5]), (262, 3, [6]), (277, 3, [3]),
+            (530, 3, [2, 1]), (532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                                        (240, 1)])]))
+    gray = crop.convert("L")
+    gray.save(os.path.join(OUT, "icl_orientation_6.tif"), compression="tiff_lzw",
+              tiffinfo={274: 6})
+    reverse = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+    g = np.asarray(gray)
+    with open(os.path.join(OUT, "icl_bigtiff_fill2.tif"), "wb") as f:
+        f.write(tiff_chunks_bytes(128, 96, [g[y:y + 32].tobytes().translate(reverse)
+                                            for y in range(0, 96, 32)],
+                                  [(258, 3, [8]), (259, 3, [1]), (262, 3, [1]), (266, 3, [2])],
+                                  rows_per_strip=32, bigtiff=True))
+    buf = io.BytesIO()
+    rgb.crop((200, 160, 360, 280)).save(buf, "JPEG", quality=90, progressive=True,
+                                         subsampling=2)
+    blob = buf.getvalue()
+    scans = [i for i in range(len(blob) - 1) if blob[i:i + 2] == b"\xff\xda"]
+    with open(os.path.join(OUT, "icl_progressive_3_scans.jpg"), "wb") as f:
+        f.write(blob[:scans[3]] + b"\xff\xd9")
+    crop.save(os.path.join(OUT, "icl_rgb_rle.tga"), compression="tga_rle")
+
+
+def raster_families(rgb: Image.Image, kitti: Image.Image):
+    """One small file per reader of PIL's other raster formats (see the
+    module docstring), written by PIL."""
+    crop = rgb.crop((240, 200, 368, 296))                    # 128 x 96
+    crop.convert("RGBA").save(os.path.join(OUT, "icl_dxt1.dds"), pixel_format="DXT1")
+    small = crop.resize((64, 48), Image.Resampling.NEAREST)
+    small.convert("L").save(os.path.join(OUT, "icl_gray.sgi"))
+    small.save(os.path.join(OUT, "icl_rgb.pcx"))
+    small.crop((0, 0, 48, 48)).save(os.path.join(OUT, "icl_rgb.ico"), sizes=[(48, 48)])
+    small.save(os.path.join(OUT, "icl_rgb.qoi"))
+    small.convert("L").save(os.path.join(OUT, "icl_gray.im"))
+    small.save(os.path.join(OUT, "icl_rgb_lossless.webp"), lossless=True)
+    bilevel = kitti.crop((400, 100, 640, 260)).convert("1")
+    bilevel.save(os.path.join(OUT, "kitti_bilevel.xbm"))
+    bilevel.save(os.path.join(OUT, "kitti_bilevel.msp"))
+
+
 def fixture_files():
     """Every image file under OUT, as paths relative to it."""
     out = []
@@ -101,18 +190,17 @@ def fixture_files():
 
 
 def save_entry(source: np.ndarray, extension: str) -> dict:
-    """PIL's save_gray file of ``source`` as a manifest entry."""
-    buf = io.BytesIO()
-    Image.fromarray(np.clip(source, 0, 255).astype(np.uint8), mode="L").save(
-        buf, Image.registered_extensions()[extension])
-    saved = os.path.join(OUT, "_save_gray" + extension)
-    with open(saved, "wb") as f:
-        f.write(buf.getvalue())
-    entry = {"source": SAVE_SOURCE, "extension": extension,
-             "pil_file_sha256": hashlib.sha256(buf.getvalue()).hexdigest(),
-             "load_gray_sha256": sha(jds.load_gray(saved))}
-    os.remove(saved)
-    return entry
+    """PIL's save_gray file of ``source`` as a manifest entry: the file is
+    named ``save_gray<extension>`` (SGI and IM keep the name in the file),
+    as ``chip_smoke.py`` names its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.path.join(tmp, "save_gray" + extension)
+        Image.fromarray(np.clip(source, 0, 255).astype(np.uint8), mode="L").save(saved)
+        with open(saved, "rb") as f:
+            blob = f.read()
+        return {"source": SAVE_SOURCE, "extension": extension,
+                "pil_file_sha256": hashlib.sha256(blob).hexdigest(),
+                "load_gray_sha256": sha(jds.load_gray(saved))}
 
 
 def sha(arr: np.ndarray) -> str:
@@ -138,6 +226,9 @@ def main():
         f.write(png_bytes(small, 2, 8, interlace=True))
     rgb.crop((40, 300, 168, 396)).save(os.path.join(OUT, "icl_rgb24.bmp"))
     tiff_folders()
+    tga_folder()
+    later_families(rgb, kitti)
+    raster_families(rgb, kitti)
 
     manifest = {}
     for name in fixture_files():
@@ -149,12 +240,14 @@ def main():
     manifest["save_gray"] = save_entry(source, ".jpg")
     manifest["save_gray_tif"] = save_entry(source, ".tif")
     manifest["save_gray_gif"] = save_entry(source, ".gif")
+    for ext in (".tga", ".sgi", ".pcx", ".dds", ".im"):
+        manifest["save_gray_" + ext[1:]] = save_entry(source, ext)
     with open(os.path.join(OUT, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     total = sum(os.path.getsize(os.path.join(root, n)) for root, _, names in os.walk(OUT)
                 for n in names)
-    print(f"{len(manifest) - 3} fixtures and MANIFEST.json in {OUT}: {total} bytes")
+    print(f"{sum(not k.startswith('save_gray') for k in manifest)} fixtures and MANIFEST.json in {OUT}: {total} bytes")
 
 
 if __name__ == "__main__":

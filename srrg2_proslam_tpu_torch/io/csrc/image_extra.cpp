@@ -1,10 +1,16 @@
 // Image files the repo's native decoder (native/src/image_decode.cpp) does
 // not read: JPEG (baseline, progressive and lossless Huffman, sequential
-// and progressive arithmetic; gray, YCbCr / RGB, CMYK / YCCK), PNG of
-// every colour type, bit depth and interlace (palette, 1/2/4-bit, Adam7),
-// and BMP (this file); TIFF (image_tiff.cpp), GIF and PNM / PFM
-// (image_gif_pnm.cpp); plus a baseline gray JPEG writer here and PIL's GIF
-// writer for mode L in image_gif_pnm.cpp.
+// and progressive arithmetic; gray, YCbCr / RGB, CMYK / YCCK; libjpeg's
+// block smoothing of incomplete progressive files), PNG of every colour
+// type, bit depth and interlace (palette, 1/2/4-bit, Adam7), BMP, and
+// ``decode_any``, which tries PIL's plugins in its order (this file); TIFF
+// (image_tiff.cpp, image_ccitt.cpp), GIF and PNM / PFM (image_gif_pnm.cpp),
+// TGA, SGI / PCX, DDS, PSD, ICO / CUR, QOI, IM, the Sun raster / MSP /
+// XBM / XPM / SPIDER readers and lossless WebP (image_tga.cpp,
+// image_sgi_pcx.cpp, image_dds.cpp, image_psd.cpp, image_ico.cpp,
+// image_qoi.cpp, image_im.cpp, image_misc.cpp, image_webp.cpp); plus a
+// baseline gray JPEG writer here and PIL's GIF writer for mode L in
+// image_gif_pnm.cpp.
 //
 // Each decoder returns the samples in the mode PIL opens the file in (1,
 // L, P, I;16, I;16B, I, F, LA, RGB, RGBA, CMYK), so that the caller can
@@ -23,11 +29,10 @@
 // hierarchical JPEG, arithmetic-coded lossless JPEG, sample precision
 // other than 8 (PIL refuses it too), 2-component JPEG, non-integral
 // sampling ratios, subsampled lossless files and lossless files that
-// would need a colour conversion (libjpeg-turbo refuses them), DNL, a
-// progressive file whose first AC coefficients are never completed (the
-// decoder would smooth its blocks); BMP headers, depths, compressions and
-// bit-field layouts PIL does not read, RLE with a black / white palette and
-// 1/4-bit files whose palette is the gray ramp.
+// would need a colour conversion (libjpeg-turbo refuses them), DNL; BMP
+// headers, depths, compressions and bit-field layouts PIL does not read,
+// RLE with a black / white palette and 1/4-bit files whose palette is the
+// gray ramp.
 
 #include <algorithm>
 #include <cstdint>
@@ -344,9 +349,11 @@ struct JpegDecoder {
   uint8_t dc_stats[4][64], ac_stats[4][256];
   bool ac_error = false;  // jdarith.c's ct = -1 after a bad code: no more coefficients
   int adobe_transform = -1, restart_interval = 0;
+  int color = JPEG_AS_MARKED;
   std::vector<Component> comps;
 
-  explicit JpegDecoder(const std::vector<uint8_t>& file) : f(file) {}
+  JpegDecoder(const std::vector<uint8_t>& file, int color_handling)
+      : f(file), color(color_handling) {}
 
   void read_frame(const uint8_t* p, size_t len, int marker) {
     if (frame) throw Error("JPEG: more than one frame");
@@ -869,18 +876,140 @@ struct JpegDecoder {
       pos += len;  // APPn, COM and other segments are skipped
     }
     if (!frame) throw Error("JPEG: no frame");
-    if (progressive) {
-      // A complete file has every coefficient's last bit: libjpeg would
-      // smooth the blocks only while one of the first nine AC coefficients
-      // still misses bits (jdcoefct.c smoothing_ok), so it does not here.
-      bool dc_known = true, ac_missing = false;
-      for (auto& c : comps) {
-        if (c.coef_bits[0] < 0) dc_known = false;
-        for (int k = 1; k < 10; ++k) ac_missing |= c.coef_bits[k] != 0;
+  }
+
+  // jdcoefct.c smoothing_ok: a progressive file whose first nine AC
+  // coefficients are not all complete in some component (every DC partly
+  // known, the ten quantisers nonzero) is block-smoothed on output.
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (auto& c : comps) {
+      for (int k : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.qt[k] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1): each block's
+  // missing low-frequency AC coefficients estimated from the DC values of
+  // the 5 x 5 blocks around it (with DC interpolation when no AC bit is
+  // known), the neighbours taken row by row as libjpeg's iMCU-row buffer
+  // gives them; then the IDCT.
+  void smooth_component(Component& c, uint8_t* plane, int stride, const uint8_t* range) {
+    const int* cb = c.coef_bits;
+    const bool change_dc = std::all_of(cb + 1, cb + 10, [](int v) { return v == -1; });
+    const int64_t q00 = c.qt[0], q01 = c.qt[1], q10 = c.qt[8], q20 = c.qt[16], q11 = c.qt[9],
+                  q02 = c.qt[2], q03 = change_dc ? c.qt[3] : 0, q12 = change_dc ? c.qt[10] : 0,
+                  q21 = change_dc ? c.qt[17] : 0, q30 = change_dc ? c.qt[24] : 0;
+    const int last_imcu = mcuy - 1, last_col = c.wib - 1;
+    auto estimate = [](int64_t num, int64_t q, int al, bool limit) {
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
       }
-      if (dc_known && ac_missing)
-        throw Error("JPEG: a progressive file whose first AC coefficients are incomplete "
-                    "(block smoothing) is not supported");
+      return pred;
+    };
+    int16_t ws[64];
+    for (int imcu = 0; imcu <= last_imcu; ++imcu) {
+      int block_rows = c.v;
+      if (imcu == last_imcu) {
+        block_rows = c.hib % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      for (int br = 0; br < block_rows; ++br) {
+        // libjpeg numbers the rows by this iMCU row's block count, so a short
+        // last iMCU row sees fewer rows above and the rows before it may
+        // reach into the padding rows below the image
+        int row = imcu * c.v + br, at = imcu * block_rows + br, count = block_rows * mcuy;
+        int prev = at > 0 ? row - 1 : row, next = at < count - 1 ? row + 1 : row;
+        const int rows5[5] = {at > 1 ? row - 2 : prev, prev, row, next,
+                              at < count - 2 ? row + 2 : next};
+        auto dc = [&](int r, int col) { return int(c.block(col, rows5[r])[0]); };
+        int d[5][5];  // d[r][k]: DC01..DC25, the columns clamped to the image's blocks
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, c.block(col, row), sizeof(ws));
+          for (int r = 0; r < 5; ++r)
+            for (int k = 0; k < 5; ++k)
+              d[r][k] = dc(r, std::min(std::max(col + k - 2, 0), last_col));
+#define DC(n) int64_t(d[((n) - 1) / 5][((n) - 1) % 5])
+          int al;
+          if ((al = cb[1]) != 0 && ws[1] == 0) {
+            int64_t num = q00 * (change_dc
+                ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) - 13 * DC(9) +
+                   3 * DC(10) - 3 * DC(11) + 38 * DC(12) - 38 * DC(14) + 3 * DC(15) -
+                   3 * DC(16) + 13 * DC(17) - 13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) +
+                   DC(24) + DC(25))
+                : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+            ws[1] = int16_t(estimate(num, q01, al, true));
+          }
+          if ((al = cb[2]) != 0 && ws[8] == 0) {
+            int64_t num = q00 * (change_dc
+                ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) + 13 * DC(7) +
+                   38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) - 13 * DC(17) - 38 * DC(18) -
+                   13 * DC(19) + DC(20) + DC(21) + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) +
+                   DC(25))
+                : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+            ws[8] = int16_t(estimate(num, q10, al, true));
+          }
+          if ((al = cb[3]) != 0 && ws[16] == 0) {
+            int64_t num = q00 * (change_dc
+                ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13) -
+                   5 * DC(14) + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23))
+                : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+            ws[16] = int16_t(estimate(num, q20, al, true));
+          }
+          if ((al = cb[4]) != 0 && ws[9] == 0) {
+            int64_t num = q00 * (change_dc
+                ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19) + DC(21) -
+                   DC(25))
+                : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) + DC(22) -
+                   DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9)));
+            ws[9] = int16_t(estimate(num, q11, al, true));
+          }
+          if ((al = cb[5]) != 0 && ws[2] == 0) {
+            int64_t num = q00 * (change_dc
+                ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) - 14 * DC(13) +
+                   7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) + 2 * DC(19))
+                : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)));
+            ws[2] = int16_t(estimate(num, q02, al, true));
+          }
+          if (change_dc) {
+            if ((al = cb[6]) != 0 && ws[3] == 0) {
+              int64_t num = q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19));
+              ws[3] = int16_t(estimate(num, q03, al, true));
+            }
+            if ((al = cb[7]) != 0 && ws[10] == 0) {
+              int64_t num = q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19));
+              ws[10] = int16_t(estimate(num, q12, al, true));
+            }
+            if ((al = cb[8]) != 0 && ws[17] == 0) {
+              int64_t num = q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19));
+              ws[17] = int16_t(estimate(num, q21, al, true));
+            }
+            if ((al = cb[9]) != 0 && ws[24] == 0) {
+              int64_t num = q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19));
+              ws[24] = int16_t(estimate(num, q30, al, true));
+            }
+            int64_t num = q00 *
+                (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) - 6 * DC(6) +
+                 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) + 42 * DC(12) +
+                 152 * DC(13) + 42 * DC(14) - 8 * DC(15) - 6 * DC(16) + 6 * DC(17) +
+                 42 * DC(18) + 6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) -
+                 8 * DC(23) - 6 * DC(24) - 2 * DC(25));
+            ws[0] = int16_t(estimate(num, q00, 0, false));
+          }
+#undef DC
+          idct_islow(ws, c.qt, &plane[size_t(row) * 8 * stride + size_t(col) * 8], stride, range);
+        }
+      }
     }
   }
 
@@ -1031,6 +1160,7 @@ struct JpegDecoder {
       range[i] = uint8_t(x < 0 ? 0 : (x > 255 ? 255 : x));
     }
     std::vector<std::vector<uint8_t>> planes;
+    const bool smooth = smoothing_ok();
     for (auto& c : comps) {
       if (!c.latched) throw Error("JPEG: a component is in no scan");
       if (lossless) {
@@ -1044,8 +1174,10 @@ struct JpegDecoder {
       std::vector<uint8_t> plane(size_t(stride) * c.bh * 8);
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(c.block(bx, by), c.qt, &plane[size_t(by) * 8 * stride + bx * 8], stride,
-                     range);
+          if (!smooth || by >= c.hib || bx >= c.wib)
+            idct_islow(c.block(bx, by), c.qt, &plane[size_t(by) * 8 * stride + bx * 8], stride,
+                       range);
+      if (smooth) smooth_component(c, plane.data(), stride, range);
       planes.push_back(upsample(plane, stride, c, hmax, vmax, width, height));
     }
     Image img;
@@ -1086,7 +1218,9 @@ struct JpegDecoder {
     }
     // jdapimin.c default_decompress_parms: the colour space of 3 components
     bool ycc;
-    if (jfif) {
+    if (color != JPEG_AS_MARKED) {
+      ycc = color == JPEG_YCC;
+    } else if (jfif) {
       ycc = true;
     } else if (adobe) {
       ycc = adobe_transform != 0;
@@ -1131,8 +1265,8 @@ struct JpegDecoder {
   };
 };
 
-Image decode_jpeg(const std::vector<uint8_t>& file) {
-  JpegDecoder d(file);
+Image decode_jpeg_impl(const std::vector<uint8_t>& file, int color) {
+  JpegDecoder d(file, color);
   d.parse();
   return d.finish();
 }
@@ -1535,21 +1669,78 @@ Image decode_bmp(const std::vector<uint8_t>& file) {
   return img;
 }
 
+// PIL's Image.open: the plugins in Image.ID order, each claiming a file
+// its accept test passes (and, for the few below whose _open then declines
+// files, only as far as that).  The port's formats are decoded; a file a
+// format of PIL's the port does not read would claim is refused naming it.
+// IM, IMT, IPTC, PCD and SPIDER have no accept test in PIL (their _open
+// sniffs the header); the port sniffs as PIL does for IM and SPIDER.
 Image decode_any(const std::vector<uint8_t>& file) {
-  static const uint8_t png_sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-  if (file.size() >= 3 && file[0] == 0xFF && file[1] == 0xD8 && file[2] == 0xFF)
-    return decode_jpeg(file);
-  if (file.size() >= 8 && !std::memcmp(file.data(), png_sig, 8)) return decode_png(file);
-  if (file.size() >= 2 && file[0] == 'B' && file[1] == 'M') return decode_bmp(file);
-  if (file.size() >= 4 && ((file[0] == 'I' && file[1] == 'I' && (file[2] == 42 || file[2] == 43) &&
-                            file[3] == 0) ||
-                           (file[0] == 'M' && file[1] == 'M' && file[2] == 0 &&
-                            (file[3] == 42 || file[3] == 43))))
+  const uint8_t* p = file.data();
+  const size_t n = file.size();
+  auto starts = [&](const char* m, size_t len) { return n >= len && !std::memcmp(p, m, len); };
+  auto le32_at = [&](size_t at) { return n >= at + 4 ? le32(p + at) : 0xFFFFFFFFu; };
+  auto refuse = [](const char* format) -> Image {
+    throw Error(std::string(format) + " files are not supported");
+  };
+  if (n >= 12 && !std::memcmp(p + 4, "ftyp", 4) &&
+      (!std::memcmp(p + 8, "avif", 4) || !std::memcmp(p + 8, "avis", 4) ||
+       !std::memcmp(p + 8, "mif1", 4) || !std::memcmp(p + 8, "msf1", 4)))
+    return refuse("AVIF");
+  if (starts("BLP1", 4) || starts("BLP2", 4)) return refuse("BLP");
+  if (starts("BM", 2)) return decode_bmp(file);
+  for (uint32_t size : {12u, 40u, 52u, 56u, 64u, 108u, 124u})
+    if (le32_at(0) == size) return refuse("DIB");
+  if (starts("BUFR", 4) || starts("ZCZC", 4)) return refuse("BUFR");
+  if (starts("\0\0\2\0", 4) && n >= 6 && le16(p + 4) > 0) return decode_cur(file);
+  if (n >= 12 && p[0] == 10 && (p[1] == 0 || p[1] == 2 || p[1] == 3 || p[1] == 5) &&
+      le16(p + 8) + 1 > le16(p + 4) && le16(p + 10) + 1 > le16(p + 6))
+    return decode_pcx(file);
+  if (le32_at(0) == 987654321u) return refuse("DCX");
+  if (starts("DDS ", 4)) return decode_dds(file);
+  if (starts("%!PS", 4) || le32_at(0) == 0xC6D3D0C5u) return refuse("EPS");
+  if (starts("SIMPLE", 6)) return refuse("FITS");
+  if (n >= 16 && (le16(p + 4) == 0xAF11 || le16(p + 4) == 0xAF12) &&
+      (le16(p + 14) == 0 || le16(p + 14) == 3))
+    return refuse("FLI");
+  if (starts("FTEX", 4)) return refuse("FTEX");
+  if (n >= 8 && be32(p) >= 20 && (be32(p + 4) == 1 || be32(p + 4) == 2)) return refuse("GBR");
+  if (starts("GIF87a", 6) || starts("GIF89a", 6)) return decode_gif(file);
+  if (n >= 8 && starts("GRIB", 4) && p[7] == 1) return refuse("GRIB");
+  if (starts("\x89HDF\r\n\x1a\n", 8)) return refuse("HDF5");
+  if (starts("\x89PNG\r\n\x1a\n", 8)) return decode_png(file);
+  if (starts("\xff\x4f\xff\x51", 4) || starts("\0\0\0\x0cjP  \r\n\x87\n", 12))
+    return refuse("JPEG 2000");
+  if (starts("icns", 4)) return refuse("ICNS");
+  if (starts("\0\0\1\0", 4) && n >= 6 && le16(p + 4) > 0) return decode_ico(file);
+  if (im_header(file)) return decode_im(file);  // IM, by PIL's header test (no magic)
+  if (starts("\xff\xd8\xff", 3)) return decode_jpeg_impl(file, JPEG_AS_MARKED);
+  if (starts("\0\0\0\0\0\0\0\4", 8)) return refuse("McIdas");
+  if (starts("\0\0\1\xb3", 4)) return refuse("MPEG");
+  if (starts("II*\0", 4) || starts("MM\0*", 4) || starts("II+\0", 4) || starts("MM\0+", 4))
     return decode_tiff(file);
-  if (file.size() >= 6 && !std::memcmp(file.data(), "GIF8", 4)) return decode_gif(file);
-  if (file.size() >= 2 && file[0] == 'P' && std::strchr("0123456fy", file[1]) && file[1])
-    return decode_pnm(file);
-  throw Error("not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM file");
+  if (starts("DanM", 4) || starts("LinS", 4)) return decode_msp(file);
+  if (starts("\x80\xe8\0\0", 4)) return refuse("PIXAR");
+  if (n >= 2 && p[0] == 'P' && p[1] && std::strchr("0123456fy", p[1])) return decode_pnm(file);
+  if (starts("8BPS", 4)) return decode_psd(file);
+  if (starts("qoif", 4)) return decode_qoi(file);
+  if (n >= 2 && be16(p) == 474) return decode_sgi(file);
+  if (spider_header(file)) return decode_spider(file);  // PIL's header test, no magic
+  if (n >= 4 && be32(p) == 0x59A66A95u) return decode_sun(file);
+  if (tga_header_valid(file)) return decode_tga(file);
+  if (n >= 16 && starts("RIFF", 4) && !std::memcmp(p + 8, "WEBP", 4) &&
+      (!std::memcmp(p + 12, "VP8 ", 4) || !std::memcmp(p + 12, "VP8L", 4) ||
+       !std::memcmp(p + 12, "VP8X", 4)))
+    return decode_webp(file);
+  if (starts("\xd7\xcd\xc6\x9a\0\0", 6) || starts("\1\0\0\0", 4)) return refuse("WMF");
+  size_t lead = 0;
+  while (lead < n && std::strchr(" \t\n\r\v\f", p[lead]) && p[lead]) ++lead;
+  if (n - lead >= 7 && !std::memcmp(p + lead, "#define", 7)) return decode_xbm(file);
+  if (starts("/* XPM */", 9)) return decode_xpm(file);
+  if (starts("P7 332", 6)) return refuse("XV thumbnail");
+  throw Error("not an image file PIL identifies (JPEG, PNG, BMP, CUR, PCX, DDS, ICO, TIFF, "
+              "GIF, IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM and "
+              "XPM are read)");
 }
 
 // ===========================================================================
@@ -1809,6 +2000,14 @@ uint8_t* to_malloc(const std::vector<uint8_t>& v) {
 }
 
 }  // namespace
+
+namespace pslx {
+Image decode_jpeg(const std::vector<uint8_t>& file, int color) {
+  return decode_jpeg_impl(file, color);
+}
+Image decode_bmp_image(const std::vector<uint8_t>& file) { return decode_bmp(file); }
+Image decode_png_image(const std::vector<uint8_t>& file) { return decode_png(file); }
+}  // namespace pslx
 
 extern "C" {
 

@@ -4,7 +4,8 @@ Port of srrg2_proslam_tpu/io/datasets.py, needing neither PIL nor the JAX
 package.  An image decodes as the JAX package decodes it: through the
 native library (io/native.py, the repo's C++ decoder built at first use)
 when that reads the file, else through the port's second image library
-(io/images.py: JPEG, PNG, BMP, TIFF, GIF, PNM and PFM in PIL's modes),
+(io/images.py: JPEG, PNG, BMP, TIFF, GIF, PNM, PFM and PIL's other
+raster formats in PIL's modes),
 which stands where the JAX package calls PIL and gives PIL's result; a
 file neither reads raises.  The readers of dataset folders take their
 files through the native prefetcher and decode the files it refuses on
@@ -15,8 +16,8 @@ non-interlaced with all five scanline filters, binary P5 PGM with 8- or
 0.299 R + 0.587 G + 0.114 B in float64, then float32; on the other, as
 PIL's integer luma.  ``save_gray`` writes 8-bit PNG (zlib), PGM (also
 under .pbm / .ppm / .pnm / .pfm, as PIL writes mode L there), baseline
-JPEG (quality 75), 8-bit BMP, uncompressed TIFF or GIF by the file's
-extension, byte for byte as PIL does but for PNG.
+JPEG (quality 75), 8-bit BMP, uncompressed TIFF, GIF, TGA, SGI, PCX, DDS
+or IM by the file's extension, byte for byte as PIL does but for PNG.
 
 Layouts: the bundled test data (``test_data/kitti/*``, ``test_data/icl``);
 KITTI odometry (``image_0/ image_1/ times.txt``); TUM RGB-D (``rgb.txt
@@ -160,8 +161,10 @@ def _read(path: str):
     return images.decode(path) if arr is None else arr
 
 
-def _gray(item) -> np.ndarray:
-    return images.gray_f32(item) if isinstance(item, images.Decoded) else native.to_gray_f32(item)
+def _gray(item, path: str = "") -> np.ndarray:
+    if isinstance(item, images.Decoded):
+        return images.gray_f32(item, path)
+    return native.to_gray_f32(item)
 
 
 def _depth(item) -> np.ndarray:
@@ -173,7 +176,7 @@ def _depth(item) -> np.ndarray:
 
 def load_gray(path: str) -> np.ndarray:
     """Image -> float32 gray [H, W] in 0..255 (16-bit samples / 256)."""
-    return _gray(_read(path))
+    return _gray(_read(path), path)
 
 
 def load_depth(path: str) -> np.ndarray:
@@ -191,8 +194,10 @@ def save_gray(path: str, image) -> None:
     """Write a gray [H, W] image (0..255, clipped, truncated to uint8) in the
     format the extension names: 8-bit PNG, binary PGM (.pgm, and .pbm /
     .ppm / .pnm / .pfm, where PIL writes mode L as P5 too), baseline JPEG
-    (quality 75), 8-bit BMP, uncompressed TIFF or GIF, each as PIL writes
-    it; ValueError otherwise."""
+    (quality 75), 8-bit BMP, uncompressed TIFF, GIF, TGA (.tga .icb .vda
+    .vst), SGI (.sgi .rgb .rgba .bw), PCX, DDS or IM, each as PIL writes
+    it; ValueError otherwise (PIL writes no mode-L file for .qoi, .msp,
+    .xbm, .blp or .psd; its ICO frames are PNGs of its own zlib)."""
     arr = np.clip(np.asarray(image), 0, 255).astype(np.uint8)
     rows, cols = arr.shape
     ext = os.path.splitext(path)[1].lower()
@@ -213,10 +218,21 @@ def save_gray(path: str, image) -> None:
         blob = images.encode_tiff_gray(arr)
     elif ext == ".gif":
         blob = images.encode_gif_gray(arr)
+    elif ext in (".tga", ".icb", ".vda", ".vst"):
+        blob = images.encode_tga_gray(arr)
+    elif ext in (".bw", ".rgb", ".rgba", ".sgi"):
+        blob = images.encode_sgi_gray(arr, path)
+    elif ext == ".pcx":
+        blob = images.encode_pcx_gray(arr)
+    elif ext == ".dds":
+        blob = images.encode_dds_gray(arr)
+    elif ext == ".im":
+        blob = images.encode_im_gray(arr, path)
     else:
         raise ValueError(f"save_gray: no writer for {ext or 'a name without extension'!r} "
                          f"({path}); use .png, .pgm, .pbm, .ppm, .pnm, .pfm, .jpg, .jpeg, "
-                         ".bmp, .tif, .tiff or .gif")
+                         ".bmp, .tif, .tiff, .gif, .tga, .icb, .vda, .vst, .sgi, .rgb, .rgba, "
+                         ".bw, .pcx, .dds or .im")
     with open(path, "wb") as f:
         f.write(blob)
 

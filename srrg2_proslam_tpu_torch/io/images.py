@@ -1,27 +1,32 @@
 """The port's second image library: the files the native decoder refuses,
 read as the JAX package reads them through PIL.
 
-``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp`` and
-``csrc/image_gif_pnm.cpp`` decode, bit for bit as PIL 12 with
-libjpeg-turbo and libtiff does:
-- JPEG: baseline, progressive and lossless (SOF3) Huffman, sequential and
-  progressive arithmetic coding; gray, YCbCr at any integral sampling
-  (4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0), RGB, CMYK and YCCK; restart
-  intervals;
-- PNG of every colour type, bit depth and interlace (palette, 1/2/4-bit,
-  Adam7);
+``csrc/image_*.cpp`` decode, bit for bit as PIL 12 (with libjpeg-turbo
+3.1, libtiff 4.7 and libwebp) does, the files PIL identifies as:
+- JPEG: baseline, progressive (block-smoothed as libjpeg's jdcoefct.c
+  does where the first AC coefficients are incomplete) and lossless (SOF3)
+  Huffman, sequential and progressive arithmetic coding; gray, YCbCr at
+  any integral sampling, RGB, CMYK and YCCK; restart intervals;
+- PNG of every colour type, bit depth and interlace;
 - BMP: 1/4/8-bit palette files raw or RLE, 16/24/32-bit raw or with PIL's
   bit-field layouts, OS/2 headers;
-- TIFF: strips or tiles, planar configuration 1 (2 at 8 bits), no
-  compression, PackBits, LZW or Deflate, predictors 2 and 3; bilevel,
-  2/4/8-bit gray, 16-bit, signed 16/32-bit, float32, gray + alpha, RGB(A)
-  at 8/16 bits, palette, CMYK;
-- GIF (the first frame) and PNM: P1-P6 and Pf (PFM).
-It writes baseline gray JPEG (quality 75) and PIL's GIF for mode L byte for
-byte as PIL does; ``encode_tiff_gray`` and ``encode_bmp_gray`` give PIL's
-TIFF and BMP bytes in Python.  The library is compiled with g++ at first
-use into the git-ignored ``srrg2_proslam_tpu_torch/build/`` as
-``io/native.py`` compiles the repo's decoder; a failed build raises with
+- TIFF and BigTIFF (little-endian): strips or tiles, planar configuration
+  1 or 2, no compression, PackBits, LZW (old-style too), Deflate, CCITT
+  RLE / Group 3 / Group 4, JPEG; predictors 2 and 3; fill order 2;
+  orientation 2-8; bilevel, 2/4/8/12/16-bit gray, signed 16/32-bit,
+  float32, gray + alpha, RGB(A) at 8/16 bits, palette, CMYK, LAB, YCbCr
+  (libtiff's conversion);
+- GIF (the first frame), PNM (P1-P6, Pf), TGA, SGI, PCX, DDS (uncompressed,
+  BC1-BC5, BC7), PSD (the composite), ICO / CUR, QOI, IM, SPIDER, Sun
+  raster, MSP, XBM, XPM and lossless WebP;
+in PIL's order of trying its plugins (``decode_any``; a file of a format
+PIL reads and the port does not raises naming the format).  It writes
+baseline gray JPEG (quality 75) and PIL's GIF for mode L byte for byte as
+PIL does; ``encode_tiff_gray``, ``encode_bmp_gray``, ``encode_tga_gray``,
+``encode_sgi_gray``, ``encode_pcx_gray``, ``encode_dds_gray`` and
+``encode_im_gray`` give PIL's bytes in Python.  The library is compiled
+with g++ at first use into the git-ignored ``srrg2_proslam_tpu_torch/build/``
+as ``io/native.py`` compiles the repo's decoder; a failed build raises with
 the compiler's output.  ``images_plain.decode`` is the plain Python twin it
 is held to.
 
@@ -31,8 +36,9 @@ JAX package's rule for files that take its PIL branch
 I and I;16 as they are (16-bit and 32-bit integers / 256), every other
 mode through PIL's ``convert("L")`` (integer luma for colour and palette
 entries, 0/255 for mode 1, I;16B clipped at 255, F clipped and truncated,
-CMYK through RGB); depth is the first channel of the samples as PIL holds
-them (palette indices, 0/1, R of RGB, C of CMYK, float values of F).
+CMYK through RGB, LAB refused as PIL refuses it); depth is the first
+channel of the samples as PIL holds them (palette indices, 0/1, R of RGB,
+C of CMYK, L of LAB, float values of F).
 """
 from __future__ import annotations
 
@@ -48,11 +54,17 @@ import numpy as np
 from . import native
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = [_CSRC / name for name in ("image_extra.cpp", "image_tiff.cpp", "image_gif_pnm.cpp")]
+SOURCES = [_CSRC / name for name in ("image_extra.cpp", "image_tiff.cpp", "image_ccitt.cpp",
+                                     "image_gif_pnm.cpp", "image_tga.cpp", "image_sgi_pcx.cpp",
+                                     "image_dds.cpp", "image_psd.cpp", "image_ico.cpp",
+                                     "image_qoi.cpp", "image_im.cpp", "image_misc.cpp",
+                                     "image_webp.cpp")]
 HEADERS = [_CSRC / "image_common.h"]
-MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA", "I;16B", "I", "F", "CMYK")   # mode codes
+MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA", "I;16B", "I", "F", "CMYK",
+         "LAB")   # mode codes
 
-UNKNOWN = "not a JPEG, PNG, BMP, TIFF, GIF, PNM or PFM file"
+UNKNOWN = ("not an image file PIL identifies (JPEG, PNG, BMP, CUR, PCX, DDS, ICO, TIFF, GIF, "
+           "IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM and XPM are read)")
 
 _lib = None
 
@@ -135,10 +147,13 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
 
 
-def gray_f32(img: Decoded) -> np.ndarray:
+def gray_f32(img: Decoded, path: str = "") -> np.ndarray:
     """The JAX package's ``load_gray`` of a file PIL opens in ``img.mode``:
-    float32 [H, W] in 0..255."""
+    float32 [H, W] in 0..255; ValueError (naming ``path``) for LAB, which
+    PIL does not convert to L."""
     s = img.samples
+    if img.mode == "LAB":
+        raise ValueError(f"cannot read {path} as gray: PIL has no conversion from LAB to L")
     if img.mode in ("I;16", "I"):
         return np.ascontiguousarray((s[:, :, 0] / 256).astype(np.float32))
     if img.mode == "I;16B":       # PIL's I;16B -> L clips
@@ -186,6 +201,76 @@ def encode_gif_gray(gray: np.ndarray) -> bytes:
     """uint8 [H, W] -> the GIF PIL writes for mode L: the used gray levels as
     the colour table, interlaced from 16 x 16 up, LZW."""
     return _encode("gif", gray)
+
+
+def encode_tga_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> the TGA PIL writes for mode L: uncompressed type 3,
+    rows bottom-up, the TGA 2.0 footer."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    return (struct.pack("<BBBHHBHHHHBB", 0, 0, 3, 0, 0, 0, 0, 0, cols, rows, 8, 0)
+            + arr[::-1].tobytes() + bytes(8) + b"TRUEVISION-XFILE.\0")
+
+
+def encode_sgi_gray(gray: np.ndarray, name: str) -> bytes:
+    """uint8 [H, W] -> the SGI PIL writes for mode L to a file called
+    ``name``: the 512-byte header (the file's stem, ASCII, as the image
+    name), one byte a sample, rows bottom-up."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    stem = os.path.splitext(os.path.basename(name))[0].encode("ascii", "ignore")[:79]
+    header = struct.pack(">hBBHHHHll4s80sl404s", 474, 0, 1, 1 if rows == 1 else 2, cols, rows,
+                         1, 0, 255, b"", stem, 0, b"")
+    return header + arr[::-1].tobytes()
+
+
+def encode_pcx_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> the PCX PIL writes for mode L: version 5, 8 bits, one
+    plane, rows run-length coded as PcxEncode.c codes them (runs of up to
+    63, a single byte below 0xC0 as itself, rows padded to an even length
+    with zeros), the gray ramp as the 256-colour palette."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    stride = cols + cols % 2
+    out = bytearray(struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, cols - 1, rows - 1, 100, 100)
+                    + bytes(24) + b"\xff" * 24 + bytes([0, 1])
+                    + struct.pack("<HHHH", stride, 1, cols, rows) + bytes(54))
+    for row in arr:
+        # runs of equal bytes, each cut into pieces of at most 63
+        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        for start, end in zip(starts, np.r_[starts[1:], cols]):
+            value, n = int(row[start]), int(end - start)
+            while n > 0:
+                k = min(n, 63)
+                out += bytes([value]) if k == 1 and value < 0xC0 else bytes([0xC0 | k, value])
+                n -= k
+        out += bytes(stride - cols)
+    out += b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    return bytes(out)
+
+
+def encode_dds_gray(gray: np.ndarray) -> bytes:
+    """uint8 [H, W] -> the DDS PIL writes for mode L: the 128-byte header
+    (8-bit luminance, pitch W), the rows top-down."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    header = struct.pack("<4s7I44x4I4I5I", b"DDS ", 124, 0x100F, rows, cols, cols, 0, 0, 32,
+                         0x20000, 0, 8, 0xFF000000, 0xFF000000, 0xFF000000, 0, 0x1000, 0, 0, 0,
+                         0)
+    return header + arr.tobytes()
+
+
+def encode_im_gray(gray: np.ndarray, name: str) -> bytes:
+    """uint8 [H, W] -> the IM PIL writes for mode L to a file called
+    ``name``: the text header (image type, the file's name, size, one
+    frame) padded with NULs to 511 bytes, 0x1A, the rows bottom-up."""
+    arr = np.ascontiguousarray(gray, np.uint8)
+    rows, cols = arr.shape
+    stem, ext = os.path.splitext(os.path.basename(name))
+    header = (f"Image type: Greyscale image\r\nName: {stem[:92 - len(ext)]}{ext}\r\n"
+              f"Image size (x*y): {cols}*{rows}\r\nFile size (no of images): 1\r\n"
+              ).encode("ascii")
+    return header + bytes(511 - len(header)) + b"\x1a" + arr[::-1].tobytes()
 
 
 def encode_tiff_gray(gray: np.ndarray) -> bytes:

@@ -1,12 +1,15 @@
 """The plain Python/numpy twin of the second image library's decoders
 (``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp``,
-``csrc/image_gif_pnm.cpp``).
+``csrc/image_gif_pnm.cpp``; ``images_plain_more.py`` twins
+``csrc/image_ccitt.cpp``, ``csrc/image_tga.cpp`` and the identification).
 
 ``decode`` reads the same files as ``images.decode`` (JPEG baseline,
-progressive, lossless and arithmetic-coded; PNG of every colour type, bit
-depth and interlace; BMP raw, RLE and bit-field; TIFF strips and tiles
-with PackBits, LZW or Deflate and predictors 2 / 3; GIF; PNM P1-P6 and
-PFM), refuses the same ones and returns the same ``Decoded`` samples:
+progressive (block-smoothed when incomplete), lossless and
+arithmetic-coded; PNG of every colour type, bit depth and interlace; BMP
+raw, RLE and bit-field; TIFF and BigTIFF strips and tiles with PackBits,
+LZW (old-style too), Deflate, CCITT or JPEG, predictors 2 / 3, YCbCr,
+either fill order and any orientation; GIF; PNM P1-P6 and PFM; TGA),
+refuses the same ones and returns the same ``Decoded`` samples:
 entropy decoding and LZW in Python, libjpeg-turbo's integer IDCT, fancy
 upsampling and fixed-point YCbCr -> RGB vectorised in int64 numpy.  The
 tests and ``chip_smoke.py`` hold the library to it; nothing on the
@@ -21,28 +24,26 @@ import zlib
 import numpy as np
 
 from .datasets import _PNG_SIGNATURE, _unfilter
-from .images import UNKNOWN, Decoded
+from . import images_plain_more as more
+from .images_plain_more import MAX_PIXELS
+from .images import Decoded
 
 
 def decode(path: str) -> Decoded:
-    """A JPEG, PNG, BMP, TIFF, GIF or PNM / PFM file -> its samples in PIL's
-    mode; ValueError naming the file and the reason otherwise."""
+    """An image file PIL identifies as JPEG, PNG, BMP, TIFF, GIF, PNM / PFM
+    or TGA -> its samples in PIL's mode; ValueError naming the file and the
+    reason otherwise."""
     with open(path, "rb") as f:
         blob = f.read()
+    decoders = {"JPEG": lambda b: _Jpeg(b).decode(), "PNG": _decode_png, "BMP": _decode_bmp,
+                "TIFF": _decode_tiff, "GIF": _decode_gif, "PPM": _decode_pnm,
+                "TGA": more.decode_tga, "SGI": more.decode_sgi, "PCX": more.decode_pcx,
+                "DDS": more.decode_dds, "PSD": more.decode_psd, "ICO": more.decode_ico,
+                "CUR": more.decode_cur, "QOI": more.decode_qoi, "IM": more.decode_im,
+                "SUN": more.decode_sun, "MSP": more.decode_msp, "XBM": more.decode_xbm,
+                "XPM": more.decode_xpm, "SPIDER": more.decode_spider, "WebP": more.decode_webp}
     try:
-        if blob[:3] == b"\xff\xd8\xff":
-            return _Jpeg(blob).decode()
-        if blob[:8] == _PNG_SIGNATURE:
-            return _decode_png(blob)
-        if blob[:2] == b"BM":
-            return _decode_bmp(blob)
-        if blob[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
-            return _decode_tiff(blob)
-        if blob[:4] == b"GIF8" and len(blob) >= 6:
-            return _decode_gif(blob)
-        if len(blob) >= 2 and blob[0] == ord("P") and blob[1] in b"0123456fy":
-            return _decode_pnm(blob)
-        raise ValueError(UNKNOWN)
+        return decoders[more.identify(blob)](blob)
     except (ValueError, IndexError, struct.error, zlib.error) as e:
         raise ValueError(f"cannot read {path}: {e}") from None
 
@@ -59,7 +60,6 @@ def _zigzag() -> list:
 
 
 NATURAL = _zigzag()   # zigzag index -> natural index, 16 guard entries of 63
-MAX_PIXELS = 178956970   # PIL raises DecompressionBombError above twice MAX_IMAGE_PIXELS
 
 
 def _huffman_lut(bits, vals) -> list:
@@ -232,6 +232,7 @@ class _Jpeg:
         self.jfif = self.adobe = False
         self.adobe_transform = -1
         self.restart_interval = 0
+        self.color = "marked"   # or "ycc" / "none": libtiff's JPEGCOLORMODE_RGB / JCS_UNKNOWN
 
     # ---- markers ----
     def read_frame(self, p: bytes, marker: int):
@@ -704,20 +705,83 @@ class _Jpeg:
             pos += n
         if not self.frame:
             raise ValueError("JPEG: no frame")
-        if self.progressive:
-            dc_known = all(c.coef_bits[0] >= 0 for c in self.comps)
-            ac_missing = any(b != 0 for c in self.comps for b in c.coef_bits[1:10])
-            if dc_known and ac_missing:
-                raise ValueError("JPEG: a progressive file whose first AC coefficients are "
-                                 "incomplete (block smoothing) is not supported")
-
     # ---- samples ----
-    def plane(self, c) -> np.ndarray:
+    def smoothing_ok(self) -> bool:
+        """jdcoefct.c smoothing_ok (see ``smooth``)."""
+        if not self.progressive:
+            return False
+        for c in self.comps:
+            if c.qt is None or any(c.qt[k] == 0 for k in _SMOOTH_POS) or c.coef_bits[0] < 0:
+                return False
+        return any(b != 0 for c in self.comps for b in c.coef_bits[1:10])
+
+    def smooth(self, c, blocks: np.ndarray) -> None:
+        """jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1) on ``blocks``
+        [bh, bw, 64] in place: each image block's missing low-frequency AC
+        coefficients (and with no AC bit known, its DC) estimated from the DC
+        values of the 5 x 5 blocks around it."""
+        hib, wib = c.hib, c.wib
+        rows = _smooth_rows(hib, c.v, self.mcuy)
+        cols = np.clip(np.arange(wib)[:, None] + np.arange(-2, 3)[None, :], 0, wib - 1)
+        dc = blocks[:, :, 0]
+        d = dc[rows[:, None, :, None], cols[None, :, None, :]].reshape(hib, wib, 25)
+        DC = [None] + [d[..., i] for i in range(25)]   # DC[1]..DC[25], libjpeg's names
+        cb = c.coef_bits
+        change_dc = all(b == -1 for b in cb[1:10])
+        q = c.qt
+        ws = blocks[:hib, :wib].copy()
+
+        def estimate(num, qk, al, limit=True):
+            mag = np.where(num >= 0, (qk * 128 + num) // (qk * 256), (qk * 128 - num) // (qk * 256))
+            if limit and al > 0:
+                mag = np.minimum(mag, (1 << al) - 1)
+            return np.where(num >= 0, mag, -mag)
+
+        def put(k, pos, terms):
+            al = cb[k]
+            if al == 0:
+                return
+            num = q[0] * sum(w * DC[i] for w, i in terms)
+            ws[..., pos] = np.where(ws[..., pos] == 0, estimate(num, q[pos], al), ws[..., pos])
+
+        if change_dc:
+            put(1, 1, [(-1, 1), (-1, 2), (1, 4), (1, 5), (-3, 6), (13, 7), (-13, 9), (3, 10),
+                       (-3, 11), (38, 12), (-38, 14), (3, 15), (-3, 16), (13, 17), (-13, 19),
+                       (3, 20), (-1, 21), (-1, 22), (1, 24), (1, 25)])
+            put(2, 8, [(-1, 1), (-3, 2), (-3, 3), (-3, 4), (-1, 5), (-1, 6), (13, 7), (38, 8),
+                       (13, 9), (-1, 10), (1, 16), (-13, 17), (-38, 18), (-13, 19), (1, 20),
+                       (1, 21), (3, 22), (3, 23), (3, 24), (1, 25)])
+            put(3, 16, [(1, 3), (2, 7), (7, 8), (2, 9), (-5, 12), (-14, 13), (-5, 14), (2, 17),
+                        (7, 18), (2, 19), (1, 23)])
+            put(4, 9, [(-1, 1), (1, 5), (9, 7), (-9, 9), (-9, 17), (9, 19), (1, 21), (-1, 25)])
+            put(5, 2, [(2, 7), (-5, 8), (2, 9), (1, 11), (7, 12), (-14, 13), (7, 14), (1, 15),
+                       (2, 17), (-5, 18), (2, 19)])
+            put(6, 3, [(1, 7), (-1, 9), (2, 12), (-2, 14), (1, 17), (-1, 19)])
+            put(7, 10, [(1, 7), (-3, 8), (1, 9), (-1, 17), (3, 18), (-1, 19)])
+            put(8, 17, [(1, 7), (-1, 9), (-3, 12), (3, 14), (1, 17), (-1, 19)])
+            put(9, 24, [(1, 7), (2, 8), (1, 9), (-1, 17), (-2, 18), (-1, 19)])
+            num = q[0] * sum(w * DC[i] for w, i in zip(
+                (-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6,
+                 -2, -6, -8, -6, -2), range(1, 26)))
+            ws[..., 0] = estimate(num, q[0], 0, limit=False)
+        else:
+            put(1, 1, [(-7, 11), (50, 12), (-50, 14), (7, 15)])
+            put(2, 8, [(-7, 3), (50, 8), (-50, 18), (7, 23)])
+            put(3, 16, [(-1, 3), (13, 8), (-24, 13), (13, 18), (-1, 23)])
+            put(4, 9, [(1, 10), (1, 16), (-10, 17), (10, 19), (-1, 2), (-1, 20), (1, 22),
+                       (-1, 24), (1, 4), (-1, 6), (10, 7), (-10, 9)])
+            put(5, 2, [(-1, 11), (13, 12), (-24, 13), (13, 14), (-1, 15)])
+        blocks[:hib, :wib] = ws
+
+    def plane(self, c, smooth: bool = False) -> np.ndarray:
         if c.qt is None:
             raise ValueError("JPEG: a component is in no scan")
         if self.lossless:
             return (c.undiff << c.point_transform) & 0xFF
-        blocks = np.array(c.coef, np.int64).reshape(c.bh, c.bw, 8, 8)
+        blocks = np.array(c.coef, np.int64).reshape(c.bh, c.bw, 64)
+        if smooth:
+            self.smooth(c, blocks)
+        blocks = blocks.reshape(c.bh, c.bw, 8, 8)
         x = blocks * np.array(c.qt, np.int64).reshape(8, 8)
         ws = _idct_1d(x.swapaxes(-1, -2), 11).swapaxes(-1, -2)   # columns
         out = _range_limit()[_idct_1d(ws, 18) & 1023]            # rows
@@ -751,7 +815,8 @@ class _Jpeg:
         if self.f[:2] != b"\xff\xd8":
             raise ValueError("not a JPEG file")
         self.parse()
-        planes = [(self.plane(c) if self.lossless else self.upsample(self.plane(c), c))
+        smooth = self.smoothing_ok()
+        planes = [(self.plane(c) if self.lossless else self.upsample(self.plane(c, smooth), c))
                   .astype(np.int64) for c in self.comps]
         if len(planes) == 1:
             return Decoded(planes[0].astype(np.uint8)[:, :, None], "L")
@@ -765,7 +830,9 @@ class _Jpeg:
                 cmy = 255 - np.stack(planes[:3], -1)
             return Decoded(np.concatenate([cmy, k[..., None]], -1).astype(np.uint8), "CMYK")
         ids = [c.id for c in self.comps]
-        if self.jfif:
+        if self.color != "marked":
+            ycc = self.color == "ycc"
+        elif self.jfif:
             ycc = True
         elif self.adobe:
             ycc = self.adobe_transform != 0
@@ -776,6 +843,26 @@ class _Jpeg:
         if self.lossless:         # libjpeg-turbo converts no colours in a lossless file
             raise ValueError("JPEG: a lossless YCbCr file is not supported")
         return Decoded(_ycc_to_rgb(*planes).astype(np.uint8), "RGB")
+
+
+_SMOOTH_POS = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)   # DC and the first nine AC, natural order
+
+
+def _smooth_rows(hib: int, v: int, mcuy: int) -> np.ndarray:
+    """[hib, 5]: the block rows libjpeg's smoothing reads two above to two
+    below each image block row.  It numbers the rows by each iMCU row's
+    block count, so a short last iMCU row sees fewer rows above and the
+    rows before it may reach into the padding rows below the image."""
+    out = []
+    for row in range(hib):
+        imcu, br = divmod(row, v)
+        n = v if imcu < mcuy - 1 else (hib % v or v)
+        at, count = imcu * n + br, n * mcuy
+        prev = row - 1 if at > 0 else row
+        nxt = row + 1 if at < count - 1 else row
+        out.append([row - 2 if at > 1 else prev, prev, row, nxt,
+                    row + 2 if at < count - 2 else nxt])
+    return np.array(out)
 
 
 def _ycc_to_rgb(yy, cb, cr) -> np.ndarray:
@@ -1047,55 +1134,85 @@ def _decode_bmp(blob: bytes) -> Decoded:
 # ---- TIFF --------------------------------------------------------------------
 
 _TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("B", 1), 7: ("B", 1), 8: ("H", 2),
-               9: ("I", 4), 2: (None, 1), 5: (None, 8), 10: (None, 8), 11: (None, 4),
-               12: (None, 8), 16: (None, 8)}
-_TIFF_COMPRESSIONS = (1, 5, 8, 32946, 32773)
+               9: ("I", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("Q", 8), 18: ("Q", 8),
+               2: (None, 1), 5: (None, 8), 10: (None, 8), 11: (None, 4), 12: (None, 8)}
+_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773)
 
 
 def _tiff_tags(blob: bytes):
+    """-> (byte order, BigTIFF, {tag: (type, count, position of the values)})."""
     if blob[:2] not in (b"II", b"MM"):
         raise ValueError("not a TIFF file")
     e = ">" if blob[:2] == b"MM" else "<"
-    magic = struct.unpack(e + "H", blob[2:4])[0]
-    if magic == 43:
-        raise ValueError("TIFF: BigTIFF is not supported")
-    if magic != 42:
-        raise ValueError("not a TIFF file")
     if len(blob) < 8:
         raise ValueError("TIFF: truncated header")
-    ifd = struct.unpack(e + "I", blob[4:8])[0]
-    if ifd + 2 > len(blob):
+    magic = struct.unpack(e + "H", blob[2:4])[0]
+    if magic not in (42, 43):
+        raise ValueError("not a TIFF file")
+    big = magic == 43     # BigTIFF: 8-byte offsets and counts, 20-byte entries
+    if big and e == ">":  # PIL tells BigTIFF by the third byte: "MM\0+" fails there
+        raise ValueError("BigTIFF: a big-endian BigTIFF is not supported (PIL reads none)")
+    if big and struct.unpack(e + "HH", blob[4:8]) != (8, 0):
+        raise ValueError("BigTIFF: bad header")
+    ifd = struct.unpack(e + "Q", blob[8:16])[0] if big else struct.unpack(e + "I", blob[4:8])[0]
+    first, entry, inline = (ifd + 8, 20, 8) if big else (ifd + 2, 12, 4)
+    if first > len(blob):
+        raise ValueError("TIFF: truncated file")
+    n = struct.unpack(e + ("Q" if big else "H"), blob[ifd:first])[0]
+    if n > len(blob) // entry:
         raise ValueError("TIFF: truncated file")
     tags = {}
-    for i in range(struct.unpack(e + "H", blob[ifd:ifd + 2])[0]):
-        at = ifd + 2 + 12 * i
-        if at + 12 > len(blob):
+    for i in range(n):
+        at = first + entry * i
+        if at + entry > len(blob):
             raise ValueError("TIFF: truncated file")
-        tag, kind, count = struct.unpack(e + "HHI", blob[at:at + 8])
+        tag, kind = struct.unpack(e + "HH", blob[at:at + 4])
+        count = struct.unpack(e + ("Q" if big else "I"), blob[at + 4:at + 4 + inline])[0]
         if kind not in _TIFF_TYPES:
             continue
-        code, size = _TIFF_TYPES[kind]
-        nbytes = size * count
-        pos = at + 8 if nbytes <= 4 else struct.unpack(e + "I", blob[at + 8:at + 12])[0]
+        if count > len(blob):
+            raise ValueError("TIFF: truncated file")
+        nbytes = _TIFF_TYPES[kind][1] * count
+        value_at = at + 4 + inline
+        pos = value_at if nbytes <= inline else struct.unpack(
+            e + ("Q" if big else "I"), blob[value_at:value_at + inline])[0]
         if pos + nbytes > len(blob):
             raise ValueError("TIFF: truncated file")
-        if tag in tags:
-            continue
-        if code is None:
-            tags[tag] = None          # a non-integer value: only an error if it is read
-        else:
-            tags[tag] = list(struct.unpack(f"{e}{count}{code}", blob[pos:pos + nbytes]))
-    return e, tags
+        if tag not in tags:
+            tags[tag] = (kind, count, pos)
+    return e, big, tags
 
 
-def _tiff_layout(photo, sf, bps, extra, big):
+def _tiff_floats(blob: bytes, e: str, field) -> list:
+    """A RATIONAL / FLOAT / SHORT / LONG tag as the float32 values libtiff
+    stores for its float tags."""
+    kind, count, pos = field
+    if kind == 5:
+        pairs = struct.unpack(f"{e}{2 * count}I", blob[pos:pos + 8 * count])
+        return [np.float32(0.0) if a == 0 or b == 0 else np.float32(a / b)
+                for a, b in zip(pairs[::2], pairs[1::2])]
+    if kind == 11:
+        return list(np.frombuffer(blob[pos:pos + 4 * count], e + "f4").astype(np.float32))
+    if kind in (3, 4):
+        code = "H" if kind == 3 else "I"
+        return [np.float32(v) for v in struct.unpack(f"{e}{count}{code}",
+                                                      blob[pos:pos + _TIFF_TYPES[kind][1] * count])]
+    raise ValueError("TIFF: a float tag has an unexpected type")
+
+
+def _tiff_layout(photo, sf, bps, extra, big, fill2=False, planar2=False):
     """PIL's OPEN_INFO entry -> (kind, mode, invert, swapped when compressed,
-    alpha)."""
+    alpha); ``fill2`` asks for the layouts PIL has a fill-order-2 entry for."""
     n, b = len(bps), bps[0]
     what = (f"TIFF: photometric {photo}, sample format {sf}, {','.join(map(str, bps))}-bit "
-            f"samples" + (f", extra samples {','.join(map(str, extra))}" if extra else ""))
+            f"samples" + (f", extra samples {','.join(map(str, extra))}" if extra else "")
+            + (", planar configuration 2" if planar2 else "") + (", fill order 2" if fill2 else ""))
     refuse = ValueError(what + " is not supported")
     if any(v != b for v in bps):
+        raise refuse
+    if fill2 and not (sf == 1 and not extra and (
+            photo in (0, 1, 3) and n == 1 and b in (1, 2, 4, 8)
+            or photo == 1 and n == 1 and b == 16 and not big or photo == 2 and n == 3 and b == 8)):
         raise refuse
     if photo in (0, 1) and n == 1 and not extra:
         inv = photo == 0
@@ -1103,6 +1220,8 @@ def _tiff_layout(photo, sf, bps, extra, big):
             return "bilevel", "1", inv, False, 0
         if sf == 1 and b in (2, 4) or b == 8 and (sf == 1 or (sf == 2 and not inv)):
             return "gray", "L", inv, False, 0
+        if sf == 1 and b == 12 and not inv and not big:
+            return "u16", "I;16", False, False, 0
         if sf == 1 and b == 16 and not (big and inv):
             return "u16", "I;16B" if big else "I;16", False, False, 0
         if sf == 2 and b == 16 and not inv:
@@ -1128,38 +1247,49 @@ def _tiff_layout(photo, sf, bps, extra, big):
     if (photo == 5 and sf == 1 and n == 4 + len(extra) and not any(extra)
             and (b == 8 and len(extra) <= 2 or b == 16 and not extra)):
         return "cmyk", "CMYK", False, False, 0
+    if photo == 8 and sf == 1 and n == 3 and b == 8 and not extra:
+        return "lab", "LAB", False, False, 0
     raise refuse
 
 
 def _unlzw_tiff(data: bytes, want: int) -> bytes:
     """libtiff's LZWDecode: MSB-first codes of 9 to 12 bits, the width
-    growing one code early; 256 clears the table, 257 ends the strip."""
-    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
-        raise ValueError("TIFF: old-style LZW is not supported")
+    growing one code early; 256 clears the table, 257 ends the strip.  A
+    strip starting 0x00 then a byte with its low bit set is old-style LZW
+    (LZWDecodeCompat): LSB-first codes, the width growing when the table
+    reaches it."""
+    compat = len(data) >= 2 and data[0] == 0 and data[1] & 1
+    early = 0 if compat else 1
     table = [bytes([i]) for i in range(256)] + [b"", b""]
     out = bytearray()
     total, pos, width, old = len(data) * 8, 0, 9, None
     data = data + bytes(4)
+
+    def code_at(p, k):
+        i = p >> 3
+        if compat:
+            return (int.from_bytes(data[i:i + 3], "little") >> (p & 7)) & ((1 << k) - 1)
+        return (int.from_bytes(data[i:i + 3], "big") >> (24 - k - (p & 7))) & ((1 << k) - 1)
+
     while len(out) < want:
         if pos + width > total:
             break
-        i = pos >> 3
-        code = ((int.from_bytes(data[i:i + 3], "big") >> (24 - width - (pos & 7)))
-                & ((1 << width) - 1))
+        code = code_at(pos, width)
         pos += width
         if code == 257:
             break
         if code == 256:
             del table[258:]
             width = 9
-            if pos + width > total:
+            while code == 256:
+                if pos + width > total:
+                    code = -1
+                    break
+                code = code_at(pos, width)
+                pos += width
+            if code in (-1, 257):
                 break
-            i = pos >> 3
-            code = (int.from_bytes(data[i:i + 3], "big") >> (24 - width - (pos & 7))) & 511
-            pos += width
-            if code == 257:
-                break
-            if code >= 256:
+            if code > 256:
                 raise ValueError("TIFF: corrupt LZW data")
             out += table[code]
             old = table[code]
@@ -1167,12 +1297,12 @@ def _unlzw_tiff(data: bytes, want: int) -> bytes:
         if old is None:
             raise ValueError("TIFF: corrupt LZW data (no clear code first)")
         n_free = len(table)
-        if code > n_free or n_free >= 4096:
+        if code > n_free or n_free >= 5120:
             raise ValueError("TIFF: corrupt LZW data")
         entry = table[code] if code < n_free else old + old[:1]
         table.append(old + entry[:1])
         out += entry
-        if len(table) >= (1 << width) - 1 and width < 12:
+        if len(table) >= (1 << width) - early and width < 12:
             width += 1
         old = entry
     return bytes(out[:want])
@@ -1203,32 +1333,45 @@ def _inflate(data: bytes, want: int) -> bytes:
 
 
 def _decode_tiff(blob: bytes) -> Decoded:
-    e, tags = _tiff_tags(blob)
+    e, bigtiff, fields = _tiff_tags(blob)
+    try:
+        return _decode_tiff_fields(blob, e, fields)
+    except ValueError as err:
+        if bigtiff:
+            raise ValueError(f"BigTIFF: {err}") from None
+        raise
+
+
+def _decode_tiff_fields(blob: bytes, e: str, fields) -> Decoded:
     big = e == ">"
 
     def get(tag, default=None):
-        v = tags.get(tag, default)
-        if v is None and tag in tags:
+        if tag not in fields:
+            return default
+        kind, count, pos = fields[tag]
+        code, size = _TIFF_TYPES[kind]
+        if code is None:
             raise ValueError(f"TIFF: tag {tag} has a non-integer type")
-        return v
+        return list(struct.unpack(f"{e}{count}{code}", blob[pos:pos + size * count]))
 
-    if 256 not in tags or 257 not in tags:
+    if 256 not in fields or 257 not in fields:
         raise ValueError("TIFF: missing dimensions")
     w, h = get(256)[0], get(257)[0]
-    if not w or not h or w * h > MAX_PIXELS:
+    if not w or not h or w > MAX_PIXELS or h > MAX_PIXELS or w * h > MAX_PIXELS:
         raise ValueError("TIFF: bad image size")
     compression, photo = get(259, [1])[0], get(262, [0])[0]
     fill, orientation = get(266, [1])[0], get(274, [1])[0]
     planar, predictor = get(284, [1])[0], get(317, [1])[0]
-    if 0xBC01 in tags:
+    if 0xBC01 in fields:
         raise ValueError("TIFF: Windows Media Photo is not supported")
-    if fill != 1:
-        raise ValueError(f"TIFF: fill order {fill} is not supported")
-    if orientation != 1:
-        raise ValueError(f"TIFF: orientation {orientation} is not supported")
+    ccitt, jpeg = compression in (2, 3, 4), compression == 7
+    if compression == 6:
+        raise ValueError("TIFF: compression 6 (old-style JPEG) is not supported")
     if compression not in _TIFF_COMPRESSIONS:
-        raise ValueError(f"TIFF: compression {compression} is not supported (none, PackBits, "
-                         "LZW and Deflate only)")
+        raise ValueError(f"TIFF: compression {compression} is not supported (none, CCITT, LZW, "
+                         "JPEG, Deflate and PackBits only)")
+    if fill not in (1, 2):
+        raise ValueError(f"TIFF: fill order {fill} is not supported")
     if planar not in (1, 2):
         raise ValueError("TIFF: bad planar configuration")
     sfs = get(339, [])
@@ -1244,24 +1387,56 @@ def _decode_tiff(blob: bytes) -> Decoded:
         bps = bps * spp
     if len(bps) != spp:
         raise ValueError("TIFF: unknown data organization")
-    kind, mode, inv, swapped, alpha = _tiff_layout(photo, sf, bps, extra, big)
+    ycbcr = photo == 6 and spp == 3
+    kind, mode, inv, swapped, alpha = _tiff_layout(2 if ycbcr else (1 if photo == 6 else photo),
+                                                   sf, bps, extra, big, fill == 2,
+                                                   planar == 2 and spp > 1)
+    if ycbcr and (extra or bps[0] != 8):
+        raise ValueError("TIFF: photometric 6 (YCbCr) needs three 8-bit samples")
     b, raw = bps[0], compression == 1
-    if planar == 2 and spp > 1 and b != 8:
-        raise ValueError("TIFF: planar configuration 2 is supported for 8-bit samples only")
-    if not raw and predictor == 2 and b < 8:
+    if planar == 2 and spp > 1 and b not in (8, 16):
+        raise ValueError("TIFF: planar configuration 2 is supported for 8- and 16-bit samples "
+                         "only")
+    if ccitt and not (b == 1 and spp == 1):
+        raise ValueError("TIFF: CCITT compression needs 1-bit samples")
+    if jpeg and (b != 8 or planar == 2 and spp > 1 or photo not in (0, 1, 2, 6)):
+        raise ValueError("TIFF: compression 7 (JPEG) is supported for 8-bit gray, RGB and "
+                         "YCbCr only")
+    if not raw and predictor == 2 and b not in (8, 16, 32):
         raise ValueError(f"TIFF: horizontal differencing at {b} bits is not supported")
     if not raw and predictor == 3 and not (sf == 3 and b == 32):
         raise ValueError("TIFF: the floating-point predictor needs 32-bit float samples")
     if not raw and predictor not in (1, 2, 3):
         raise ValueError(f"TIFF: predictor {predictor} is not supported")
-    tiled = 324 in tags
+    if (ccitt or jpeg) and predictor != 1:
+        raise ValueError("TIFF: a predictor with CCITT or JPEG compression is not supported")
+    if ycbcr and planar == 2:
+        raise ValueError("TIFF: YCbCr in planar configuration 2 is not supported")
+    hs = vs = 1
+    ycc = None
+    if ycbcr and not jpeg and not raw:
+        sub = get(530, [])
+        if len(sub) >= 2:
+            hs, vs = sub[0], sub[1]
+        if not (hs in (1, 2, 4) and vs in (1, 2, 4) and vs <= hs):
+            raise ValueError(f"TIFF: YCbCr subsampling {hs}x{vs} is not supported")
+        if predictor != 1:
+            raise ValueError("TIFF: a predictor with YCbCr samples is not supported")
+        ycc = more.YCbCrToRGB(*[_tiff_floats(blob, e, fields[t]) if t in fields else []
+                                for t in (529, 532)])
+    tables = b""
+    if jpeg and 347 in fields and _TIFF_TYPES[fields[347][0]][1] == 1:
+        _, count, pos = fields[347]
+        tables = blob[pos:pos + count]
+    t4 = get(293 if compression == 4 else 292, [0])[0]
+    tiled = 324 in fields
     if tiled:
         cw, ch = get(322, [0])[0], get(323, [0])[0]
-        if not cw or not ch:
+        if not cw or not ch or cw * ch > MAX_PIXELS:
             raise ValueError("TIFF: bad tile size")
         offsets, counts = get(324), get(325, [])
     else:
-        if 273 not in tags:
+        if 273 not in fields:
             raise ValueError("TIFF: no strips or tiles")
         cw, ch = w, get(278, [h])[0]
         offsets, counts = get(273), get(279, [])
@@ -1276,6 +1451,7 @@ def _decode_tiff(blob: bytes) -> Decoded:
         raise ValueError("TIFF: missing byte counts")
     rowbytes = (cw * nsamp * b + 7) // 8
     per_row = cw * nsamp
+    byte_planes = raw and planar == 2 and spp > 1 and b == 16   # PIL's 8-bit band unpacker
     vals = np.zeros((h, w, spp), np.uint32)
     for pl in range(planes):
         for ci in range(per_plane):
@@ -1283,26 +1459,62 @@ def _decode_tiff(blob: bytes) -> Decoded:
             rows = ch if tiled else min(ch, h - y0)
             want = rows * rowbytes
             off = offsets[pl * per_plane + ci]
+            order = e
             if raw:
-                rows = min(rows, h - y0)
-                data = blob[off:off + rows * rowbytes]
-                if off > len(blob) or len(data) < rows * rowbytes:
-                    raise ValueError("TIFF: truncated image data")
-                order = e
+                rows, cols = min(rows, h - y0), min(cw, w - x0)
+                stride = rowbytes
+                if ycbcr:       # PIL's raw "RGBX": four bytes a pixel
+                    stride = cw * 4 if x0 + cw > w else cols * 4
+                elif byte_planes:
+                    stride = cw * 2 if x0 + cw > w else cols
+                data = blob[off:off + rows * stride]
+                if off > len(blob) or len(data) < rows * stride:
+                    raise ValueError("TIFF: photometric 6 (YCbCr) uncompressed: PIL reads it as "
+                                     "RGBX and the file is truncated" if ycbcr
+                                     else "TIFF: truncated image data")
+                if fill == 2:
+                    data = data.translate(_REVERSED_BITS)
+                if ycbcr or byte_planes:
+                    src = np.frombuffer(data, np.uint8).reshape(rows, stride)
+                    packed = np.zeros((rows, rowbytes), np.uint8)
+                    if ycbcr:
+                        packed[:, :3 * cols] = src[:, :4 * cols].reshape(rows, cols, 4)[
+                            :, :, :3].reshape(rows, -1)
+                    else:       # big-endian 16-bit values whose high byte is the plane's byte
+                        packed[:, 0:2 * cols:2] = src[:, :cols]
+                        order = ">"
+                    data = packed.tobytes()
             else:
                 cnt = counts[pl * per_plane + ci]
                 if off > len(blob) or off + cnt > len(blob):
                     raise ValueError("TIFF: truncated image data")
                 src = blob[off:off + cnt]
+                if fill == 2:
+                    src = src.translate(_REVERSED_BITS)
+                coded = (-(-cw // hs) * -(-rows // vs) * (hs * vs + 2)) if ycc else want
                 if compression == 5:
-                    data = _unlzw_tiff(src, want)
+                    data = _unlzw_tiff(src, coded)
                 elif compression == 32773:
-                    data = _unpack_bits(src, want)
+                    data = _unpack_bits(src, coded)
+                elif ccitt:
+                    px = more.decode_ccitt(src, cw, rows, compression, t4)
+                    bits = np.zeros((rows, rowbytes * 8), np.uint8)
+                    bits[:, :cw] = px
+                    data = np.packbits(bits, axis=1).tobytes()
+                elif jpeg:
+                    part = _jpeg_chunk(tables, src, photo == 6)
+                    ph, pw, pc = part.shape
+                    if pc != spp or pw < cw or ph < min(rows, h - y0):
+                        raise ValueError("TIFF: a JPEG strip or tile does not match the image")
+                    buf = np.zeros((rows, rowbytes), np.uint8)
+                    buf[:min(rows, ph)] = part[:rows, :cw].reshape(min(rows, ph), -1)
+                    data = buf.tobytes()
                 else:
-                    data = _inflate(src, want)
-                if len(data) < want:
+                    data = _inflate(src, coded)
+                if len(data) < coded:
                     raise ValueError("TIFF: not enough image data in a strip or tile")
-                order = e
+                if ycc:
+                    data = ycc.units_to_rgb(data, cw, rows, hs, vs).tobytes()
             buf = np.frombuffer(data, np.uint8, rows * rowbytes).reshape(rows, rowbytes)
             if not raw and predictor == 3:
                 acc = buf.astype(np.uint64)
@@ -1334,14 +1546,36 @@ def _decode_tiff(blob: bytes) -> Decoded:
                 vals[y0:y0 + keep_rows, x0:x0 + keep_cols, pl] = block[..., 0]
             else:
                 vals[y0:y0 + keep_rows, x0:x0 + keep_cols] = block
+    out = _tiff_samples(vals, kind, mode, inv, alpha, b, get)
+    return more.orient(out, orientation)
+
+
+_REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _jpeg_chunk(tables: bytes, src: bytes, ycc: bool) -> np.ndarray:
+    """One JPEG strip or tile of a compression-7 TIFF -> [h, w, c] uint8:
+    the JPEGTables' segments ahead of the strip, converted from YCbCr to RGB
+    (libtiff's JPEGCOLORMODE_RGB) for photometric 6 and not at all else."""
+    if len(tables) >= 4 and src[:2] == b"\xff\xd8":
+        src = tables[:-2] + src[2:]
+    dec = _Jpeg(src)
+    dec.color = "ycc" if ycc else "none"
+    try:
+        return dec.decode().samples
+    except ValueError as err:
+        raise ValueError(f"TIFF: compression 7 (JPEG): {err}") from None
+
+
+def _tiff_samples(vals, kind, mode, inv, alpha, b, get) -> Decoded:
     v = vals.astype(np.int64)
     if kind == "bilevel":
         return Decoded((1 - v if inv else v).astype(np.uint8), "1")
     if kind == "gray":
         v = v * {2: 85, 4: 17, 8: 1}[b]
         return Decoded((255 - v if inv else v).astype(np.uint8), "L")
-    if kind == "la":
-        return Decoded(v.astype(np.uint8), "LA")
+    if kind in ("la", "lab"):
+        return Decoded(v.astype(np.uint8), mode)
     if kind == "palette":
         cmap = get(320, [])
         if not cmap or len(cmap) % 3:

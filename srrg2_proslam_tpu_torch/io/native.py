@@ -4,7 +4,8 @@ Port of srrg2_proslam_tpu/io/native.py.  The library is the repo's own C++
 (``native/src/image_decode.cpp`` and ``prefetcher.cpp``: a PNG (zlib) and
 PGM/PPM decoder and a threaded prefetcher that decodes a file list in
 order a few files ahead).  It is compiled at first use with
-``g++ -O3 -shared -fPIC ... -lz -pthread`` into the git-ignored
+``g++ -O3 -shared -fPIC ... -lz -pthread`` (a compiler process per
+source, all started together, under a file lock) into the git-ignored
 ``srrg2_proslam_tpu_torch/build/``, named by a hash of the sources and
 flags; nothing is written into ``native/``.  A failed build raises with
 the compiler's output: there is no silent fallback.  ``datasets.decode_plain``
@@ -16,10 +17,12 @@ them to PIL; ``compile_library`` builds both.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Iterator, List, Optional, Sequence
 
@@ -46,21 +49,41 @@ def compile_library(stem: str, sources: List[Path], libs: List[str],
                     headers: Sequence[Path] = ()) -> Path:
     """Compile ``sources`` into ``BUILD_DIR/<stem>_<hash>.so`` unless a
     library of the same sources, ``headers`` and flags exists; returns its
-    path.  Raises with the compiler's output on failure."""
+    path.  One process builds it under a file lock while the others wait,
+    each source by its own compiler process, all started together.  Raises
+    with the compiler's output on failure."""
     digest = hashlib.sha256()
     for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(CXX_FLAGS + libs).encode())
     so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), *map(str, sources), *libs],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {stem} failed:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)   # atomic: concurrent builds each write their own tmp
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{so.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            work = Path(tempfile.mkdtemp(prefix=f"{so.stem}.", dir=BUILD_DIR))
+            try:
+                objects = [work / f"{i}.o" for i in range(len(sources))]
+                procs = [subprocess.Popen([_cxx(), *CXX_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+                         for obj, src in zip(objects, sources)]
+                outputs = [proc.communicate()[0] for proc in procs]
+                failed = any(proc.returncode for proc in procs)
+                if not failed:
+                    link = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(work / "lib.so"),
+                                           *map(str, objects), *libs],
+                                          capture_output=True, text=True)
+                    outputs.append(link.stdout + link.stderr)
+                    failed = link.returncode != 0
+                if failed:
+                    raise RuntimeError(f"building {stem} failed:\n" + "".join(outputs))
+                os.replace(work / "lib.so", so)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
     return so
 
 

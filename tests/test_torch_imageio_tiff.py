@@ -188,21 +188,28 @@ def _patched(blob: bytes, tag: int, value: int) -> bytes:
     raise KeyError(tag)
 
 
+# Since the TIFF slice's successor reads fill order 2, orientations 2-8,
+# JPEG, YCbCr, little-endian 12-bit, LAB, 16-bit planar configuration 2 and
+# BigTIFF, these cases hold the refusals that remain under each name: a
+# fill-order-2 layout PIL has no mode for, WebP compression (libtiff here
+# has none), a compression-7 strip that is no JPEG, uncompressed YCbCr
+# (PIL reads it as RGBX and runs out of data), big-endian 12-bit, 16-bit
+# LAB, 16-bit gray + alpha in planes, a BigTIFF without dimensions.
 REFUSED = {
-    "fill-order-2": (lambda: tiff_bytes(samples(1, 1, 8), 8, 1, tags=[(266, 3, [2])]),
-                     "fill order 2"),
-    "orientation-6": (lambda: tiff_bytes(samples(1, 1, 8), 8, 1, tags=[(274, 3, [6])]),
-                      "orientation 6"),
+    "fill-order-2": (lambda: tiff_bytes(samples(15, 4, 8), 8, 2, extra=(2,),
+                                        tags=[(266, 3, [2])]), "fill order 2"),
+    "orientation-6": (lambda: _patched(tiff_bytes(samples(1, 1, 8), 8, 1, tags=[(274, 3, [6])]),
+                                       259, 50001), "compression 50001"),
     "jpeg-compression": (lambda: _patched(tiff_bytes(samples(1, 1, 8), 8, 1), 259, 7),
                          "compression 7"),
     "ycbcr": (lambda: tiff_bytes(samples(1, 3, 8), 8, 6), "photometric 6"),
-    "12-bit": (lambda: tiff_bytes(samples(1, 1, 12), 16, 1, tags=[]).replace(
-        b"\x02\x01\x03\x00\x01\x00\x00\x00\x10\x00", b"\x02\x01\x03\x00\x01\x00\x00\x00\x0c\x00"),
+    "12-bit": (lambda: tiff_bytes(samples(1, 1, 12), 16, 1, big_endian=True).replace(
+        b"\x01\x02\x00\x03\x00\x00\x00\x01\x00\x10", b"\x01\x02\x00\x03\x00\x00\x00\x01\x00\x0c"),
         "12-bit"),
     "big-endian-u32": (lambda: tiff_bytes(samples(10, 1, 32), 32, 1, big_endian=True),
                        "32-bit samples"),
-    "lab": (lambda: tiff_bytes(samples(1, 3, 8), 8, 8), "photometric 8"),
-    "planar-2-16-bit": (lambda: tiff_bytes(samples(1, 3, 16), 16, 2, planar=2),
+    "lab": (lambda: tiff_bytes(samples(1, 3, 16), 16, 8), "photometric 8"),
+    "planar-2-16-bit": (lambda: tiff_bytes(samples(1, 2, 16), 16, 1, extra=(2,), planar=2),
                         "planar configuration 2"),
     "bigtiff": (lambda: b"II+\0\x08\0\0\0" + (16).to_bytes(8, "little") + bytes(16),
                 "BigTIFF"),
@@ -215,6 +222,8 @@ def test_refused_tiff_raises_naming_the_file(tmp_path, variant):
     path = str(tmp_path / f"{variant}.tif")
     with open(path, "wb") as f:
         f.write(make())
+    with pytest.raises((OSError, SyntaxError, ValueError)):   # PIL refuses each too
+        Image.open(path).load()
     for read in (tds.load_gray, tds.load_depth, images.decode, images_plain.decode):
         with pytest.raises(ValueError, match=reason) as err:
             read(path)

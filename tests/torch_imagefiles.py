@@ -331,8 +331,8 @@ def tiff_bytes(samples: np.ndarray, bps: int, photometric: int, sample_format: i
         for plane in planes:
             for y in range(0, h, rps):
                 chunks.append(compress(_tiff_rows(plane[y:y + rps], bps, e, predictor).tobytes()))
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * n), (259, 3, [compression]),
-               (262, 3, [photometric]), (277, 3, [n]), (284, 3, [planar])]
+    entries = [(258, 3, [bps] * n), (259, 3, [compression]), (262, 3, [photometric]),
+               (277, 3, [n]), (284, 3, [planar])]
     if predictor != 1:
         entries.append((317, 3, [predictor]))
     if sample_format != 1:
@@ -341,38 +341,8 @@ def tiff_bytes(samples: np.ndarray, bps: int, photometric: int, sample_format: i
         entries.append((338, 3, list(extra)))
     if colormap is not None:
         entries.append((320, 3, list(np.asarray(colormap).reshape(-1))))
-    entries += list(tags)
-    data = bytearray(b"MM\0*" if big_endian else b"II*\0") + bytes(4)
-    offsets = []
-    for c in chunks:
-        offsets.append(len(data))
-        data += c
-        if len(data) % 2:
-            data += b"\0"
-    counts = [len(c) for c in chunks]
-    if tile:
-        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
-                    (325, 4, counts)]
-    else:
-        entries += [(273, 4, offsets), (278, 4, [rows_per_strip or h]), (279, 4, counts)]
-    entries.sort(key=lambda t: t[0])
-    ifd = len(data)
-    data[4:8] = struct.pack(e + "I", ifd)
-    body = bytearray(struct.pack(e + "H", len(entries)))
-    spill = bytearray()
-    spill_at = ifd + 2 + 12 * len(entries) + 4
-    for tag, kind, values in entries:
-        code, size = {3: ("H", 2), 4: ("I", 4)}[kind]
-        raw = struct.pack(f"{e}{len(values)}{code}", *values)
-        if len(raw) <= 4:
-            value = raw + bytes(4 - len(raw))
-        else:
-            value = struct.pack(e + "I", spill_at + len(spill))
-            spill += raw
-            if len(spill) % 2:
-                spill += b"\0"
-        body += struct.pack(e + "HHI", tag, kind, len(values)) + value
-    return bytes(data + body + bytes(4) + spill)
+    return tiff_chunks_bytes(w, h, chunks, entries + list(tags), big_endian=big_endian, tile=tile,
+                             rows_per_strip=rows_per_strip)
 
 
 # ---- GIF -----------------------------------------------------------------------
@@ -936,3 +906,134 @@ def jpeg_arith_bytes(samples: np.ndarray, factors, quality: int = 75, progressiv
     if restart_mcus:
         head += seg(0xDD, struct.pack(">H", restart_mcus))
     return head + b"".join(scans) + b"\xff\xd9"
+
+
+# ---- TIFF: old-style LZW, YCbCr data units, JPEG strips, BigTIFF ----------------
+
+def lzw_tiff_compat(data: bytes) -> bytes:
+    """Old-style TIFF LZW (libtiff's LZWDecodeCompat): LSB-first codes, 9 to
+    12 bits, the width growing when the next code reaches it, a clear code
+    first and before the table fills."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = reset()
+    put(256, width)
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            put(256, width)
+            table, nxt, width = reset()
+        elif nxt > 1 << width:
+            width += 1
+        w = bytes([byte])
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt > 1 << width and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def ycbcr_units(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> bytes:
+    """YCbCr samples -> TIFF data units: per hs x vs block its luma samples
+    (zeros past the image), then Cb and Cr; ``cb`` / ``cr`` hold one sample
+    a block."""
+    h, w = y.shape
+    out = bytearray()
+    for by in range(0, h, vs):
+        for bx in range(0, w, hs):
+            for yy in range(vs):
+                for xx in range(hs):
+                    inside = by + yy < h and bx + xx < w
+                    out.append(int(y[by + yy, bx + xx]) if inside else 0)
+            out += bytes([int(cb[by // vs, bx // hs]), int(cr[by // vs, bx // hs])])
+    return bytes(out)
+
+
+def tiff_chunks_bytes(width: int, height: int, chunks, entries, big_endian: bool = False,
+                      tile=None, rows_per_strip=None, bigtiff: bool = False) -> bytes:
+    """A one-image (Big)TIFF from already coded strips or tiles and the
+    other tags ((tag, type, values); type 3 SHORT, 4 LONG, 5 RATIONAL as
+    (numerator, denominator) pairs, 7 UNDEFINED as bytes)."""
+    e = ">" if big_endian else "<"
+    head = (b"MM\0+" if big_endian else b"II+\0") + struct.pack(e + "HH", 8, 0) if bigtiff \
+        else (b"MM\0*" if big_endian else b"II*\0")
+    data = bytearray(head) + bytes(8 if bigtiff else 4)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        if len(data) % 2:
+            data += b"\0"
+    counts = [len(c) for c in chunks]
+    entries = [(256, 4, [width]), (257, 4, [height])] + list(entries)
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
+                    (325, 4, counts)]
+    else:
+        entries += [(273, 4, offsets), (278, 4, [rows_per_strip or height]), (279, 4, counts)]
+    entries.sort(key=lambda t: t[0])
+    ifd = len(data)
+    if bigtiff:
+        data[8:16] = struct.pack(e + "Q", ifd)
+    else:
+        data[4:8] = struct.pack(e + "I", ifd)
+    inline, entry_size = (8, 20) if bigtiff else (4, 12)
+    body = bytearray(struct.pack(e + ("Q" if bigtiff else "H"), len(entries)))
+    spill = bytearray()
+    spill_at = ifd + (8 if bigtiff else 2) + entry_size * len(entries) + inline
+    for tag, kind, values in entries:
+        if kind == 7:
+            raw, count = bytes(values), len(values)
+        elif kind == 5:
+            raw, count = b"".join(struct.pack(e + "II", *v) for v in values), len(values)
+        else:
+            raw, count = struct.pack(f"{e}{len(values)}{'H' if kind == 3 else 'I'}", *values), \
+                len(values)
+        if len(raw) <= inline:
+            value = raw + bytes(inline - len(raw))
+        else:
+            value = struct.pack(e + ("Q" if bigtiff else "I"), spill_at + len(spill))
+            spill += raw
+            if len(spill) % 2:
+                spill += b"\0"
+        body += struct.pack(e + ("HHQ" if bigtiff else "HHI"), tag, kind, count) + value
+    return bytes(data + body + bytes(inline) + spill)
+
+
+def split_jpeg_tables(jpeg: bytes):
+    """A JPEG -> (JPEGTables: SOI, its DQT and DHT segments, EOI; the stream
+    without them), as libtiff's JPEG codec stores a strip."""
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while pos < len(jpeg):
+        marker = jpeg[pos + 1]
+        if marker == 0xDA:
+            rest += jpeg[pos:]
+            break
+        length = struct.unpack(">H", jpeg[pos + 2:pos + 4])[0]
+        seg = jpeg[pos:pos + 2 + length]
+        (tables if marker in (0xDB, 0xC4) else rest).extend(seg)
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
