@@ -435,6 +435,15 @@ struct JpegDecoder {
     }
   }
 
+  // jdhuff.c jpeg_make_d_derived_tbl: a DC table's symbols are bit counts
+  static void check_dc_table(const HuffTable& t, int most) {
+    int total = 0;
+    for (int l = 1; l <= 16; ++l) total += t.bits[l];
+    for (int i = 0; i < total; ++i)
+      if (t.vals[i] > most) throw Error("JPEG: bad Huffman table (a DC symbol above " +
+                                        std::to_string(most) + ")");
+  }
+
   // One scan: decode its MCUs; returns the position of the marker after it.
   size_t read_scan(const uint8_t* p, size_t len, size_t data_start) {
     if (!frame) throw Error("JPEG: SOS before SOF");
@@ -472,6 +481,7 @@ struct JpegDecoder {
       bool needs_ac = se > 0;
       if (!arith && ((needs_dc && !dc[c->dc_tbl].present) || (needs_ac && !ac[c->ac_tbl].present)))
         throw Error("JPEG: missing Huffman table");
+      if (!arith && needs_dc) check_dc_table(dc[c->dc_tbl], 15);
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
     }
 
@@ -527,6 +537,7 @@ struct JpegDecoder {
     if (restart_interval) throw Error("JPEG: restart markers in a lossless file are not supported");
     for (auto* c : sc) {
       if (!dc[c->dc_tbl].present) throw Error("JPEG: missing Huffman table");
+      check_dc_table(dc[c->dc_tbl], 16);
       c->latched = true;
       c->point_transform = pt;
     }

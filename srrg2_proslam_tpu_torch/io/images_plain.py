@@ -225,7 +225,7 @@ class _Component:
 class _Jpeg:
     def __init__(self, blob: bytes):
         self.f = blob
-        self.qtables, self.dc, self.ac = {}, {}, {}
+        self.qtables, self.dc, self.ac, self.dc_most = {}, {}, {}, {}
         self.comps, self.frame, self.progressive, self.lossless = [], False, False, False
         self.arith = False
         self.dac_l, self.dac_u, self.dac_k = [0] * 4, [1] * 4, [5] * 4
@@ -301,7 +301,14 @@ class _Jpeg:
             if total > 256 or i + 17 + total > len(p):
                 raise ValueError("JPEG: bad DHT")
             (self.ac if tc else self.dc)[th] = _huffman_lut(bits, p[i + 17:i + 17 + total])
+            if not tc:
+                self.dc_most[th] = max(p[i + 17:i + 17 + total], default=0)
             i += 17 + total
+
+    def check_dc_table(self, index: int, most: int):
+        """jdhuff.c jpeg_make_d_derived_tbl: a DC table's symbols are bit counts."""
+        if self.dc_most[index] > most:
+            raise ValueError(f"JPEG: bad Huffman table (a DC symbol above {most})")
 
     def scan_intervals(self, pos: int):
         """The scan's unstuffed restart intervals and the position of the
@@ -359,6 +366,8 @@ class _Jpeg:
             if not self.arith and ((ss == 0 and ah == 0 and c.dc_tbl not in self.dc)
                                    or (se > 0 and c.ac_tbl not in self.ac)):
                 raise ValueError("JPEG: missing Huffman table")
+            if not self.arith and ss == 0 and ah == 0:
+                self.check_dc_table(c.dc_tbl, 15)
             for k in range(ss, se + 1):
                 c.coef_bits[k] = al
         intervals, end = self.scan_intervals(data_start)
@@ -541,6 +550,7 @@ class _Jpeg:
         for c in sc:
             if c.dc_tbl not in self.dc:
                 raise ValueError("JPEG: missing Huffman table")
+            self.check_dc_table(c.dc_tbl, 16)
             c.qt, c.point_transform = [], pt
         intervals, end = self.scan_intervals(data_start)
         bits = _Bits(intervals[0][0])

@@ -442,6 +442,22 @@ def test_block_smoothed_arithmetic_progressive_reads_as_jax(tmp_path, factors):
     assert_reads_as_jax(_write(tmp_path, "a.jpg", _first_scans(blob, 1)))
 
 
+def test_jpeg_dc_table_with_a_symbol_above_15_is_refused_as_libjpeg_does(tmp_path):
+    """libjpeg's jpeg_make_d_derived_tbl refuses a DC table whose symbols
+    (bit counts) exceed 15, even one the data never uses; so does the port."""
+    blob = bytearray(_pil_bytes(Image.fromarray(smooth(16, 16, 1, 2)[:, :, 0]), "JPEG"))
+    at = blob.find(b"\xff\xc4")
+    assert blob[at + 4] >> 4 == 0                      # PIL writes the DC table first
+    blob[at + 21 + sum(blob[at + 5:at + 21]) - 1] = 16
+    path = _write(tmp_path, "dc.jpg", bytes(blob))
+    with pytest.raises(OSError):
+        Image.open(path).load()
+    for read in (tds.load_gray, images.decode, images_plain.decode):
+        with pytest.raises(ValueError, match="DC symbol above 15") as err:
+            read(path)
+        assert path in str(err.value)
+
+
 # ---- TGA -------------------------------------------------------------------------
 
 def _tga(image_type, depth, w, h, flags, data, cmap=None, map_depth=0, start=0, id_section=b""):
