@@ -118,8 +118,9 @@ Phases, any failure exits non-zero:
      (RLE) as the TIFF one (launches_tga_vo, max_abs_err_tga); the later
      fixtures (CCITT G3 / G4, JPEG and YCbCr TIFF, orientation 6, BigTIFF
      with fill order 2, a block-smoothed progressive JPEG, RLE TGA, DDS,
-     SGI, PCX, ICO, QOI, IM, XBM, MSP, lossless WebP) to the manifest; save_gray to .jpg,
-     .tif, .gif, .tga, .sgi, .pcx, .dds and .im byte for byte PIL's files;
+     SGI, PCX, ICO, QOI, IM, XBM, MSP, lossless and lossy WebP) to the
+     manifest; save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx, .dds and
+     .im byte for byte PIL's files;
      ms per decode of the 376x1241 JPEG, the 480x640 progressive one, four
      TIFF files, a KITTI TGA, a DDS and three of the later fixtures;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
@@ -1375,9 +1376,9 @@ def host_images(dev, smi, report) -> dict:
     against the CPU's); the KITTI TGA folder (RLE) as the TIFF one; the
     later fixtures (CCITT, JPEG and YCbCr TIFF, orientation 6, BigTIFF with
     fill order 2, a block-smoothed progressive JPEG, TGA, DDS, SGI, PCX,
-    ICO, QOI, IM, XBM, MSP, lossless WebP) to the manifest; save_gray to .jpg, .tif, .gif,
-    .tga, .sgi, .pcx, .dds and .im writes PIL's files; ms per decode.
-    Returns the runs' launches by path."""
+    ICO, QOI, IM, XBM, MSP, lossless and lossy WebP) to the manifest;
+    save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx, .dds and .im writes
+    PIL's files; ms per decode.  Returns the runs' launches by path."""
     import hashlib
     import shutil
 

@@ -28,7 +28,8 @@ JPEGTables, YCbCr 4:2:2 LZW TIFF with ReferenceBlackWhite, an
 orientation-6 TIFF, a BigTIFF with fill order 2, a progressive JPEG cut
 after three scans (block-smoothed on decoding) and an RLE RGB TGA; and,
 written by PIL from the same crops, a DXT1 DDS, an SGI, an RGB PCX, a PNG
-ICO, a QOI, an IM, a lossless WebP and the bilevel crop as XBM and MSP.
+ICO, a QOI, an IM, a lossless and a lossy (RGBA) WebP and the bilevel crop
+as XBM and MSP.
 ``MANIFEST.json`` holds, for each file, the SHA-256 of
 the float32 bytes of the JAX package's ``load_gray`` and ``load_depth``
 and their shape; and for ``save_gray`` of KITTI left 0 to ``.jpg``, the
@@ -173,6 +174,7 @@ def raster_families(rgb: Image.Image, kitti: Image.Image):
     small.save(os.path.join(OUT, "icl_rgb.qoi"))
     small.convert("L").save(os.path.join(OUT, "icl_gray.im"))
     small.save(os.path.join(OUT, "icl_rgb_lossless.webp"), lossless=True)
+    small.convert("RGBA").save(os.path.join(OUT, "icl_rgba_lossy.webp"), quality=80)
     bilevel = kitti.crop((400, 100, 640, 260)).convert("1")
     bilevel.save(os.path.join(OUT, "kitti_bilevel.xbm"))
     bilevel.save(os.path.join(OUT, "kitti_bilevel.msp"))
@@ -247,7 +249,8 @@ def main():
         f.write("\n")
     total = sum(os.path.getsize(os.path.join(root, n)) for root, _, names in os.walk(OUT)
                 for n in names)
-    print(f"{sum(not k.startswith('save_gray') for k in manifest)} fixtures and MANIFEST.json in {OUT}: {total} bytes")
+    count = sum(not k.startswith("save_gray") for k in manifest)
+    print(f"{count} fixtures and MANIFEST.json in {OUT}: {total} bytes")
 
 
 if __name__ == "__main__":

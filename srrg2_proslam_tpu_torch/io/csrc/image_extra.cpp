@@ -6,7 +6,7 @@
 // ``decode_any``, which tries PIL's plugins in its order (this file); TIFF
 // (image_tiff.cpp, image_ccitt.cpp), GIF and PNM / PFM (image_gif_pnm.cpp),
 // TGA, SGI / PCX, DDS, PSD, ICO / CUR, QOI, IM, the Sun raster / MSP /
-// XBM / XPM / SPIDER readers and lossless WebP (image_tga.cpp,
+// XBM / XPM / SPIDER readers and WebP (image_tga.cpp,
 // image_sgi_pcx.cpp, image_dds.cpp, image_psd.cpp, image_ico.cpp,
 // image_qoi.cpp, image_im.cpp, image_misc.cpp, image_webp.cpp); plus a
 // baseline gray JPEG writer here and PIL's GIF writer for mode L in

@@ -18,7 +18,7 @@ read as the JAX package reads them through PIL.
   (libtiff's conversion);
 - GIF (the first frame), PNM (P1-P6, Pf), TGA, SGI, PCX, DDS (uncompressed,
   BC1-BC5, BC7), PSD (the composite), ICO / CUR, QOI, IM, SPIDER, Sun
-  raster, MSP, XBM, XPM and lossless WebP;
+  raster, MSP, XBM, XPM and WebP (lossless, and lossy with its alpha);
 in PIL's order of trying its plugins (``decode_any``; a file of a format
 PIL reads and the port does not raises naming the format).  It writes
 baseline gray JPEG (quality 75) and PIL's GIF for mode L byte for byte as

@@ -1,7 +1,8 @@
 """The plain Python/numpy twin of ``csrc/image_ccitt.cpp`` (CCITT RLE,
-Group 3 and Group 4 inside TIFF), ``csrc/image_tga.cpp`` (TGA), libtiff's
-YCbCr -> RGB and orientation as ``csrc/image_tiff.cpp`` applies them, and
-the identification of ``decode_any`` (``csrc/image_extra.cpp``): PIL's
+Group 3 and Group 4 inside TIFF), the later raster readers (TGA, SGI, PCX,
+DDS, PSD, ICO / CUR, QOI, IM, SPIDER, Sun raster, MSP, XBM, XPM, WebP:
+``csrc/image_*.cpp``), libtiff's YCbCr -> RGB and orientation as
+``csrc/image_tiff.cpp`` applies them, and the identification of ``decode_any`` (``csrc/image_extra.cpp``): PIL's
 plugins in ``Image.ID`` order.  ``images_plain.decode`` uses these; the
 tests hold the library to them.
 """
@@ -1714,12 +1715,12 @@ def _predict(img: np.ndarray, sub: np.ndarray, bits: int):
 
 
 def decode_webp(blob: bytes) -> Decoded:
-    """A still lossless WebP (VP8L, alone or in a VP8X file) as PIL reads it
+    """A still WebP (VP8L or VP8, alone or in a VP8X file) as PIL reads it
     through libwebp's animation decoder: RGBA where the file says it has
     alpha, else RGB (see ``csrc/image_webp.cpp``)."""
     if len(blob) < 20 or blob[:4] != b"RIFF" or blob[8:12] != b"WEBP":
         raise ValueError("not a WebP file")
-    pos, alpha, chunk = 12, None, None
+    pos, alpha, chunk, alph = 12, None, None, None
     while pos + 8 <= len(blob):
         name, size = blob[pos:pos + 4], int.from_bytes(blob[pos + 4:pos + 8], "little")
         body = blob[pos + 8:pos + 8 + size]
@@ -1727,6 +1728,8 @@ def decode_webp(blob: bytes) -> Decoded:
             if len(body) < 10 or body[0] & 0x02:
                 raise ValueError("WebP: an animated WebP is not supported")
             alpha = bool(body[0] & 0x10)
+        elif name == b"ALPH":
+            alph = body
         elif name in (b"VP8L", b"VP8 "):
             chunk = (name, body)
             break
@@ -1734,7 +1737,13 @@ def decode_webp(blob: bytes) -> Decoded:
     if chunk is None:
         raise ValueError("WebP: no image chunk")
     if chunk[0] == b"VP8 ":
-        raise ValueError("WebP: lossy (VP8) WebP is not supported")
+        Y, U, V = _vp8_decode_vp8(chunk[1])
+        h, w = Y.shape
+        rgb = _vp8_to_rgb(Y, U, V)
+        if not alpha:
+            return Decoded(rgb, "RGB")
+        a = _vp8_decode_alpha(alph, w, h) if alph is not None else np.full((h, w), 255, np.uint8)
+        return Decoded(np.ascontiguousarray(np.concatenate([rgb, a[:, :, None]], -1)), "RGBA")
     body = chunk[1]
     if len(body) < 5 or body[0] != 0x2F:
         raise ValueError("WebP: bad lossless signature")
@@ -1753,3 +1762,1026 @@ def decode_webp(blob: bytes) -> Decoded:
     rgba = rgba.astype(np.uint8)
     return Decoded(np.ascontiguousarray(rgba if alpha else rgba[:, :, :3]),
                    "RGBA" if alpha else "RGB")
+
+
+# ---- WebP lossy (VP8 key frame, as libwebp decodes it) ------------------------------
+
+_VP8_UPDATE_T = (
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
+    250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
+    234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
+    251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,)
+
+_VP8_COEFFS0_T = (
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
+    189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
+    106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
+    1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
+    181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
+    78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
+    1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
+    184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
+    77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
+    1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
+    170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
+    37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
+    1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
+    207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
+    102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
+    1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
+    177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
+    80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
+    131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
+    68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
+    1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
+    184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
+    81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
+    1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
+    99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
+    23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
+    1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
+    109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
+    44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
+    1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
+    94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
+    22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
+    1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
+    124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
+    35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
+    1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
+    121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
+    45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
+    1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
+    203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
+    253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
+    175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
+    73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
+    1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
+    239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
+    155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
+    1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
+    201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
+    69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
+    1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
+    223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
+    141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
+    149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
+    213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
+    55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
+    126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
+    61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
+    1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
+    166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
+    39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
+    1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
+    124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
+    24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
+    1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
+    149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
+    28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
+    1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
+    123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
+    20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
+    1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
+    168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
+    47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
+    1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
+    141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
+    42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,)
+
+_VP8_BMODES_T = (
+    231, 120, 48, 89, 115, 113, 120, 152, 112,
+    152, 179, 64, 126, 170, 118, 46, 70, 95,
+    175, 69, 143, 80, 85, 82, 72, 155, 103,
+    56, 58, 10, 171, 218, 189, 17, 13, 152,
+    114, 26, 17, 163, 44, 195, 21, 10, 173,
+    121, 24, 80, 195, 26, 62, 44, 64, 85,
+    144, 71, 10, 38, 171, 213, 144, 34, 26,
+    170, 46, 55, 19, 136, 160, 33, 206, 71,
+    63, 20, 8, 114, 114, 208, 12, 9, 226,
+    81, 40, 11, 96, 182, 84, 29, 16, 36,
+    134, 183, 89, 137, 98, 101, 106, 165, 148,
+    72, 187, 100, 130, 157, 111, 32, 75, 80,
+    66, 102, 167, 99, 74, 62, 40, 234, 128,
+    41, 53, 9, 178, 241, 141, 26, 8, 107,
+    74, 43, 26, 146, 73, 166, 49, 23, 157,
+    65, 38, 105, 160, 51, 52, 31, 115, 128,
+    104, 79, 12, 27, 217, 255, 87, 17, 7,
+    87, 68, 71, 44, 114, 51, 15, 186, 23,
+    47, 41, 14, 110, 182, 183, 21, 17, 194,
+    66, 45, 25, 102, 197, 189, 23, 18, 22,
+    88, 88, 147, 150, 42, 46, 45, 196, 205,
+    43, 97, 183, 117, 85, 38, 35, 179, 61,
+    39, 53, 200, 87, 26, 21, 43, 232, 171,
+    56, 34, 51, 104, 114, 102, 29, 93, 77,
+    39, 28, 85, 171, 58, 165, 90, 98, 64,
+    34, 22, 116, 206, 23, 34, 43, 166, 73,
+    107, 54, 32, 26, 51, 1, 81, 43, 31,
+    68, 25, 106, 22, 64, 171, 36, 225, 114,
+    34, 19, 21, 102, 132, 188, 16, 76, 124,
+    62, 18, 78, 95, 85, 57, 50, 48, 51,
+    193, 101, 35, 159, 215, 111, 89, 46, 111,
+    60, 148, 31, 172, 219, 228, 21, 18, 111,
+    112, 113, 77, 85, 179, 255, 38, 120, 114,
+    40, 42, 1, 196, 245, 209, 10, 25, 109,
+    88, 43, 29, 140, 166, 213, 37, 43, 154,
+    61, 63, 30, 155, 67, 45, 68, 1, 209,
+    100, 80, 8, 43, 154, 1, 51, 26, 71,
+    142, 78, 78, 16, 255, 128, 34, 197, 171,
+    41, 40, 5, 102, 211, 183, 4, 1, 221,
+    51, 50, 17, 168, 209, 192, 23, 25, 82,
+    138, 31, 36, 171, 27, 166, 38, 44, 229,
+    67, 87, 58, 169, 82, 115, 26, 59, 179,
+    63, 59, 90, 180, 59, 166, 93, 73, 154,
+    40, 40, 21, 116, 143, 209, 34, 39, 175,
+    47, 15, 16, 183, 34, 223, 49, 45, 183,
+    46, 17, 33, 183, 6, 98, 15, 32, 183,
+    57, 46, 22, 24, 128, 1, 54, 17, 37,
+    65, 32, 73, 115, 28, 128, 23, 128, 205,
+    40, 3, 9, 115, 51, 192, 18, 6, 223,
+    87, 37, 9, 115, 59, 77, 64, 21, 47,
+    104, 55, 44, 218, 9, 54, 53, 130, 226,
+    64, 90, 70, 205, 40, 41, 23, 26, 57,
+    54, 57, 112, 184, 5, 41, 38, 166, 213,
+    30, 34, 26, 133, 152, 116, 10, 32, 134,
+    39, 19, 53, 221, 26, 114, 32, 73, 255,
+    31, 9, 65, 234, 2, 15, 1, 118, 73,
+    75, 32, 12, 51, 192, 255, 160, 43, 51,
+    88, 31, 35, 67, 102, 85, 55, 186, 85,
+    56, 21, 23, 111, 59, 205, 45, 37, 192,
+    55, 38, 70, 124, 73, 102, 1, 34, 98,
+    125, 98, 42, 88, 104, 85, 117, 175, 82,
+    95, 84, 53, 89, 128, 100, 113, 101, 45,
+    75, 79, 123, 47, 51, 128, 81, 171, 1,
+    57, 17, 5, 71, 102, 57, 53, 41, 49,
+    38, 33, 13, 121, 57, 73, 26, 1, 85,
+    41, 10, 67, 138, 77, 110, 90, 47, 114,
+    115, 21, 2, 10, 102, 255, 166, 23, 6,
+    101, 29, 16, 10, 85, 128, 101, 196, 26,
+    57, 18, 10, 102, 102, 213, 34, 20, 43,
+    117, 20, 15, 36, 163, 128, 68, 1, 26,
+    102, 61, 71, 37, 34, 53, 31, 243, 192,
+    69, 60, 71, 38, 73, 119, 28, 222, 37,
+    68, 45, 128, 34, 1, 47, 11, 245, 171,
+    62, 17, 19, 70, 146, 85, 55, 62, 70,
+    37, 43, 37, 154, 100, 163, 85, 160, 1,
+    63, 9, 92, 136, 28, 64, 32, 201, 85,
+    75, 15, 9, 9, 64, 255, 184, 119, 16,
+    86, 6, 28, 5, 64, 255, 25, 248, 1,
+    56, 8, 17, 132, 137, 255, 55, 116, 128,
+    58, 15, 20, 82, 135, 57, 26, 121, 40,
+    164, 50, 31, 137, 154, 133, 25, 35, 218,
+    51, 103, 44, 131, 131, 123, 31, 6, 158,
+    86, 40, 64, 135, 148, 224, 45, 183, 128,
+    22, 26, 17, 131, 240, 154, 14, 1, 209,
+    45, 16, 21, 91, 64, 222, 7, 1, 197,
+    56, 21, 39, 155, 60, 138, 23, 102, 213,
+    83, 12, 13, 54, 192, 255, 68, 47, 28,
+    85, 26, 85, 85, 128, 128, 32, 146, 171,
+    18, 11, 7, 63, 144, 171, 4, 4, 246,
+    35, 27, 10, 146, 174, 171, 12, 26, 128,
+    190, 80, 35, 99, 180, 80, 126, 54, 45,
+    85, 126, 47, 87, 176, 51, 41, 20, 32,
+    101, 75, 128, 139, 118, 146, 116, 128, 85,
+    56, 41, 15, 176, 236, 85, 37, 9, 62,
+    71, 30, 17, 119, 118, 255, 17, 18, 138,
+    101, 38, 60, 138, 55, 70, 43, 26, 142,
+    146, 36, 19, 30, 171, 255, 97, 27, 20,
+    138, 45, 61, 62, 219, 1, 81, 188, 64,
+    32, 41, 20, 117, 151, 142, 20, 21, 163,
+    112, 19, 12, 61, 195, 128, 48, 4, 24,)
+
+_VP8_DC = (
+    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
+    18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28,
+    29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43,
+    44, 45, 46, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
+    59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
+    75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89,
+    91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
+    122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157,)
+
+_VP8_AC = (
+    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+    16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27,
+    28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39,
+    40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
+    52, 53, 54, 55, 56, 57, 58, 60, 62, 64, 66, 68,
+    70, 72, 74, 76, 78, 80, 82, 84, 86, 88, 90, 92,
+    94, 96, 98, 100, 102, 104, 106, 108, 110, 112, 114, 116,
+    119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152,
+    155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193,
+    197, 201, 205, 209, 213, 217, 221, 225, 229, 234, 239, 245,
+    249, 254, 259, 264, 269, 274, 279, 284,)
+
+_VUPDATE = np.array(_VP8_UPDATE_T).reshape(4, 8, 3, 11)
+_VCOEFFS0 = np.array(_VP8_COEFFS0_T).reshape(4, 8, 3, 11)
+_VBMODES = np.array(_VP8_BMODES_T).reshape(10, 10, 9)
+_VBANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_VZIGZAG = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
+_VYMODES4 = (0, 1, -1, 2, -2, 3, 4, 6, -3, 5, -4, -5, -6, 7, -7, 8, -8, -9)
+_VCAT = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+       (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+_VDC_PRED, _VTM_PRED, _VV_PRED, _VH_PRED = 0, 1, 2, 3
+
+
+class _BoolDecoder:
+    """RFC 6386's boolean decoder (zeros past the end)."""
+
+    def __init__(self, data: bytes):
+        self.d, self.pos = data, 2
+        self.value = (data[0] if data else 0) << 8 | (data[1] if len(data) > 1 else 0)
+        self.range, self.count = 255, 0
+
+    def bit(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        big = split << 8
+        if self.value >= big:
+            bit = 1
+            self.range -= split
+            self.value -= big
+        else:
+            bit = 0
+            self.range = split
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.d[self.pos] if self.pos < len(self.d) else 0
+                self.pos += 1
+        return bit
+
+    def value_bits(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | self.bit(128)
+        return v
+
+    def signed(self, n: int) -> int:
+        v = self.value_bits(n)
+        return -v if self.bit(128) else v
+
+
+def _vp8_clip(v, lo, hi):
+    return lo if v < lo else hi if v > hi else v
+
+
+def _vp8_decode_vp8(data: bytes):
+    """-> (Y [h, w], U, V [(h+1)//2, (w+1)//2]) uint8, cropped."""
+    bits = data[0] | data[1] << 8 | data[2] << 16
+    if bits & 1:
+        raise ValueError("WebP: a VP8 frame that is not a key frame")
+    part0 = bits >> 5
+    if data[3:6] != b"\x9d\x01\x2a":
+        raise ValueError("WebP: bad VP8 start code")
+    w = (data[6] | data[7] << 8) & 0x3FFF
+    h = (data[8] | data[9] << 8) & 0x3FFF
+    if not w or not h or w * h > MAX_PIXELS:
+        raise ValueError("WebP: bad image size")
+    if len(data) < 10 or part0 > len(data) - 10:
+        raise ValueError("WebP: truncated VP8 frame")
+    br = _BoolDecoder(data[10:10 + part0])
+    br.value_bits(1)   # colour space
+    br.value_bits(1)   # clamping type
+    use_segment = br.value_bits(1)
+    update_map = absolute = 0
+    seg_q, seg_f, seg_p = [0] * 4, [0] * 4, [255] * 3
+    if use_segment:
+        update_map = br.value_bits(1)
+        if br.value_bits(1):   # update data
+            absolute = br.value_bits(1)
+            seg_q = [br.signed(7) if br.value_bits(1) else 0 for _ in range(4)]
+            seg_f = [br.signed(6) if br.value_bits(1) else 0 for _ in range(4)]
+        if update_map:
+            seg_p = [br.value_bits(8) if br.value_bits(1) else 255 for _ in range(3)]
+    simple = br.value_bits(1)
+    level = br.value_bits(6)
+    sharpness = br.value_bits(3)
+    use_lf_delta = br.value_bits(1)
+    ref_d, mode_d = [0] * 4, [0] * 4
+    if use_lf_delta and br.value_bits(1):
+        ref_d = [br.signed(6) if br.value_bits(1) else 0 for _ in range(4)]
+        mode_d = [br.signed(6) if br.value_bits(1) else 0 for _ in range(4)]
+    num_parts = 1 << br.value_bits(2)
+    # token partitions
+    at = 10 + part0
+    sizes_at = at
+    at += 3 * (num_parts - 1)
+    parts = []
+    for p in range(num_parts):
+        if p < num_parts - 1:
+            n = int.from_bytes(data[sizes_at + 3 * p:sizes_at + 3 * p + 3], "little")
+            parts.append(_BoolDecoder(data[at:at + n]))
+            at += n
+        else:
+            parts.append(_BoolDecoder(data[at:]))
+    # quantizers
+    base_q = br.value_bits(7)
+    dq = [br.signed(4) if br.value_bits(1) else 0 for _ in range(5)]   # y1dc y2dc y2ac uvdc uvac
+    quant = []
+    for s in range(4):
+        if use_segment:
+            q = seg_q[s] + (0 if absolute else base_q)
+        else:
+            q = base_q
+        y1 = (_VP8_DC[_vp8_clip(q + dq[0], 0, 127)], _VP8_AC[_vp8_clip(q, 0, 127)])
+        y2dc = _VP8_DC[_vp8_clip(q + dq[1], 0, 127)] * 2
+        y2ac = _VP8_AC[_vp8_clip(q + dq[2], 0, 127)] * 101581 >> 16
+        y2 = (y2dc, max(y2ac, 8))
+        uv = (_VP8_DC[_vp8_clip(q + dq[3], 0, 117)], _VP8_AC[_vp8_clip(q + dq[4], 0, 127)])
+        quant.append((y1, y2, uv))
+    br.value_bits(1)   # refresh entropy probs (ignored)
+    proba = _VCOEFFS0.copy()
+    for t in range(4):
+        for b in range(8):
+            for c in range(3):
+                for p in range(11):
+                    if br.bit(int(_VUPDATE[t, b, c, p])):
+                        proba[t, b, c, p] = br.value_bits(8)
+    use_skip = br.value_bits(1)
+    skip_p = br.value_bits(8) if use_skip else 0
+    # filter strengths per segment and i4x4
+    ftype = 0 if level == 0 else (1 if simple else 2)
+    fstr = {}
+    for s in range(4):
+        base = (seg_f[s] + (0 if absolute else level)) if use_segment else level
+        for i4 in (0, 1):
+            lv = base
+            if use_lf_delta:
+                lv += ref_d[0]
+                if i4:
+                    lv += mode_d[0]
+            lv = _vp8_clip(lv, 0, 63)
+            if lv > 0:
+                il = lv
+                if sharpness > 0:
+                    il >>= 2 if sharpness > 4 else 1
+                    il = min(il, 9 - sharpness)
+                il = max(il, 1)
+                fstr[s, i4] = (2 * lv + il, il, 2 if lv >= 40 else 1 if lv >= 15 else 0)
+            else:
+                fstr[s, i4] = (0, 0, 0)
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    Y = np.zeros((mbh * 16, mbw * 16), np.int32)
+    U = np.zeros((mbh * 8, mbw * 8), np.int32)
+    V = np.zeros((mbh * 8, mbw * 8), np.int32)
+    intra_t = [0] * (4 * mbw)
+    nz_top = [(0, 0)] * mbw   # (nz, nz_dc)
+    finfo = [[None] * mbw for _ in range(mbh)]
+    for my in range(mbh):
+        intra_l = [0] * 4
+        nz_left = (0, 0)
+        tok = parts[my & (num_parts - 1)]
+        for mx in range(mbw):
+            # modes
+            segment = 0
+            if update_map:
+                segment = br.bit(seg_p[1]) if not br.bit(seg_p[0]) else br.bit(seg_p[2]) + 2
+            skip = br.bit(skip_p) if use_skip else 0
+            is_i4 = not br.bit(145)
+            imodes = []
+            if not is_i4:
+                ymode = (_VTM_PRED if br.bit(128) else _VH_PRED) if br.bit(156) else \
+                    (_VV_PRED if br.bit(163) else _VDC_PRED)
+                for k in range(4):
+                    intra_t[4 * mx + k] = ymode
+                    intra_l[k] = ymode
+            else:
+                for y in range(4):
+                    ym = intra_l[y]
+                    for x in range(4):
+                        prob = _VBMODES[intra_t[4 * mx + x], ym]
+                        i = _VYMODES4[br.bit(int(prob[0]))]
+                        while i > 0:
+                            i = _VYMODES4[2 * i + br.bit(int(prob[i]))]
+                        ym = -i
+                        intra_t[4 * mx + x] = ym
+                        imodes.append(ym)
+                    intra_l[y] = ym
+            uvmode = _VDC_PRED if not br.bit(142) else (_VV_PRED if not br.bit(114) else
+                                                       (_VTM_PRED if br.bit(183) else _VH_PRED))
+            # residuals
+            coeffs = np.zeros((25, 16), np.int64)   # 16 y, 4 u, 4 v (+1 scratch)
+            y1, y2, uvq = quant[segment]
+            has_coeffs = False
+            if not skip:
+                tnz_all, tdc = nz_top[mx]
+                lnz_all, ldc = nz_left
+                if not is_i4:
+                    dc = np.zeros(16, np.int64)
+                    nz = _vp8_get_coeffs(tok, proba[1], tdc + ldc, y2, 0, dc)
+                    tdc = ldc = int(nz > 0)
+                    if nz > 1:
+                        _vp8_wht(dc, coeffs)
+                    else:
+                        coeffs[:16, 0] = _vp8_to16((int(dc[0]) + 3) >> 3)
+                    first, ac_p = 1, proba[0]
+                else:
+                    first, ac_p = 0, proba[3]
+                tnz, lnz = tnz_all & 0x0F, lnz_all & 0x0F
+                nonzero = False
+                for y in range(4):
+                    l = lnz & 1
+                    for x in range(4):
+                        ctx = l + (tnz & 1)
+                        blk = coeffs[4 * y + x]
+                        nz = _vp8_get_coeffs(tok, ac_p, ctx, y1, first, blk)
+                        l = int(nz > first)
+                        tnz = (tnz >> 1) | (l << 7)
+                        nonzero |= nz > 1 or blk[0] != 0
+                    tnz >>= 4
+                    lnz = (lnz >> 1) | (l << 7)
+                out_t, out_l = tnz, lnz >> 4
+                for ch in (0, 2):
+                    tnz = tnz_all >> (4 + ch)
+                    lnz = lnz_all >> (4 + ch)
+                    for y in range(2):
+                        l = lnz & 1
+                        for x in range(2):
+                            ctx = l + (tnz & 1)
+                            blk = coeffs[16 + 2 * ch + 2 * y + x]
+                            nz = _vp8_get_coeffs(tok, proba[2], ctx, uvq, 0, blk)
+                            l = int(nz > 0)
+                            tnz = (tnz >> 1) | (l << 3)
+                            nonzero |= nz > 1 or blk[0] != 0
+                        tnz >>= 2
+                        lnz = (lnz >> 1) | (l << 5)
+                    out_t |= (tnz << 4) << ch
+                    out_l |= (lnz & 0xF0) << ch
+                nz_top[mx] = (out_t, tdc)
+                nz_left = (out_l, ldc)
+                has_coeffs = nonzero
+            else:
+                nz_top[mx] = (0, 0 if not is_i4 else nz_top[mx][1])
+                nz_left = (0, 0 if not is_i4 else nz_left[1])
+            _vp8_reconstruct(Y, U, V, mx, my, mbw, is_i4, imodes, ymode if not is_i4 else None,
+                        uvmode, coeffs)
+            fs = fstr[segment, int(is_i4)]
+            finfo[my][mx] = (fs[0], fs[1], fs[2], is_i4 or has_coeffs)
+    if ftype:
+        for my in range(mbh):
+            for mx in range(mbw):
+                _vp8_loop_filter(Y, U, V, mx, my, ftype, *finfo[my][mx])
+    return (Y[:h, :w].astype(np.uint8), U[:(h + 1) // 2, :(w + 1) // 2].astype(np.uint8),
+            V[:(h + 1) // 2, :(w + 1) // 2].astype(np.uint8))
+
+
+def _vp8_to16(v):
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _vp8_get_coeffs(br, prob, ctx, dq, n, out):
+    """libwebp GetCoeffsFast -> the count of coefficients read."""
+    p = prob[_VBANDS[n]][ctx]
+    while n < 16:
+        if not br.bit(int(p[0])):
+            return n
+        while not br.bit(int(p[1])):
+            n += 1
+            p = prob[_VBANDS[n]][0]
+            if n == 16:
+                return 16
+        nxt = prob[_VBANDS[n + 1]]
+        if not br.bit(int(p[2])):
+            v = 1
+            p = nxt[1]
+        else:
+            v = _vp8_large_value(br, p)
+            p = nxt[2]
+        s = -v if br.bit(128) else v
+        out[_VZIGZAG[n]] = _vp8_to16(s * dq[n > 0])
+        n += 1
+    return 16
+
+
+def _vp8_large_value(br, p):
+    if not br.bit(int(p[3])):
+        if not br.bit(int(p[4])):
+            return 2
+        return 3 + br.bit(int(p[5]))
+    if not br.bit(int(p[6])):
+        if not br.bit(int(p[7])):
+            return 5 + br.bit(159)
+        v = 7 + 2 * br.bit(165)
+        return v + br.bit(145)
+    bit1 = br.bit(int(p[8]))
+    bit0 = br.bit(int(p[9 + bit1]))
+    cat = 2 * bit1 + bit0
+    v = 0
+    for prob in _VCAT[cat]:
+        v += v + br.bit(prob)
+    return v + 3 + (8 << cat)
+
+
+def _vp8_wht(inp, coeffs):
+    tmp = [0] * 16
+    for i in range(4):
+        a0 = int(inp[0 + i]) + int(inp[12 + i])
+        a1 = int(inp[4 + i]) + int(inp[8 + i])
+        a2 = int(inp[4 + i]) - int(inp[8 + i])
+        a3 = int(inp[0 + i]) - int(inp[12 + i])
+        tmp[0 + i], tmp[8 + i], tmp[4 + i], tmp[12 + i] = a0 + a1, a0 - a1, a3 + a2, a3 - a2
+    for i in range(4):
+        dc = tmp[0 + i * 4] + 3
+        a0 = dc + tmp[3 + i * 4]
+        a1 = tmp[1 + i * 4] + tmp[2 + i * 4]
+        a2 = tmp[1 + i * 4] - tmp[2 + i * 4]
+        a3 = dc - tmp[3 + i * 4]
+        coeffs[4 * i + 0, 0] = _vp8_to16((a0 + a1) >> 3)
+        coeffs[4 * i + 1, 0] = _vp8_to16((a3 + a2) >> 3)
+        coeffs[4 * i + 2, 0] = _vp8_to16((a0 - a1) >> 3)
+        coeffs[4 * i + 3, 0] = _vp8_to16((a3 - a2) >> 3)
+
+
+def _vp8_mul1(a):
+    return ((a * 20091) >> 16) + a
+
+
+def _vp8_mul2(a):
+    return (a * 35468) >> 16
+
+
+def _vp8_transform(inp, block):
+    """TransformOne: add the inverse DCT of ``inp`` (16) into block [4, 4]."""
+    C = [0] * 16
+    for i in range(4):
+        a = int(inp[i]) + int(inp[8 + i])
+        b = int(inp[i]) - int(inp[8 + i])
+        c = _vp8_mul2(int(inp[4 + i])) - _vp8_mul1(int(inp[12 + i]))
+        d = _vp8_mul1(int(inp[4 + i])) + _vp8_mul2(int(inp[12 + i]))
+        C[4 * i:4 * i + 4] = [a + d, b + c, b - c, a - d]
+    for i in range(4):
+        dc = C[i] + 4
+        a = dc + C[8 + i]
+        b = dc - C[8 + i]
+        c = _vp8_mul2(C[4 + i]) - _vp8_mul1(C[12 + i])
+        d = _vp8_mul1(C[4 + i]) + _vp8_mul2(C[12 + i])
+        for x, v in enumerate((a + d, b + c, b - c, a - d)):
+            block[i, x] = _vp8_clip(block[i, x] + (v >> 3), 0, 255)
+
+
+# the work buffer: prediction from unfiltered reconstruction with libwebp's borders
+def _vp8_reconstruct(Y, U, V, mx, my, mbw, is_i4, imodes, ymode, uvmode, coeffs):
+    for plane, size, blocks in ((Y, 16, None), (U, 8, 16), (V, 8, 20)):
+        x0, y0 = mx * size, my * size
+        buf = np.zeros((size + 1, size + 1 + 4), np.int32)   # row 0 / col 0: borders
+        if my == 0:
+            buf[0, :] = 127
+        else:
+            buf[0, 1:size + 1] = plane[y0 - 1, x0:x0 + size]
+            buf[0, 0] = 129 if mx == 0 else plane[y0 - 1, x0 - 1]
+        if mx == 0:
+            buf[1:, 0] = 129
+        else:
+            buf[1:, 0] = plane[y0:y0 + size, x0 - 1]
+        if size == 16:
+            if my > 0:
+                if mx >= mbw - 1:
+                    buf[0, 17:21] = plane[y0 - 1, x0 + 15]
+                else:
+                    buf[0, 17:21] = plane[y0 - 1, x0 + 16:x0 + 20]
+            # top-right replicated below
+            for r in (4, 8, 12):
+                buf[r, 17:21] = buf[0, 17:21]
+            if is_i4:
+                for n in range(16):
+                    by, bx = 4 * (n // 4) + 1, 4 * (n % 4) + 1
+                    _vp8_pred4(buf, by, bx, imodes[n])
+                    _vp8_transform(coeffs[n], buf[by:by + 4, bx:bx + 4])
+            else:
+                _vp8_pred_n(buf, 16, ymode, mx, my)
+                for n in range(16):
+                    by, bx = 4 * (n // 4) + 1, 4 * (n % 4) + 1
+                    _vp8_transform(coeffs[n], buf[by:by + 4, bx:bx + 4])
+        else:
+            _vp8_pred_n(buf, 8, uvmode, mx, my)
+            for n in range(4):
+                by, bx = 4 * (n // 2) + 1, 4 * (n % 2) + 1
+                _vp8_transform(coeffs[blocks + n], buf[by:by + 4, bx:bx + 4])
+        plane[y0:y0 + size, x0:x0 + size] = buf[1:size + 1, 1:size + 1]
+
+
+def _vp8_pred_n(buf, n, mode, mx, my):
+    top, left, tl = buf[0, 1:n + 1], buf[1:n + 1, 0], int(buf[0, 0])
+    sh = 5 if n == 16 else 4
+    if mode == _VDC_PRED:
+        if mx == 0 and my == 0:
+            v = 0x80
+        elif my == 0:
+            v = (int(left.sum()) + (n >> 1)) >> (sh - 1)
+        elif mx == 0:
+            v = (int(top.sum()) + (n >> 1)) >> (sh - 1)
+        else:
+            v = (int(top.sum()) + int(left.sum()) + n) >> sh
+        buf[1:n + 1, 1:n + 1] = v
+    elif mode == _VTM_PRED:
+        buf[1:n + 1, 1:n + 1] = np.clip(top[None, :] + left[:, None] - tl, 0, 255)
+    elif mode == _VV_PRED:
+        buf[1:n + 1, 1:n + 1] = top[None, :]
+    else:
+        buf[1:n + 1, 1:n + 1] = left[:, None]
+
+
+def _vp8_avg3(a, b, c):
+    return (a + 2 * b + c + 2) >> 2
+
+
+def _vp8_avg2(a, b):
+    return (a + b + 1) >> 1
+
+
+def _vp8_pred4(buf, by, bx, mode):
+    top = [int(v) for v in buf[by - 1, bx - 1:bx + 8]]   # X, A..H
+    X, A, B, C, D, E, F, G, H = top
+    I, J, K, L = (int(buf[by + r, bx - 1]) for r in range(4))
+    out = [[0] * 4 for _ in range(4)]
+    a3, a2 = _vp8_avg3, _vp8_avg2
+
+    def put(x, y, v):
+        out[y][x] = v
+    if mode == 0:   # DC
+        dc = (A + B + C + D + I + J + K + L + 4) >> 3
+        out = [[dc] * 4 for _ in range(4)]
+    elif mode == 1:   # TM
+        out = [[_vp8_clip(t + l - X, 0, 255) for t in (A, B, C, D)] for l in (I, J, K, L)]
+    elif mode == 2:   # VE
+        vals = [a3(X, A, B), a3(A, B, C), a3(B, C, D), a3(C, D, E)]
+        out = [vals[:] for _ in range(4)]
+    elif mode == 3:   # HE
+        out = [[a3(X, I, J)] * 4, [a3(I, J, K)] * 4, [a3(J, K, L)] * 4, [a3(K, L, L)] * 4]
+    elif mode == 4:   # RD
+        for (x, y), v in {(0, 3): a3(J, K, L), (1, 3): a3(I, J, K), (0, 2): a3(I, J, K),
+                          (2, 3): a3(X, I, J), (1, 2): a3(X, I, J), (0, 1): a3(X, I, J),
+                          (3, 3): a3(A, X, I), (2, 2): a3(A, X, I), (1, 1): a3(A, X, I),
+                          (0, 0): a3(A, X, I), (3, 2): a3(B, A, X), (2, 1): a3(B, A, X),
+                          (1, 0): a3(B, A, X), (3, 1): a3(C, B, A), (2, 0): a3(C, B, A),
+                          (3, 0): a3(D, C, B)}.items():
+            put(x, y, v)
+    elif mode == 5:   # VR
+        vals = {(0, 0): a2(X, A), (1, 2): a2(X, A), (1, 0): a2(A, B), (2, 2): a2(A, B),
+                (2, 0): a2(B, C), (3, 2): a2(B, C), (3, 0): a2(C, D),
+                (0, 3): a3(K, J, I), (0, 2): a3(J, I, X), (0, 1): a3(I, X, A),
+                (1, 3): a3(I, X, A), (1, 1): a3(X, A, B), (2, 3): a3(X, A, B),
+                (2, 1): a3(A, B, C), (3, 3): a3(A, B, C), (3, 1): a3(B, C, D)}
+        for (x, y), v in vals.items():
+            put(x, y, v)
+    elif mode == 6:   # LD
+        seq = [a3(A, B, C), a3(B, C, D), a3(C, D, E), a3(D, E, F), a3(E, F, G),
+               a3(F, G, H), a3(G, H, H)]
+        for y in range(4):
+            for x in range(4):
+                put(x, y, seq[x + y])
+    elif mode == 7:   # VL
+        vals = {(0, 0): a2(A, B), (1, 0): a2(B, C), (0, 2): a2(B, C), (2, 0): a2(C, D),
+                (1, 2): a2(C, D), (3, 0): a2(D, E), (2, 2): a2(D, E),
+                (0, 1): a3(A, B, C), (1, 1): a3(B, C, D), (0, 3): a3(B, C, D),
+                (2, 1): a3(C, D, E), (1, 3): a3(C, D, E), (3, 1): a3(D, E, F),
+                (2, 3): a3(D, E, F), (3, 2): a3(E, F, G), (3, 3): a3(F, G, H)}
+        for (x, y), v in vals.items():
+            put(x, y, v)
+    elif mode == 8:   # HD
+        vals = {(0, 0): a2(I, X), (2, 1): a2(I, X), (0, 1): a2(J, I), (2, 2): a2(J, I),
+                (0, 2): a2(K, J), (2, 3): a2(K, J), (0, 3): a2(L, K),
+                (3, 0): a3(A, B, C), (2, 0): a3(X, A, B), (1, 0): a3(I, X, A),
+                (3, 1): a3(I, X, A), (1, 1): a3(J, I, X), (3, 2): a3(J, I, X),
+                (1, 2): a3(K, J, I), (3, 3): a3(K, J, I), (1, 3): a3(L, K, J)}
+        for (x, y), v in vals.items():
+            put(x, y, v)
+    else:   # HU
+        vals = {(0, 0): a2(I, J), (2, 0): a2(J, K), (0, 1): a2(J, K), (2, 1): a2(K, L),
+                (0, 2): a2(K, L), (1, 0): a3(I, J, K), (3, 0): a3(J, K, L),
+                (1, 1): a3(J, K, L), (3, 1): a3(K, L, L), (1, 2): a3(K, L, L)}
+        for x, y in ((3, 2), (2, 2), (0, 3), (1, 3), (2, 3), (3, 3)):
+            vals[x, y] = L
+        for (x, y), v in vals.items():
+            put(x, y, v)
+    buf[by:by + 4, bx:bx + 4] = out
+
+
+def _vp8_sclip1(v):
+    return _vp8_clip(v, -128, 127)
+
+
+def _vp8_sclip2(v):
+    return _vp8_clip(v, -16, 15)
+
+
+def _vp8_clip1(v):
+    return _vp8_clip(v, 0, 255)
+
+
+def _vp8_filter2(P, i, s):
+    p1, p0, q0, q1 = P[i - 2 * s], P[i - s], P[i], P[i + s]
+    a = 3 * (q0 - p0) + _vp8_sclip1(p1 - q1)
+    a1, a2 = _vp8_sclip2((a + 4) >> 3), _vp8_sclip2((a + 3) >> 3)
+    P[i - s], P[i] = _vp8_clip1(p0 + a2), _vp8_clip1(q0 - a1)
+
+
+def _vp8_filter4(P, i, s):
+    c1 = _vp8_clip1
+    p1, p0, q0, q1 = P[i - 2 * s], P[i - s], P[i], P[i + s]
+    a = 3 * (q0 - p0)
+    a1, a2 = _vp8_sclip2((a + 4) >> 3), _vp8_sclip2((a + 3) >> 3)
+    a3 = (a1 + 1) >> 1
+    P[i - 2 * s], P[i - s], P[i], P[i + s] = c1(p1 + a3), c1(p0 + a2), c1(q0 - a1), \
+        c1(q1 - a3)
+
+
+def _vp8_filter6(P, i, s):
+    c1 = _vp8_clip1
+    p2, p1, p0, q0, q1, q2 = (P[i + k * s] for k in (-3, -2, -1, 0, 1, 2))
+    a = _vp8_sclip1(3 * (q0 - p0) + _vp8_sclip1(p1 - q1))
+    a1, a2, a3 = (27 * a + 63) >> 7, (18 * a + 63) >> 7, (9 * a + 63) >> 7
+    P[i - 3 * s], P[i - 2 * s], P[i - s] = c1(p2 + a3), c1(p1 + a2), c1(p0 + a1)
+    P[i], P[i + s], P[i + 2 * s] = c1(q0 - a1), c1(q1 - a2), c1(q2 - a3)
+
+
+def _vp8_hev(P, i, s, t):
+    return abs(P[i - 2 * s] - P[i - s]) > t or abs(P[i + s] - P[i]) > t
+
+
+def _vp8_needs(P, i, s, t):
+    return 4 * abs(P[i - s] - P[i]) + abs(P[i - 2 * s] - P[i + s]) <= t
+
+
+def _vp8_needs2(P, i, s, t, it):
+    p3, p2, p1, p0, q0, q1, q2, q3 = (P[i + k * s] for k in range(-4, 4))
+    if 4 * abs(p0 - q0) + abs(p1 - q1) > t:
+        return False
+    return (abs(p3 - p2) <= it and abs(p2 - p1) <= it and abs(p1 - p0) <= it
+            and abs(q3 - q2) <= it and abs(q2 - q1) <= it and abs(q1 - q0) <= it)
+
+
+def _vp8_edge(plane, starts, step, thresh, ithresh, hev_t, six):
+    P = plane.reshape(-1)
+    t2 = 2 * thresh + 1
+    for i in starts:
+        if _vp8_needs2(P, i, step, t2, ithresh):
+            if _vp8_hev(P, i, step, hev_t):
+                _vp8_filter2(P, i, step)
+            elif six:
+                _vp8_filter6(P, i, step)
+            else:
+                _vp8_filter4(P, i, step)
+
+
+def _vp8_simple_edge(plane, starts, step, thresh):
+    P = plane.reshape(-1)
+    t2 = 2 * thresh + 1
+    for i in starts:
+        if _vp8_needs(P, i, step, t2):
+            _vp8_filter2(P, i, step)
+
+
+def _vp8_loop_filter(Y, U, V, mx, my, ftype, limit, ilevel, hev_t, inner):
+    if limit == 0:
+        return
+    W, UW = Y.shape[1], U.shape[1]
+    y0, x0 = 16 * my, 16 * mx
+    col = lambda plane, w, yy, xx, n: [(yy + r) * w + xx for r in range(n)]   # noqa: E731
+    row = lambda plane, w, yy, xx, n: [yy * w + xx + c for c in range(n)]      # noqa: E731
+    if ftype == 1:
+        if mx > 0:
+            _vp8_simple_edge(Y, col(Y, W, y0, x0, 16), 1, limit + 4)
+        if inner:
+            for k in (4, 8, 12):
+                _vp8_simple_edge(Y, col(Y, W, y0, x0 + k, 16), 1, limit)
+        if my > 0:
+            _vp8_simple_edge(Y, row(Y, W, y0, x0, 16), W, limit + 4)
+        if inner:
+            for k in (4, 8, 12):
+                _vp8_simple_edge(Y, row(Y, W, y0 + k, x0, 16), W, limit)
+        return
+    u0, v0 = 8 * my, 8 * mx
+    if mx > 0:
+        _vp8_edge(Y, col(Y, W, y0, x0, 16), 1, limit + 4, ilevel, hev_t, True)
+        for P in (U, V):
+            _vp8_edge(P, col(P, UW, u0, v0, 8), 1, limit + 4, ilevel, hev_t, True)
+    if inner:
+        for k in (4, 8, 12):
+            _vp8_edge(Y, col(Y, W, y0, x0 + k, 16), 1, limit, ilevel, hev_t, False)
+        for P in (U, V):
+            _vp8_edge(P, col(P, UW, u0, v0 + 4, 8), 1, limit, ilevel, hev_t, False)
+    if my > 0:
+        _vp8_edge(Y, row(Y, W, y0, x0, 16), W, limit + 4, ilevel, hev_t, True)
+        for P in (U, V):
+            _vp8_edge(P, row(P, UW, u0, v0, 8), UW, limit + 4, ilevel, hev_t, True)
+    if inner:
+        for k in (4, 8, 12):
+            _vp8_edge(Y, row(Y, W, y0 + k, x0, 16), W, limit, ilevel, hev_t, False)
+        for P in (U, V):
+            _vp8_edge(P, row(P, UW, u0 + 4, v0, 8), UW, limit, ilevel, hev_t, False)
+
+
+def _vp8_yuv_to_rgb(y, u, v):
+    def clip8(x):
+        return np.where((x & ~16383) == 0, x >> 6, np.where(x < 0, 0, 255))
+    y, u, v = (a.astype(np.int64) for a in (y, u, v))
+    hy = (y * 19077) >> 8
+    r = clip8(hy + ((v * 26149) >> 8) - 14234)
+    g = clip8(hy - ((u * 6419) >> 8) - ((v * 13320) >> 8) + 8708)
+    b = clip8(hy + ((u * 33050) >> 8) - 17685)
+    return np.stack([r, g, b], -1).astype(np.uint8)
+
+
+def _vp8_upsample_pair(top_y, bot_y, tu, tv, cu, cv, w):
+    """libwebp's fancy upsampler for a row pair -> (top rgb, bottom rgb or None)."""
+    def chroma(tc, cc):
+        n = (w + 1) // 2
+        tc, cc = tc.astype(np.int64), cc.astype(np.int64)
+        top = np.zeros(w, np.int64)
+        bot = np.zeros(w, np.int64)
+        top[0] = (3 * tc[0] + cc[0] + 2) >> 2
+        bot[0] = (3 * cc[0] + tc[0] + 2) >> 2
+        last = (w - 1) >> 1
+        for x in range(1, last + 1):
+            a, b, c, d = tc[x - 1], tc[x], cc[x - 1], cc[x]
+            avg = a + b + c + d + 8
+            d12 = (avg + 2 * (b + c)) >> 3
+            d03 = (avg + 2 * (a + d)) >> 3
+            top[2 * x - 1], top[2 * x] = (d12 + a) >> 1, (d03 + b) >> 1
+            bot[2 * x - 1], bot[2 * x] = (d03 + c) >> 1, (d12 + d) >> 1
+        if not w & 1:
+            a, c = tc[last], cc[last]
+            top[w - 1] = (3 * a + c + 2) >> 2
+            bot[w - 1] = (3 * c + a + 2) >> 2
+        return top, bot
+    ut, ub = chroma(tu, cu)
+    vt, vb = chroma(tv, cv)
+    top = _vp8_yuv_to_rgb(top_y, ut, vt)
+    bot = _vp8_yuv_to_rgb(bot_y, ub, vb) if bot_y is not None else None
+    return top, bot
+
+
+def _vp8_to_rgb(Y, U, V):
+    h, w = Y.shape
+    out = np.zeros((h, w, 3), np.uint8)
+    out[0] = _vp8_upsample_pair(Y[0], None, U[0], V[0], U[0], V[0], w)[0]
+    k = 0
+    y = 1
+    while y + 1 < h:
+        t, b = _vp8_upsample_pair(Y[y], Y[y + 1], U[k], V[k], U[k + 1], V[k + 1], w)
+        out[y], out[y + 1] = t, b
+        k += 1
+        y += 2
+    if not h & 1:
+        out[h - 1] = _vp8_upsample_pair(Y[h - 1], None, U[k], V[k], U[k], V[k], w)[0]
+    return out
+
+
+def _vp8_decode_alpha(data: bytes, w: int, h: int) -> np.ndarray:
+    """An ALPH chunk -> alpha [h, w] uint8 (alpha_dec.c: VP8L's green
+    channel or raw bytes, then the row filter undone)."""
+    if not data:
+        raise ValueError("WebP: truncated alpha")
+    head = data[0]
+    method, filt = head & 3, (head >> 2) & 3
+    if method == 0:
+        if len(data) - 1 < w * h:
+            raise ValueError("WebP: truncated alpha")
+        a = np.frombuffer(data[1:1 + w * h], np.uint8).reshape(h, w).astype(np.int64)
+    elif method == 1:
+        br = _LsbBits(data[1:])
+        px, transforms, _ = _vp8l_image(br, w, h, True)
+        argb = _vp8l_inverse(px, transforms, h)
+        a = ((argb >> 8) & 255).astype(np.int64)
+    else:
+        raise ValueError("WebP: unknown alpha compression")
+    out = np.zeros((h, w), np.int64)
+    for y in range(h):
+        prev = out[y - 1] if y > 0 else None
+        row = a[y]
+        if filt == 0:
+            out[y] = row
+        elif filt == 1 or prev is None:
+            pred = 0 if prev is None else int(prev[0])
+            for x in range(w):
+                pred = (pred + int(row[x])) & 255
+                out[y, x] = pred
+        elif filt == 2:
+            out[y] = (prev + row) & 255
+        else:
+            top_left = left = int(prev[0])
+            for x in range(w):
+                top = int(prev[x])
+                g = left + top - top_left
+                g = g if 0 <= g <= 255 else (0 if g < 0 else 255)
+                left = (int(row[x]) + g) & 255
+                top_left = top
+                out[y, x] = left
+    return out.astype(np.uint8)

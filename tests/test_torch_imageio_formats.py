@@ -5,8 +5,8 @@ TIFF (orientation 2-8, fill order 2, BigTIFF, CCITT RLE / Group 3 / Group
 old-style LZW, 12-bit, 16-bit planar configuration 2, LAB), progressive
 JPEG that libjpeg block-smooths, TGA, SGI, PCX, PIL's identification
 order, DDS (uncompressed, BC1-BC5 and BC7), PSD, ICO and CUR, QOI, IM, Sun
-raster, MSP, XBM, XPM, SPIDER and lossless WebP, and ``save_gray`` to TGA,
-SGI, PCX, DDS and IM.
+raster, MSP, XBM, XPM, SPIDER and WebP (lossless, and lossy with its
+alpha), and ``save_gray`` to TGA, SGI, PCX, DDS and IM.
 
 Files are written at test time from seeded arrays: by PIL where PIL writes
 the variant, by ``tests/torch_imagefiles.py`` elsewhere.  Bounds, every
@@ -964,7 +964,7 @@ def test_spider_written_by_pil_reads_as_jax(tmp_path, mode, big_endian):
     assert assert_reads_as_jax(_write(tmp_path, "x.spi", blob)).mode == "F"
 
 
-# ---- WebP (lossless) ----------------------------------------------------------------
+# ---- WebP ---------------------------------------------------------------------------
 
 def _webp_source(kind: str) -> np.ndarray:
     """Smooth (predictor, cross-colour), noise (literals), few colours
@@ -1009,13 +1009,24 @@ def test_lossless_webp_in_an_extended_file_reads_as_jax(tmp_path):
         Image.fromarray(arr, "RGBA"), "WEBP", lossless=True, exact=True)))
 
 
-def test_lossy_webp_raises_naming_the_file(tmp_path):
-    path = _write(tmp_path, "lossy.webp", _pil_bytes(_pil_image("RGB", 5), "WEBP", quality=80))
-    assert Image.open(path).mode == "RGB"          # PIL reads it; the port does not yet
-    for read in (tds.load_gray, tds.load_depth, images.decode, images_plain.decode):
-        with pytest.raises(ValueError, match="lossy \\(VP8\\) WebP") as err:
-            read(path)
-        assert path in str(err.value)
+LOSSY = [(s, q, m, a) for s, q, m, a in (((16, 16), 5, 0, False), ((23, 37), 50, 3, True),
+                                          ((48, 64), 95, 6, False), ((3, 97), 75, 4, True),
+                                          ((1, 1), 80, 4, False), ((40, 56), 20, 2, True))]
+
+
+@pytest.mark.parametrize("shape,quality,method,alpha", LOSSY,
+                         ids=[f"{s[0]}x{s[1]}-q{q}-m{m}{'-alpha' if a else ''}"
+                              for s, q, m, a in LOSSY])
+def test_lossy_webp_written_by_pil_reads_as_jax(tmp_path, shape, quality, method, alpha):
+    """VP8 key frames (segments, both loop filters, 4x4 and 16x16 modes,
+    fancy upsampling) and, with alpha, the ALPH chunk (VP8L-coded, row
+    filters); noise for q50, smooth patterns else."""
+    h, w = shape
+    arr = (np.random.default_rng(quality).integers(0, 256, (h, w, 4)).astype(np.uint8)
+           if quality == 50 else smooth(h, w, 4, quality + method))
+    img = Image.fromarray(arr, "RGBA") if alpha else Image.fromarray(arr[:, :, :3])
+    blob = _pil_bytes(img, "WEBP", quality=quality, method=method, alpha_quality=quality)
+    assert_reads_as_jax(_write(tmp_path, "x.webp", blob))
 
 
 # ---- identification and decompression bombs -------------------------------------------
@@ -1085,7 +1096,7 @@ LATER = ["icl_bigtiff_fill2.tif", "icl_jpeg_ycbcr_420.tif", "icl_orientation_6.t
          "icl_progressive_3_scans.jpg", "icl_rgb_rle.tga", "icl_ycbcr_422_lzw.tif",
          "kitti_ccitt_g3_2d.tif", "kitti_ccitt_g4.tif", "icl_dxt1.dds", "icl_gray.sgi",
          "icl_rgb.pcx", "icl_rgb.ico", "icl_rgb.qoi", "icl_gray.im", "kitti_bilevel.xbm",
-         "kitti_bilevel.msp", "icl_rgb_lossless.webp"]
+         "kitti_bilevel.msp", "icl_rgb_lossless.webp", "icl_rgba_lossy.webp"]
 
 
 @pytest.mark.parametrize("name", LATER)
@@ -1117,7 +1128,7 @@ sha = lambda a: hashlib.sha256(np.ascontiguousarray(a, np.float32).tobytes()).he
 for name in ("kitti_tga/image_1/000001.tga", "kitti_ccitt_g4.tif", "icl_jpeg_ycbcr_420.tif",
              "icl_ycbcr_422_lzw.tif", "icl_progressive_3_scans.jpg", "icl_orientation_6.tif",
              "icl_dxt1.dds", "icl_rgb.ico", "icl_gray.im", "kitti_bilevel.xbm",
-             "icl_rgb_lossless.webp"):
+             "icl_rgb_lossless.webp", "icl_rgba_lossy.webp"):
     path = "test_data/torch_io/" + name
     plain = images_plain.decode(path)
     assert sha(datasets.load_gray(path)) == manifest[name]["load_gray_sha256"], name
