@@ -12,7 +12,7 @@ read as the JAX package reads them through PIL.
   bit-field layouts, OS/2 headers;
 - TIFF and BigTIFF (little-endian): strips or tiles, planar configuration
   1 or 2, no compression, PackBits, LZW (old-style too), Deflate, CCITT
-  RLE / Group 3 / Group 4, JPEG; predictors 2 and 3; fill order 2;
+  RLE / Group 3 / Group 4, JPEG, LZMA; predictors 2 and 3; fill order 2;
   orientation 2-8; bilevel, 2/4/8/12/16-bit gray, signed 16/32-bit,
   float32, gray + alpha, RGB(A) at 8/16 bits, palette, CMYK, LAB, YCbCr
   (libtiff's conversion);
@@ -58,7 +58,7 @@ SOURCES = [_CSRC / name for name in ("image_extra.cpp", "image_tiff.cpp", "image
                                      "image_gif_pnm.cpp", "image_tga.cpp", "image_sgi_pcx.cpp",
                                      "image_dds.cpp", "image_psd.cpp", "image_ico.cpp",
                                      "image_qoi.cpp", "image_im.cpp", "image_misc.cpp",
-                                     "image_webp.cpp")]
+                                     "image_webp.cpp", "image_lzma.cpp")]
 HEADERS = [_CSRC / "image_common.h"]
 MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA", "I;16B", "I", "F", "CMYK",
          "LAB")   # mode codes

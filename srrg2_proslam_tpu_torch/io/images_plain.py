@@ -17,6 +17,7 @@ readers' path calls it, and it is far slower than the library.
 """
 from __future__ import annotations
 
+import lzma
 import re
 import struct
 import zlib
@@ -1146,7 +1147,7 @@ def _decode_bmp(blob: bytes) -> Decoded:
 _TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("B", 1), 7: ("B", 1), 8: ("H", 2),
                9: ("I", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("Q", 8), 18: ("Q", 8),
                2: (None, 1), 5: (None, 8), 10: (None, 8), 11: (None, 4), 12: (None, 8)}
-_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773)
+_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 34925)
 
 
 def _tiff_tags(blob: bytes):
@@ -1379,7 +1380,7 @@ def _decode_tiff_fields(blob: bytes, e: str, fields) -> Decoded:
         raise ValueError("TIFF: compression 6 (old-style JPEG) is not supported")
     if compression not in _TIFF_COMPRESSIONS:
         raise ValueError(f"TIFF: compression {compression} is not supported (none, CCITT, LZW, "
-                         "JPEG, Deflate and PackBits only)")
+                         "JPEG, Deflate, PackBits and LZMA only)")
     if fill not in (1, 2):
         raise ValueError(f"TIFF: fill order {fill} is not supported")
     if planar not in (1, 2):
@@ -1506,6 +1507,11 @@ def _decode_tiff_fields(blob: bytes, e: str, fields) -> Decoded:
                     data = _unlzw_tiff(src, coded)
                 elif compression == 32773:
                     data = _unpack_bits(src, coded)
+                elif compression == 34925:      # libtiff's xz streams, through the stdlib
+                    try:
+                        data = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src, coded)
+                    except lzma.LZMAError:
+                        raise ValueError("TIFF: corrupt LZMA data") from None
                 elif ccitt:
                     px = more.decode_ccitt(src, cw, rows, compression, t4)
                     bits = np.zeros((rows, rowbytes * 8), np.uint8)

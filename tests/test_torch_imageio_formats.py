@@ -1,7 +1,7 @@
 """The image files the port's readers took on after the TIFF slice, to the
 bit as the JAX package reads them through PIL, on the CPU: the rest of
 TIFF (orientation 2-8, fill order 2, BigTIFF, CCITT RLE / Group 3 / Group
-4, JPEG-compressed strips and tiles, YCbCr through libtiff's conversion,
+4, JPEG-compressed strips and tiles, LZMA, YCbCr through libtiff's conversion,
 old-style LZW, 12-bit, 16-bit planar configuration 2, LAB), progressive
 JPEG that libjpeg block-smooths, TGA, SGI, PCX, PIL's identification
 order, DDS (uncompressed, BC1-BC5 and BC7), PSD, ICO and CUR, QOI, IM, Sun
@@ -215,6 +215,20 @@ def test_old_style_lzw_reads_as_jax(tmp_path, shape, levels):
         shape[1], shape[0], [tf.lzw_tiff_compat(raw.tobytes())],
         [(258, 3, [8]), (259, 3, [5]), (262, 3, [1])]))
     assert_reads_as_jax(path)
+
+
+@pytest.mark.parametrize("mode,info", [("L", {}), ("RGB", {317: 2}), ("I;16", {278: 7}),
+                                       ("RGBA", {}), ("1", {278: 5}), ("P", {})],
+                         ids=["L", "rgb-predictor", "u16-strips", "rgba", "bilevel", "palette"])
+def test_lzma_tiff_written_by_pil_reads_as_jax(tmp_path, mode, info):
+    """libtiff's xz streams (a delta filter, then LZMA2), decoded in the repo."""
+    arr = smooth(40, 56, 4, len(mode))
+    img = (Image.fromarray(np.random.default_rng(1).integers(0, 65536, (40, 56)).astype(np.uint16))
+           if mode == "I;16" else Image.fromarray(arr[:, :, :3]).quantize(60) if mode == "P"
+           else Image.fromarray(arr[:, :, 0]).convert("1") if mode == "1"
+           else Image.fromarray(arr[:, :, 0] if mode == "L" else arr[:, :, :len(mode)], mode))
+    assert_reads_as_jax(_write(tmp_path, "z.tif", _pil_bytes(img, "TIFF", compression="lzma",
+                                                            tiffinfo=info)))
 
 
 # ---- TIFF 12-bit, 16-bit planes, LAB -------------------------------------------------
