@@ -2702,7 +2702,6 @@ def _vp8_yuv_to_rgb(y, u, v):
 def _vp8_upsample_pair(top_y, bot_y, tu, tv, cu, cv, w):
     """libwebp's fancy upsampler for a row pair -> (top rgb, bottom rgb or None)."""
     def chroma(tc, cc):
-        n = (w + 1) // 2
         tc, cc = tc.astype(np.int64), cc.astype(np.int64)
         top = np.zeros(w, np.int64)
         bot = np.zeros(w, np.int64)
