@@ -120,9 +120,16 @@ Phases, any failure exits non-zero:
      with fill order 2, a block-smoothed progressive JPEG, RLE TGA, DDS,
      SGI, PCX, ICO, QOI, IM, XBM, MSP, lossless and lossy WebP) to the
      manifest; save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx, .dds and
-     .im byte for byte PIL's files;
+     .im byte for byte PIL's files; the small JPEG 2000 (JP2 9/7 RGB, J2K
+     16-bit depth in tiles) and Zstandard TIFF fixtures to the manifest
+     through the library and its twin, the KITTI Zstandard TIFF folder as
+     the TIFF one (launches_zstd_vo, max_abs_err_zstd) and the TUM JPEG
+     2000 folder (JP2 RGB, 16-bit J2K depth) as the TUM TIFF one
+     (launches_jp2_rgbd, max_abs_err_jp2_rgbd), each read through the
+     library and the folder readers;
      ms per decode of the 376x1241 JPEG, the 480x640 progressive one, four
-     TIFF files, a KITTI TGA, a DDS and three of the later fixtures;
+     TIFF files, a KITTI TGA, a DDS, three of the later fixtures, the
+     480x640 JP2 RGB, the 16-bit J2K depth and a KITTI Zstandard TIFF;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
      runs this phase alone): 9a the rendered loop through
      GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
@@ -1112,6 +1119,9 @@ ENTRY_TOL = 5e-4             # 8f: entry()'s step, card vs CPU (tests/test_gn_pa
 KERNEL_NAMES = ("fast_scores_kernel", "brief_descriptors_kernel", "gn_burst_stereo_kernel")
 IMAGE_FIXTURES = os.path.join(ROOT, "test_data", "torch_io")   # 8g: files and MANIFEST.json
 DECODE_REPS = 20             # 8g: decodes per timed file
+# 8g: the full-size folders read through the library and the folder readers
+# only (the twin's tier-1 in Python takes minutes on a 480 x 640 JPEG 2000)
+LIBRARY_ONLY = ("tum_jp2/", "kitti_zstd/")
 TIFF_GN_ATOL = 2e-6          # 8g: K2 against its plain version at the TIFF pair
 
 
@@ -1399,9 +1409,10 @@ def host_images(dev, smi, report) -> dict:
         path, want = os.path.join(IMAGE_FIXTURES, name), manifest[name]
         if native.try_decode(path) is not None:
             fail(f"8g: the native decoder reads {name}: it would not test the image library")
-        plain = images_plain.decode(path)
-        routes = {"library": (datasets.load_gray(path), datasets.load_depth(path)),
-                  "plain twin": (images.gray_f32(plain), images.depth_f32(plain))}
+        routes = {"library": (datasets.load_gray(path), datasets.load_depth(path))}
+        if not name.startswith(LIBRARY_ONLY):
+            plain = images_plain.decode(path)
+            routes["plain twin"] = (images.gray_f32(plain), images.depth_f32(plain))
         for route, (gray, depth) in routes.items():
             if (_sha_f32(gray), _sha_f32(depth)) != (want["load_gray_sha256"],
                                                      want["load_depth_sha256"]):
@@ -1409,8 +1420,8 @@ def host_images(dev, smi, report) -> dict:
                      "manifest's SHA-256 of the JAX package's")
     print(f"8g image library {so.name} built; {len(names)} fixtures ({', '.join(names)}): "
           f"load_gray and load_depth equal to the manifest's SHA-256 of the JAX package's "
-          f"through the library and its plain twin ({time.perf_counter() - t0:.2f} s) [{smi}]",
-          flush=True)
+          f"through the library and its plain twin (those under {', '.join(LIBRARY_ONLY)} "
+          f"through the library) ({time.perf_counter() - t0:.2f} s) [{smi}]", flush=True)
 
     # the KITTI JPEG pairs in the Malaga layout
     folder = os.path.join(HOST_DIR, "malaga")
@@ -1479,14 +1490,20 @@ def host_images(dev, smi, report) -> dict:
                                      "pair 0 8-bit LZW + predictor 2, pair 1 16-bit")
     counts_tga_vo = kitti_folder_vo(dev, smi, report, manifest, "kitti_tga", "tga",
                                     "run-length-encoded TGA")
-    counts_tiff_rgbd = tiff_rgbd(dev, smi, report, manifest)
+    counts_tiff_rgbd = tum_folder_rgbd(dev, smi, report, manifest, "tum_tiff", "tiff",
+                                       "depth 16-bit and float32 TIFF")
+    counts_zstd_vo = kitti_folder_vo(dev, smi, report, manifest, "kitti_zstd", "zstd",
+                                     "pair 0 8-bit Zstandard + predictor 2, pair 1 16-bit")
+    counts_jp2_rgbd = tum_folder_rgbd(dev, smi, report, manifest, "tum_jp2", "jp2",
+                                      "RGB 9/7 JP2 in three layers, depth 16-bit 5/3 J2K")
 
     # ms per decode on this machine's host
     for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg",
                  "kitti_tiff/image_0/000000.tif", "kitti_tiff/image_0/000001.tif",
                  "tum_tiff/depth/0.tif", "tum_tiff/depth/1.tif",
                  "kitti_tga/image_0/000000.tga", "icl_dxt1.dds", "kitti_ccitt_g4.tif",
-                 "icl_jpeg_ycbcr_420.tif", "icl_progressive_3_scans.jpg"):
+                 "icl_jpeg_ycbcr_420.tif", "icl_progressive_3_scans.jpg",
+                 "tum_jp2/rgb/0.jp2", "tum_jp2/depth/0.j2k", "kitti_zstd/image_0/000000.tif"):
         path = os.path.join(IMAGE_FIXTURES, name)
         shape = images.decode(path).samples.shape
         t0 = time.perf_counter()
@@ -1497,20 +1514,24 @@ def host_images(dev, smi, report) -> dict:
         for _ in range(DECODE_REPS):
             datasets.load_gray(path)
         gray_ms = (time.perf_counter() - t0) / DECODE_REPS * 1e3
-        t0 = time.perf_counter()
-        images_plain.decode(path)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain = "not run (library only)"
+        if not name.startswith(LIBRARY_ONLY):
+            t0 = time.perf_counter()
+            images_plain.decode(path)
+            plain = f"{(time.perf_counter() - t0) * 1e3:.1f} ms (one call)"
         print(f"8g decode {name} {shape[0]}x{shape[1]}x{shape[2]} "
               f"({os.path.getsize(path)} bytes) on the host: images.decode {lib_ms:.3f} ms, "
-              f"load_gray {gray_ms:.3f} ms (mean of {DECODE_REPS}), plain twin "
-              f"{plain_ms:.1f} ms (one call) [{smi}]", flush=True)
+              f"load_gray {gray_ms:.3f} ms (mean of {DECODE_REPS}), plain twin {plain} "
+              f"[{smi}]", flush=True)
     return {"jpeg_vo": counts, "tiff_vo": counts_tiff_vo, "tga_vo": counts_tga_vo,
-            "tiff_rgbd": counts_tiff_rgbd}
+            "tiff_rgbd": counts_tiff_rgbd, "zstd_vo": counts_zstd_vo,
+            "jp2_rgbd": counts_jp2_rgbd}
 
 
 def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: str) -> dict:
     """8g: a KITTI-layout fixture folder (``kitti_tiff``: pair 0 8-bit LZW
-    with predictor 2, pair 1 16-bit; ``kitti_tga``: RLE TGA) through
+    with predictor 2, pair 1 16-bit; ``kitti_zstd``: the same as Zstandard;
+    ``kitti_tga``: RLE TGA) through
     iter_kitti_odometry, then adapt_stereo -> track_step on the card and on
     the CPU; K3 and K1 bit-exact and K2 within TIFF_GN_ATOL at these frames
     (``max_abs_err_<label>`` in the kernels line).  Returns the card run's
@@ -1524,7 +1545,7 @@ def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: s
     from srrg2_proslam_tpu_torch.ops import se3
 
     seq = os.path.join(IMAGE_FIXTURES, folder)
-    ext = {"tiff": "tif", "tga": "tga"}[label]
+    ext = {"tiff": "tif", "zstd": "tif", "tga": "tga"}[label]
     name = label.upper()
     frames = list(datasets.iter_kitti_odometry(seq))
     same = len(frames) == 2 and all(
@@ -1567,12 +1588,14 @@ def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: s
     return counts
 
 
-def tiff_rgbd(dev, smi, report, manifest) -> dict:
-    """8g: the TUM TIFF folder (the ICL frames 0 and 1 at 640 x 480: gray
-    8-bit LZW intensity, frame 0's depth 16-bit Deflate, frame 1's float32
-    tiles with the float predictor) through iter_tum_rgbd, then adapt_rgbd
-    -> track_step(model="rgbd") on the card and on the CPU; K3 and K1
-    bit-exact at frame 0.  Returns the card run's launches."""
+def tum_folder_rgbd(dev, smi, report, manifest, folder: str, label: str, what: str) -> dict:
+    """8g: a TUM-layout fixture folder of the ICL frames 0 and 1 at 640 x
+    480 (``tum_tiff``: gray 8-bit LZW intensity, frame 0's depth 16-bit
+    Deflate, frame 1's float32 tiles with the float predictor; ``tum_jp2``:
+    RGB 9/7 JP2, 16-bit 5/3 J2K depth) through iter_tum_rgbd, then
+    adapt_rgbd -> track_step(model="rgbd") on the card and on the CPU; K3
+    and K1 bit-exact at frame 0 (``max_abs_err_<label>_rgbd``).  Returns
+    the card run's launches."""
     import torch
 
     from srrg2_proslam_tpu_torch import kernels
@@ -1581,24 +1604,27 @@ def tiff_rgbd(dev, smi, report, manifest) -> dict:
     from srrg2_proslam_tpu_torch.models.tracker import TrackerConfig, initial_state, track_step
     from srrg2_proslam_tpu_torch.ops import se3
 
-    seq = os.path.join(IMAGE_FIXTURES, "tum_tiff")
+    seq = os.path.join(IMAGE_FIXTURES, folder)
+    rgb_ext, depth_ext = {"tiff": ("tif", "tif"), "jp2": ("jp2", "j2k")}[label]
+    name = label.upper()
     frames = list(datasets.iter_tum_rgbd(seq))
     same = len(frames) == 2 and all(
-        _sha_f32(fr.intensity) == manifest[f"tum_tiff/rgb/{i}.tif"]["load_gray_sha256"]
-        and _sha_f32(fr.depth) == manifest[f"tum_tiff/depth/{i}.tif"]["load_depth_sha256"]
+        _sha_f32(fr.intensity) == manifest[f"{folder}/rgb/{i}.{rgb_ext}"]["load_gray_sha256"]
+        and _sha_f32(fr.depth) == manifest[f"{folder}/depth/{i}.{depth_ext}"][
+            "load_depth_sha256"]
         for i, fr in enumerate(frames))
-    print(f"8g iter_tum_rgbd over {seq} (depth 16-bit and float32 TIFF): {len(frames)} frames, "
+    print(f"8g iter_tum_rgbd over {seq} ({what}): {len(frames)} frames, "
           f"equal to the manifest: {same} [{smi}]", flush=True)
     if not same:
-        fail("8g: iter_tum_rgbd's TIFF frames differ from the manifest")
+        fail(f"8g: iter_tum_rgbd's {name} frames differ from the manifest")
     cam = datasets.icl_camera()
     dcfg, track_cfg = DepthAdaptorConfig(), TrackerConfig()
     gpu = [(torch.from_numpy(f.intensity).to(dev), torch.from_numpy(f.depth).to(dev))
            for f in frames]
     errs = check_frontend(frontend_inputs(gpu[0][0][None], dcfg.extractor),
-                          dcfg.extractor.detector_threshold, "TUM TIFF frame 0")
+                          dcfg.extractor.detector_threshold, f"TUM {name} frame 0")
     for kname, err in errs.items():
-        report[kname]["max_abs_err_tiff_rgbd"] = err
+        report[kname][f"max_abs_err_{label}_rgbd"] = err
         report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
 
     def run(pairs, device):
@@ -1621,16 +1647,16 @@ def tiff_rgbd(dev, smi, report, manifest) -> dict:
                                for f in frames], "cpu")
     dt, dang = se3.error_t_and_angle(poses[-1], cpu_poses[-1])
     for i, (g, c) in enumerate(zip(rows, cpu_rows)):
-        print(f"8g TIFF RGB-D frame {i}: meas={g['meas']} matches={g['matches']} "
+        print(f"8g {name} RGB-D frame {i}: meas={g['meas']} matches={g['matches']} "
               f"inliers={g['inliers']} (cpu meas={c['meas']} matches={c['matches']} "
               f"inliers={c['inliers']})", flush=True)
-    print(f"8g RGB-D on the TIFF frames: launches {counts}; final pose vs the CPU run |dt| "
+    print(f"8g RGB-D on the {name} frames: launches {counts}; final pose vs the CPU run |dt| "
           f"{dt.numpy()} angle {float(dang):.3e} [{smi}]", flush=True)
     if counts != {"fast": 2, "brief": 2, "gn_burst": 0}:
-        fail(f"8g TIFF RGB-D launches {counts} != fast 2, brief 2, gn_burst 0")
+        fail(f"8g {name} RGB-D launches {counts} != fast 2, brief 2, gn_burst 0")
     if any(g[k] != c[k] for g, c in zip(rows, cpu_rows) for k in ("meas", "matches", "inliers")
            ) or not (float(dt.max()) <= POSE_TOL_M and float(dang) <= POSE_TOL_RAD):
-        fail("8g: RGB-D on the TIFF frames differs between the card and the CPU")
+        fail(f"8g: RGB-D on the {name} frames differs between the card and the CPU")
     return counts
 
 

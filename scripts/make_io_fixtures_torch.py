@@ -29,7 +29,19 @@ orientation-6 TIFF, a BigTIFF with fill order 2, a progressive JPEG cut
 after three scans (block-smoothed on decoding) and an RLE RGB TGA; and,
 written by PIL from the same crops, a DXT1 DDS, an SGI, an RGB PCX, a PNG
 ICO, a QOI, an IM, a lossless and a lossy (RGBA) WebP and the bilevel crop
-as XBM and MSP.
+as XBM and MSP; two more folders: ``tum_jp2/`` in the TUM RGB-D layout
+(ICL frames 0 and 1 at 640 x 480: the RGB as an irreversible 9/7 JP2 with
+the ICT and quality layers 40 / 20 / 10 by rate, the depth as a reversible
+5/3 16-bit J2K codestream in 256 x 256 tiles, RPCL, 128 x 128 precincts;
+PIL's writer misplaces the samples of an I;16 image's tiles right of the
+first tile column, so only that column is the PGM's depth)
+and ``kitti_zstd/`` in the KITTI odometry layout (the cut pairs 0 and 1,
+pair 0 as 8-bit Zstandard TIFF with predictor 2, pair 1 as 16-bit samples
+256 x the gray), written by PIL; and small JPEG 2000 and Zstandard files
+from the 128 x 96 crop: an RGB JP2 (9/7, ICT, three layers by dB), a 16-bit
+depth J2K (5/3, 32 x 32 tiles, PCRL, precincts), a Zstandard RGB TIFF
+written by PIL and a gray one in tiles with the content checksum (written
+by ``tests/torch_imagefiles.py``).
 ``MANIFEST.json`` holds, for each file, the SHA-256 of
 the float32 bytes of the JAX package's ``load_gray`` and ``load_depth``
 and their shape; and for ``save_gray`` of KITTI left 0 to ``.jpg``, the
@@ -56,7 +68,7 @@ from PIL import Image  # noqa: E402
 
 from srrg2_proslam_tpu.io import datasets as jds  # noqa: E402
 from torch_imagefiles import (lzw_tiff, png_bytes, split_jpeg_tables,  # noqa: E402
-                              tiff_bytes, tiff_chunks_bytes, ycbcr_units)
+                              tiff_bytes, tiff_chunks_bytes, ycbcr_units, zstd_frame)
 
 OUT = os.path.join(ROOT, "test_data", "torch_io")
 KITTI = os.path.join(ROOT, "test_data", "kitti", "city")
@@ -180,6 +192,53 @@ def raster_families(rgb: Image.Image, kitti: Image.Image):
     bilevel.save(os.path.join(OUT, "kitti_bilevel.msp"))
 
 
+def jp2_zstd_folders():
+    """tum_jp2/ and kitti_zstd/ (see the module docstring)."""
+    tum = os.path.join(OUT, "tum_jp2")
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(tum, sub), exist_ok=True)
+    for i in (0, 1):
+        rgb = Image.open(os.path.join(ROOT, "test_data", "icl", f"image_rgb_{i}.png"))
+        rgb.convert("RGB").save(os.path.join(tum, "rgb", f"{i}.jp2"), irreversible=True, mct=1,
+                                quality_mode="rates", quality_layers=[40, 20, 10])
+        depth = jds.load_depth(os.path.join(ROOT, "test_data", "icl", f"image_depth_{i}.pgm"))
+        Image.fromarray(depth.astype(np.uint16)).save(
+            os.path.join(tum, "depth", f"{i}.j2k"), tile_size=(256, 256), progression="RPCL",
+            precinct_size=(128, 128))
+    with open(os.path.join(tum, "rgb.txt"), "w") as f:
+        f.write("# timestamp filename\n0.000000 rgb/0.jp2\n0.033333 rgb/1.jp2\n")
+    with open(os.path.join(tum, "depth.txt"), "w") as f:
+        f.write("# timestamp filename\n0.000000 depth/0.j2k\n0.033333 depth/1.j2k\n")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(OUT, "kitti_zstd", sub), exist_ok=True)
+    for i in (0, 1):
+        for sub, side in (("image_0", "left"), ("image_1", "right")):
+            gray = np.asarray(Image.open(os.path.join(KITTI, f"image_{side}_{i}.png")))
+            gray = np.ascontiguousarray(gray[:, KITTI_COLS])
+            if i == 1:
+                gray = gray.astype(np.uint16) * 256
+            Image.fromarray(gray).save(os.path.join(OUT, "kitti_zstd", sub, f"{i:06d}.tif"),
+                                       compression="zstd", tiffinfo={317: 2})
+    with open(os.path.join(OUT, "kitti_zstd", "times.txt"), "w") as f:
+        f.write("0.000000e+00\n1.036300e-01\n")
+
+
+def jp2_zstd_families(rgb: Image.Image):
+    """The small JPEG 2000 and Zstandard files (see the module docstring)."""
+    crop = rgb.crop((240, 200, 368, 296))                    # 128 x 96
+    crop.save(os.path.join(OUT, "icl_rgb_97_layers.jp2"), irreversible=True, mct=1,
+              quality_mode="dB", quality_layers=[30, 40, 50])
+    depth = jds.load_depth(os.path.join(ROOT, "test_data", "icl", "image_depth_0.pgm"))
+    Image.fromarray(depth[200:296, 240:368].astype(np.uint16)).save(
+        os.path.join(OUT, "icl_depth16_tiles.j2k"), tile_size=(32, 32), progression="PCRL",
+        precinct_size=(16, 16), codeblock_size=(8, 8), num_resolutions=3)
+    crop.save(os.path.join(OUT, "icl_rgb_zstd.tif"), compression="zstd")
+    gray = np.asarray(crop.convert("L")).astype(np.int64)[:, :, None]
+    with open(os.path.join(OUT, "icl_gray_zstd_tiles.tif"), "wb") as f:
+        f.write(tiff_bytes(gray, 8, 1, compression=50000, predictor=2, tile=(48, 32),
+                           codec=zstd_frame(level=19, checksum=True)))
+
+
 def fixture_files():
     """Every image file under OUT, as paths relative to it."""
     out = []
@@ -231,6 +290,8 @@ def main():
     tga_folder()
     later_families(rgb, kitti)
     raster_families(rgb, kitti)
+    jp2_zstd_folders()
+    jp2_zstd_families(rgb)
 
     manifest = {}
     for name in fixture_files():

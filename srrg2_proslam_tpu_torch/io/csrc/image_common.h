@@ -65,6 +65,8 @@ bool spider_header(const std::vector<uint8_t>& file);
 Image decode_spider(const std::vector<uint8_t>& file);
 Image decode_webp(const std::vector<uint8_t>& file);
 std::vector<uint8_t> decode_xz(const uint8_t* d, size_t n, size_t want);
+std::vector<uint8_t> decode_zstd(const uint8_t* d, size_t n, size_t want);
+Image decode_j2k(const std::vector<uint8_t>& file);
 Image decode_bmp_image(const std::vector<uint8_t>& file);
 Image decode_png_image(const std::vector<uint8_t>& file);
 Image decode_gif(const std::vector<uint8_t>& file);

@@ -1721,7 +1721,7 @@ Image decode_any(const std::vector<uint8_t>& file) {
   if (starts("\x89HDF\r\n\x1a\n", 8)) return refuse("HDF5");
   if (starts("\x89PNG\r\n\x1a\n", 8)) return decode_png(file);
   if (starts("\xff\x4f\xff\x51", 4) || starts("\0\0\0\x0cjP  \r\n\x87\n", 12))
-    return refuse("JPEG 2000");
+    return decode_j2k(file);
   if (starts("icns", 4)) return refuse("ICNS");
   if (starts("\0\0\1\0", 4) && n >= 6 && le16(p + 4) > 0) return decode_ico(file);
   if (im_header(file)) return decode_im(file);  // IM, by PIL's header test (no magic)
@@ -1750,8 +1750,8 @@ Image decode_any(const std::vector<uint8_t>& file) {
   if (starts("/* XPM */", 9)) return decode_xpm(file);
   if (starts("P7 332", 6)) return refuse("XV thumbnail");
   throw Error("not an image file PIL identifies (JPEG, PNG, BMP, CUR, PCX, DDS, ICO, TIFF, "
-              "GIF, IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM and "
-              "XPM are read)");
+              "GIF, JPEG 2000, IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM "
+              "and XPM are read)");
 }
 
 // ===========================================================================

@@ -21,13 +21,13 @@
 // subsampling block), and uncompressed ones as PIL's raw decoder reads them
 // (four bytes a pixel, "RGBX").  CCITT RLE / Group 3 / Group 4 bilevel data
 // decodes in image_ccitt.cpp, LZMA (34925, libtiff's xz streams) in
-// image_lzma.cpp.  Little-endian BigTIFF files (magic 43) are read too.  Fill
+// image_lzma.cpp, ZSTD (50000, Zstandard frames) in image_zstd.cpp.  Little-endian BigTIFF files (magic 43) are read too.  Fill
 // order 2 reverses the bits of every stored byte first (for the layouts PIL
 // has a fill-order-2 mode for); the orientation tag is applied last, as
 // PIL's exif_transpose does.  Planar configuration 2 at 16 bits keeps each
 // sample's high byte when compressed, and takes the plane's bytes one per
 // pixel when uncompressed (PIL's per-band 8-bit unpacker).  Refused with a
-// message: old-style JPEG, ZSTD, WebP and the other compressions, and
+// message: old-style JPEG, WebP and the other compressions, and
 // any layout PIL has no mode for (in a big-endian file also 16-bit
 // MinIsWhite, 32-bit unsigned and 12-bit samples).  PIL unpacks libtiff's
 // host-order output of a compressed big-endian file's signed and float
@@ -470,12 +470,12 @@ Image decode_tiff_file(const std::vector<uint8_t>& file, const TiffFile& t) {
   uint64_t orientation = t.value(274, 1), planar = t.value(284, 1), predictor = t.value(317, 1);
   if (t.find(0xBC01)) throw Error("TIFF: Windows Media Photo is not supported");
   const bool ccitt = compression == 2 || compression == 3 || compression == 4;
-  const bool jpeg = compression == 7, xz = compression == 34925;
+  const bool jpeg = compression == 7, xz = compression == 34925, zstd = compression == 50000;
   if (compression == 6) throw Error("TIFF: compression 6 (old-style JPEG) is not supported");
   if (compression != 1 && compression != 5 && compression != 8 && compression != 32946 &&
-      compression != 32773 && !ccitt && !jpeg && !xz)
+      compression != 32773 && !ccitt && !jpeg && !xz && !zstd)
     throw Error("TIFF: compression " + std::to_string(compression) + " is not supported "
-                "(none, CCITT, LZW, JPEG, Deflate, PackBits and LZMA only)");
+                "(none, CCITT, LZW, JPEG, Deflate, PackBits, LZMA and ZSTD only)");
   if (fill != 1 && fill != 2)
     throw Error("TIFF: fill order " + std::to_string(fill) + " is not supported");
   if (planar != 1 && planar != 2) throw Error("TIFF: bad planar configuration");
@@ -624,6 +624,7 @@ Image decode_tiff_file(const std::vector<uint8_t>& file, const TiffFile& t) {
         if (compression == 5) data = unlzw(src, cnt, coded);
         else if (compression == 32773) data = unpack_bits(src, cnt, coded);
         else if (xz) data = decode_xz(src, cnt, coded);
+        else if (zstd) data = decode_zstd(src, cnt, coded);
         else if (ccitt) {
           std::vector<uint8_t> px =
               decode_ccitt(src, cnt, int(cw), int(rows), int(compression), t4);

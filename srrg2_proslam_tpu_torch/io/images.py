@@ -2,7 +2,8 @@
 read as the JAX package reads them through PIL.
 
 ``csrc/image_*.cpp`` decode, bit for bit as PIL 12 (with libjpeg-turbo
-3.1, libtiff 4.7 and libwebp) does, the files PIL identifies as:
+3.1, libtiff 4.7, OpenJPEG 2.5 and libwebp) does, the files PIL
+identifies as:
 - JPEG: baseline, progressive (block-smoothed as libjpeg's jdcoefct.c
   does where the first AC coefficients are incomplete) and lossless (SOF3)
   Huffman, sequential and progressive arithmetic coding; gray, YCbCr at
@@ -12,10 +13,15 @@ read as the JAX package reads them through PIL.
   bit-field layouts, OS/2 headers;
 - TIFF and BigTIFF (little-endian): strips or tiles, planar configuration
   1 or 2, no compression, PackBits, LZW (old-style too), Deflate, CCITT
-  RLE / Group 3 / Group 4, JPEG, LZMA; predictors 2 and 3; fill order 2;
+  RLE / Group 3 / Group 4, JPEG, LZMA, ZSTD (``image_zstd.cpp``, a
+  Zstandard frame decoder); predictors 2 and 3; fill order 2;
   orientation 2-8; bilevel, 2/4/8/12/16-bit gray, signed 16/32-bit,
   float32, gray + alpha, RGB(A) at 8/16 bits, palette, CMYK, LAB, YCbCr
   (libtiff's conversion);
+- JPEG 2000 codestreams and JP2 files (``image_j2k.cpp``: every
+  progression order and POC, tiles, precincts, layers, SOP / EPH, PPM /
+  PPT, the ROI max-shift, the 5/3 and 9/7 wavelets, RCT / ICT; PIL's L,
+  I;16, LA, RGB, RGBA, P and CMYK, sYCC converted as PIL converts it);
 - GIF (the first frame), PNM (P1-P6, Pf), TGA, SGI, PCX, DDS (uncompressed,
   BC1-BC5, BC7), PSD (the composite), ICO / CUR, QOI, IM, SPIDER, Sun
   raster, MSP, XBM, XPM and WebP (lossless, and lossy with its alpha);
@@ -28,7 +34,7 @@ PIL does; ``encode_tiff_gray``, ``encode_bmp_gray``, ``encode_tga_gray``,
 with g++ at first use into the git-ignored ``srrg2_proslam_tpu_torch/build/``
 as ``io/native.py`` compiles the repo's decoder; a failed build raises with
 the compiler's output.  ``images_plain.decode`` is the plain Python twin it
-is held to.
+is held to (``images_plain_more`` and ``images_plain_j2k`` beside it).
 
 A decoded file keeps PIL's mode, and ``gray_f32`` / ``depth_f32`` apply the
 JAX package's rule for files that take its PIL branch
@@ -58,13 +64,15 @@ SOURCES = [_CSRC / name for name in ("image_extra.cpp", "image_tiff.cpp", "image
                                      "image_gif_pnm.cpp", "image_tga.cpp", "image_sgi_pcx.cpp",
                                      "image_dds.cpp", "image_psd.cpp", "image_ico.cpp",
                                      "image_qoi.cpp", "image_im.cpp", "image_misc.cpp",
-                                     "image_webp.cpp", "image_lzma.cpp")]
+                                     "image_webp.cpp", "image_lzma.cpp", "image_j2k.cpp",
+                                     "image_zstd.cpp")]
 HEADERS = [_CSRC / "image_common.h"]
 MODES = ("1", "L", "P", "I;16", "LA", "RGB", "RGBA", "I;16B", "I", "F", "CMYK",
          "LAB")   # mode codes
 
 UNKNOWN = ("not an image file PIL identifies (JPEG, PNG, BMP, CUR, PCX, DDS, ICO, TIFF, GIF, "
-           "IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM and XPM are read)")
+           "JPEG 2000, IM, MSP, PNM, PFM, PSD, QOI, SGI, SPIDER, SUN, TGA, WebP, XBM and XPM "
+           "are read)")
 
 _lib = None
 
@@ -112,9 +120,10 @@ def _take(ptr, count: int, lib) -> bytearray:
 
 
 def decode(path: str) -> Decoded:
-    """A JPEG, PNG, BMP, TIFF, GIF or PNM / PFM file -> its samples in PIL's
-    mode; ValueError naming the file and the reason when the library does
-    not read it."""
+    """An image file PIL identifies (JPEG, PNG, BMP, TIFF, GIF, PNM / PFM,
+    JPEG 2000 and the rest of the module docstring's list) -> its samples
+    in PIL's mode; ValueError naming the file and the reason when the
+    library does not read it."""
     lib = library()
     w, h, c, d, m, n_pal = (ctypes.c_int() for _ in range(6))
     pal = ctypes.create_string_buffer(768)

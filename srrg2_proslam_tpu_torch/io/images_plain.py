@@ -1,14 +1,17 @@
 """The plain Python/numpy twin of the second image library's decoders
-(``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp``,
+(``csrc/image_extra.cpp``, ``csrc/image_tiff.cpp``, ``csrc/image_zstd.cpp``,
 ``csrc/image_gif_pnm.cpp``; ``images_plain_more.py`` twins
-``csrc/image_ccitt.cpp``, ``csrc/image_tga.cpp`` and the identification).
+``csrc/image_ccitt.cpp``, ``csrc/image_tga.cpp`` and the identification,
+``images_plain_j2k.py`` ``csrc/image_j2k.cpp``).
 
 ``decode`` reads the same files as ``images.decode`` (JPEG baseline,
 progressive (block-smoothed when incomplete), lossless and
 arithmetic-coded; PNG of every colour type, bit depth and interlace; BMP
 raw, RLE and bit-field; TIFF and BigTIFF strips and tiles with PackBits,
-LZW (old-style too), Deflate, CCITT or JPEG, predictors 2 / 3, YCbCr,
-either fill order and any orientation; GIF; PNM P1-P6 and PFM; TGA),
+LZW (old-style too), Deflate, CCITT, JPEG, LZMA or ZSTD (a Zstandard
+frame decoder in Python), predictors 2 / 3, YCbCr,
+either fill order and any orientation; GIF; PNM P1-P6 and PFM; TGA;
+JPEG 2000),
 refuses the same ones and returns the same ``Decoded`` samples:
 entropy decoding and LZW in Python, libjpeg-turbo's integer IDCT, fancy
 upsampling and fixed-point YCbCr -> RGB vectorised in int64 numpy.  The
@@ -25,15 +28,16 @@ import zlib
 import numpy as np
 
 from .datasets import _PNG_SIGNATURE, _unfilter
+from . import images_plain_j2k as j2k
 from . import images_plain_more as more
 from .images_plain_more import MAX_PIXELS
 from .images import Decoded
 
 
 def decode(path: str) -> Decoded:
-    """An image file PIL identifies as JPEG, PNG, BMP, TIFF, GIF, PNM / PFM
-    or TGA -> its samples in PIL's mode; ValueError naming the file and the
-    reason otherwise."""
+    """An image file PIL identifies as one of ``images.decode``'s formats ->
+    its samples in PIL's mode; ValueError naming the file and the reason
+    otherwise."""
     with open(path, "rb") as f:
         blob = f.read()
     decoders = {"JPEG": lambda b: _Jpeg(b).decode(), "PNG": _decode_png, "BMP": _decode_bmp,
@@ -42,7 +46,8 @@ def decode(path: str) -> Decoded:
                 "DDS": more.decode_dds, "PSD": more.decode_psd, "ICO": more.decode_ico,
                 "CUR": more.decode_cur, "QOI": more.decode_qoi, "IM": more.decode_im,
                 "SUN": more.decode_sun, "MSP": more.decode_msp, "XBM": more.decode_xbm,
-                "XPM": more.decode_xpm, "SPIDER": more.decode_spider, "WebP": more.decode_webp}
+                "XPM": more.decode_xpm, "SPIDER": more.decode_spider, "WebP": more.decode_webp,
+                "JPEG 2000": j2k.decode}
     try:
         return decoders[more.identify(blob)](blob)
     except (ValueError, IndexError, struct.error, zlib.error) as e:
@@ -1147,7 +1152,7 @@ def _decode_bmp(blob: bytes) -> Decoded:
 _TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("B", 1), 7: ("B", 1), 8: ("H", 2),
                9: ("I", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("Q", 8), 18: ("Q", 8),
                2: (None, 1), 5: (None, 8), 10: (None, 8), 11: (None, 4), 12: (None, 8)}
-_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 34925)
+_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 34925, 50000)
 
 
 def _tiff_tags(blob: bytes):
@@ -1335,6 +1340,455 @@ def _unpack_bits(data: bytes, want: int) -> bytes:
     return bytes(out[:want])
 
 
+# ---- Zstandard (RFC 8878; csrc/image_zstd.cpp) -----------------------------------------
+
+def _zstd_error(what: str):
+    raise ValueError(f"TIFF: corrupt ZSTD data ({what})")
+
+
+class _ZForward:
+    """Least significant bit first, from the start (FSE table descriptions)."""
+
+    def __init__(self, data: bytes):
+        self.d, self.bit = data, 0
+
+    def peek(self, count: int) -> int:
+        lo = self.bit >> 3
+        v = int.from_bytes(self.d[lo:lo + 6], "little") >> (self.bit & 7)
+        return v & ((1 << count) - 1)
+
+    def read(self, count: int) -> int:
+        if (self.bit + count + 7) >> 3 > len(self.d):
+            _zstd_error("a table description runs past the block")
+        v = self.peek(count)
+        self.bit += count
+        return v
+
+
+class _ZBackward:
+    """From the last byte's highest set bit towards the first byte, most
+    significant bit first; bits before the start read as zeros."""
+
+    def __init__(self, data: bytes):
+        if not data or data[-1] == 0:
+            _zstd_error("a bitstream without its end mark")
+        self.d = data
+        self.left = 8 * len(data) - 8 + data[-1].bit_length() - 1
+
+    def peek(self, count: int) -> int:
+        if count == 0:
+            return 0
+        pos = self.left - count
+        if pos >= 0:
+            lo = pos >> 3
+            v = int.from_bytes(self.d[lo:(self.left + 7) >> 3], "little") >> (pos & 7)
+            return v & ((1 << count) - 1)
+        top = self.left
+        if top <= 0:
+            return 0
+        v = int.from_bytes(self.d[:(top + 7) >> 3], "little") & ((1 << top) - 1)
+        return v << -pos
+
+    def read(self, count: int) -> int:
+        v = self.peek(count)
+        self.left -= count
+        return v
+
+
+def _fse_build(counts: list, accuracy: int):
+    """(symbol, base, bits) per state of an FSE decoding table."""
+    size = 1 << accuracy
+    symbol, base, bits = [0] * size, [0] * size, [0] * size
+    nxt = [0] * len(counts)
+    high = size - 1
+    for s, c in enumerate(counts):
+        if c == -1:
+            symbol[high] = s
+            high -= 1
+            nxt[s] = 1
+        else:
+            nxt[s] = max(c, 0)
+    pos, step, mask = 0, (size >> 1) + (size >> 3) + 3, size - 1
+    for s, c in enumerate(counts):
+        for _ in range(c):
+            symbol[pos] = s
+            pos = (pos + step) & mask
+            while pos > high:
+                pos = (pos + step) & mask
+    if pos != 0:
+        _zstd_error("an FSE table that does not fill")
+    for i in range(size):
+        state = nxt[symbol[i]]
+        nxt[symbol[i]] += 1
+        nb = accuracy - (state.bit_length() - 1)
+        bits[i] = nb
+        base[i] = (state << nb) - size
+    return accuracy, symbol, base, bits
+
+
+def _fse_read(data: bytes, max_log: int, max_symbol: int):
+    """An FSE table description -> (table, bytes read)."""
+    br = _ZForward(data)
+    accuracy = br.read(4) + 5
+    if accuracy > max_log:
+        _zstd_error("an FSE accuracy above the limit")
+    remaining, threshold, nb = (1 << accuracy) + 1, 1 << accuracy, accuracy + 1
+    counts = []
+    while remaining > 1:
+        if len(counts) > max_symbol:
+            _zstd_error("too many FSE symbols")
+        biggest = 2 * threshold - 1 - remaining
+        low = br.peek(nb - 1)
+        if low & (threshold - 1) < biggest:
+            value = low & (threshold - 1)
+            br.read(nb - 1)
+        else:
+            value = br.read(nb)
+            if value >= threshold:
+                value -= biggest
+        count = value - 1
+        remaining -= abs(count)
+        counts.append(count)
+        if count == 0:
+            while True:
+                repeat = br.read(2)
+                counts += [0] * repeat
+                if repeat != 3:
+                    break
+        while remaining < threshold:
+            nb -= 1
+            threshold >>= 1
+    if remaining != 1 or len(counts) > max_symbol + 1:
+        _zstd_error("a bad FSE table description")
+    return _fse_build(counts, accuracy), (br.bit + 7) >> 3
+
+
+def _huffman_build(weights: list):
+    total = sum(1 << (w - 1) for w in weights if w > 0)
+    if total == 0:
+        _zstd_error("a Huffman tree without weights")
+    max_bits = total.bit_length()
+    rest = (1 << max_bits) - total
+    if rest & (rest - 1):
+        _zstd_error("a Huffman tree that does not close")
+    weights = weights + [rest.bit_length()]
+    if max_bits > 11:
+        _zstd_error("Huffman codes above 11 bits")
+    symbol, length = [], []
+    for weight in range(1, max_bits + 1):
+        for s, w in enumerate(weights):
+            if w == weight:
+                span = 1 << (weight - 1)
+                symbol += [s] * span
+                length += [max_bits + 1 - weight] * span
+    return max_bits, symbol, length
+
+
+def _huffman_tree(data: bytes):
+    """The tree description -> (table, bytes read)."""
+    if not data:
+        _zstd_error("a truncated Huffman tree")
+    head = data[0]
+    if head >= 128:
+        count = head - 127
+        used = 1 + (count + 1) // 2
+        if used > len(data):
+            _zstd_error("a truncated Huffman tree")
+        weights = [(data[1 + i // 2] >> (0 if i % 2 else 4)) & 15 for i in range(count)]
+    else:
+        used = 1 + head
+        if used > len(data):
+            _zstd_error("a truncated Huffman tree")
+        (log, symbol, base, bits), desc = _fse_read(data[1:used], 6, 255)
+        if desc > head:
+            _zstd_error("a truncated Huffman tree")
+        br = _ZBackward(data[1 + desc:used])
+        states = [br.read(log), br.read(log)]
+        weights = []
+        k = 0
+        while True:
+            if len(weights) > 254:
+                _zstd_error("too many Huffman weights")
+            s = states[k]
+            weights.append(symbol[s])
+            states[k] = base[s] + br.read(bits[s])
+            if br.left < 0:
+                weights.append(symbol[states[1 - k]])
+                break
+            k = 1 - k
+    if any(w > 11 for w in weights):
+        _zstd_error("a Huffman weight above 11")
+    return _huffman_build(weights), used
+
+
+def _huffman_stream(table, data: bytes, count: int) -> bytes:
+    max_bits, symbol, length = table
+    br = _ZBackward(data)
+    out = bytearray(count)
+    for i in range(count):
+        idx = br.peek(max_bits)
+        out[i] = symbol[idx]
+        br.left -= length[idx]
+    if br.left != 0:
+        _zstd_error("a Huffman stream of the wrong length")
+    return bytes(out)
+
+
+_LL_DEFAULT = [4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 3, 2, 1,
+               1, 1, 1, 1, -1, -1, -1, -1]
+_ML_DEFAULT = [1, 4, 3, 2, 2, 2, 2, 2, 2] + [1] * 37 + [-1] * 7
+_OF_DEFAULT = [1, 1, 1, 1, 1, 1, 2, 2, 2] + [1] * 15 + [-1] * 5
+_LL_BASE = list(range(16)) + [16, 18, 20, 22, 24, 28, 32, 40, 48, 64, 128, 256, 512, 1024,
+                              2048, 4096, 8192, 16384, 32768, 65536]
+_LL_BITS = [0] * 16 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16]
+_ML_BASE = list(range(3, 35)) + [35, 37, 39, 41, 43, 47, 51, 59, 67, 83, 99, 131, 259, 515,
+                                 1027, 2051, 4099, 8195, 16387, 32771, 65539]
+_ML_BITS = [0] * 32 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16]
+
+
+def _zstd_table(mode, data, defaults, default_log, max_log, max_symbol, previous):
+    """One table of the sequences section -> (table, bytes read)."""
+    if mode == 0:
+        return _fse_build(defaults, default_log), 0
+    if mode == 1:
+        if not data or data[0] > max_symbol:
+            _zstd_error("a bad RLE table")
+        return (0, [data[0]], [0], [0]), 1
+    if mode == 2:
+        return _fse_read(data, max_log, max_symbol)
+    if previous is None:
+        _zstd_error("a repeated table before any")
+    return previous, 0
+
+
+def _zstd_block(d: bytes, st: dict, out: bytearray):
+    """One compressed block appended to ``out``."""
+    if not d:
+        _zstd_error("an empty compressed block")
+    ltype, fmt = d[0] & 3, (d[0] >> 2) & 3
+    if ltype <= 1:
+        if fmt in (0, 2):
+            regen, head = d[0] >> 3, 1
+        elif fmt == 1:
+            regen, head = (d[0] >> 4) | (d[1] << 4), 2
+        else:
+            regen, head = (d[0] >> 4) | (d[1] << 4) | (d[2] << 12), 3
+        if ltype == 0:
+            if head + regen > len(d):
+                _zstd_error("truncated raw literals")
+            lit = d[head:head + regen]
+            head += regen
+        else:
+            if head + 1 > len(d):
+                _zstd_error("truncated RLE literals")
+            lit = bytes([d[head]]) * regen
+            head += 1
+    else:
+        bits = 10 if fmt <= 1 else (14 if fmt == 2 else 18)
+        head = 3 if fmt <= 1 else (4 if fmt == 2 else 5)
+        if len(d) < head:
+            _zstd_error("a truncated literals header")
+        h = int.from_bytes(d[:head], "little")
+        regen = (h >> 4) & ((1 << bits) - 1)
+        csize = (h >> (4 + bits)) & ((1 << bits) - 1)
+        if head + csize > len(d):
+            _zstd_error("truncated Huffman literals")
+        body = d[head:head + csize]
+        if ltype == 2:
+            st["huf"], used = _huffman_tree(body)
+            body = body[used:]
+        elif st["huf"] is None:
+            _zstd_error("treeless literals before any tree")
+        if fmt == 0:
+            lit = _huffman_stream(st["huf"], body, regen)
+        else:
+            if len(body) < 6:
+                _zstd_error("a truncated jump table")
+            s1, s2, s3 = (int.from_bytes(body[k:k + 2], "little") for k in (0, 2, 4))
+            if 6 + s1 + s2 + s3 > len(body):
+                _zstd_error("a bad jump table")
+            seg = (regen + 3) // 4
+            if 3 * seg > regen:
+                _zstd_error("too few literals for four streams")
+            cuts = [6, 6 + s1, 6 + s1 + s2, 6 + s1 + s2 + s3, len(body)]
+            lit = b"".join(_huffman_stream(st["huf"], body[cuts[k]:cuts[k + 1]],
+                                           seg if k < 3 else regen - 3 * seg) for k in range(4))
+        head += csize
+    pos = head
+    if pos >= len(d):
+        _zstd_error("no sequences section")
+    nseq = d[pos]
+    if nseq < 128:
+        pos += 1
+    elif nseq < 255:
+        nseq = ((nseq - 128) << 8) + d[pos + 1]
+        pos += 2
+    else:
+        nseq = d[pos + 1] + (d[pos + 2] << 8) + 0x7F00
+        pos += 3
+    lit_pos = 0
+    if nseq:
+        modes = d[pos]
+        pos += 1
+        if modes & 3:
+            _zstd_error("reserved bits in the compression modes")
+        st["ll"], used = _zstd_table(modes >> 6, d[pos:], _LL_DEFAULT, 6, 9, 35, st["ll"])
+        pos += used
+        st["of"], used = _zstd_table((modes >> 4) & 3, d[pos:], _OF_DEFAULT, 5, 8, 31, st["of"])
+        pos += used
+        st["ml"], used = _zstd_table((modes >> 2) & 3, d[pos:], _ML_DEFAULT, 6, 9, 52, st["ml"])
+        pos += used
+        if pos > len(d):
+            _zstd_error("truncated sequence tables")
+        ll_t, of_t, ml_t = st["ll"], st["of"], st["ml"]
+        br = _ZBackward(d[pos:])
+        sll, sof, sml = br.read(ll_t[0]), br.read(of_t[0]), br.read(ml_t[0])
+        rep = st["rep"]
+        for i in range(nseq):
+            ofc, llc, mlc = of_t[1][sof], ll_t[1][sll], ml_t[1][sml]
+            if ofc > 31 or llc > 35 or mlc > 52:
+                _zstd_error("a bad sequence code")
+            ofv = (1 << ofc) + br.read(ofc)
+            ml = _ML_BASE[mlc] + br.read(_ML_BITS[mlc])
+            ll = _LL_BASE[llc] + br.read(_LL_BITS[llc])
+            if ofv > 3:
+                offset = ofv - 3
+                rep[:] = [offset, rep[0], rep[1]]
+            else:
+                idx = ofv - 1 + (ll == 0)
+                if idx == 0:
+                    offset = rep[0]
+                else:
+                    offset = rep[0] - 1 if idx == 3 else rep[idx]
+                    rep[:] = [offset, rep[0], rep[2] if idx == 1 else rep[1]]
+            if i + 1 < nseq:
+                sll = ll_t[2][sll] + br.read(ll_t[3][sll])
+                sml = ml_t[2][sml] + br.read(ml_t[3][sml])
+                sof = of_t[2][sof] + br.read(of_t[3][sof])
+            if lit_pos + ll > len(lit):
+                _zstd_error("a sequence past the literals")
+            out += lit[lit_pos:lit_pos + ll]
+            lit_pos += ll
+            if offset == 0 or offset > len(out):
+                _zstd_error("an offset before the frame")
+            start = len(out) - offset
+            if offset >= ml:
+                out += out[start:start + ml]
+            else:
+                for k in range(ml):
+                    out.append(out[start + k])
+        if br.left != 0:
+            _zstd_error("a sequence bitstream of the wrong length")
+    out += lit[lit_pos:]
+
+
+_XXP1, _XXP2, _XXP3 = 11400714785074694791, 14029467366897019727, 1609587929392839161
+_XXP4, _XXP5, _M64 = 9650029242287828579, 2870177450012600261, (1 << 64) - 1
+
+
+def _xxh64(data: bytes) -> int:
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & _M64
+
+    def rnd(acc, lane):
+        return rotl((acc + lane * _XXP2) & _M64, 31) * _XXP1 & _M64
+
+    n, p = len(data), 0
+    if n >= 32:
+        v = [(_XXP1 + _XXP2) & _M64, _XXP2, 0, (-_XXP1) & _M64]
+        while n - p >= 32:
+            for k in range(4):
+                v[k] = rnd(v[k], int.from_bytes(data[p + 8 * k:p + 8 * k + 8], "little"))
+            p += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ rnd(0, x)) * _XXP1 + _XXP4) & _M64
+    else:
+        h = _XXP5
+    h = (h + n) & _M64
+    while n - p >= 8:
+        h = (rotl(h ^ rnd(0, int.from_bytes(data[p:p + 8], "little")), 27) * _XXP1
+             + _XXP4) & _M64
+        p += 8
+    if n - p >= 4:
+        h = (rotl(h ^ (int.from_bytes(data[p:p + 4], "little") * _XXP1 & _M64), 23) * _XXP2
+             + _XXP3) & _M64
+        p += 4
+    while p < n:
+        h = rotl(h ^ (data[p] * _XXP5 & _M64), 11) * _XXP1 & _M64
+        p += 1
+    h ^= h >> 33
+    h = h * _XXP2 & _M64
+    h ^= h >> 29
+    h = h * _XXP3 & _M64
+    return h ^ (h >> 32)
+
+
+def _unzstd(d: bytes, want: int) -> bytes:
+    """The first frame of one ZSTD strip or tile -> its first ``want`` bytes,
+    as libtiff reads them with ZSTD_decompressStream (which stops at a
+    frame's end, a skippable one too; the checksum verified)."""
+    out = bytearray()
+    pos = 0
+    magic = int.from_bytes(d[:4], "little") if len(d) >= 4 else None
+    if magic is not None and magic & 0xFFFFFFF0 != 0x184D2A50:
+        if magic != 0xFD2FB528:
+            _zstd_error("no frame magic")
+        pos += 4
+        if pos >= len(d):
+            _zstd_error("a truncated frame header")
+        desc = d[pos]
+        pos += 1
+        fcs, single, checksum, dict_flag = desc >> 6, (desc >> 5) & 1, (desc >> 2) & 1, desc & 3
+        if desc & 8:
+            _zstd_error("a reserved frame header bit")
+        pos += 0 if single else 1
+        nd = (0, 1, 2, 4)[dict_flag]
+        if int.from_bytes(d[pos:pos + nd], "little"):
+            raise ValueError("TIFF: a ZSTD frame with a dictionary is not supported")
+        pos += nd + (1 if fcs == 0 and single else (0, 2, 4, 8)[fcs])
+        if pos > len(d):
+            _zstd_error("a truncated frame header")
+        st = {"huf": None, "ll": None, "of": None, "ml": None, "rep": [1, 4, 8]}
+        start = len(out)
+        last = False
+        while not last:
+            if pos + 3 > len(d):
+                _zstd_error("a truncated block header")
+            bh = int.from_bytes(d[pos:pos + 3], "little")
+            pos += 3
+            last, kind, size = bh & 1, (bh >> 1) & 3, bh >> 3
+            if kind == 3:
+                _zstd_error("a reserved block type")
+            if size > 1 << 17:
+                _zstd_error("a block above 128 KiB")
+            if kind == 1:
+                if pos + 1 > len(d):
+                    _zstd_error("a truncated RLE block")
+                out += bytes([d[pos]]) * size
+                pos += 1
+            else:
+                if size > len(d) - pos:
+                    _zstd_error("a truncated block")
+                if kind == 0:
+                    out += d[pos:pos + size]
+                else:
+                    _zstd_block(d[pos:pos + size], st, out)
+                pos += size
+            if len(out) > want + (1 << 18):
+                _zstd_error("more data than the strip holds")
+        if checksum:
+            if pos + 4 > len(d):
+                _zstd_error("a truncated checksum")
+            if _xxh64(bytes(out[start:])) & 0xFFFFFFFF != int.from_bytes(d[pos:pos + 4],
+                                                                           "little"):
+                raise ValueError("TIFF: ZSTD checksum mismatch")
+            pos += 4
+    if len(out) < want:
+        raise ValueError("TIFF: not enough ZSTD data for the strip or tile")
+    return bytes(out[:want])
+
+
 def _inflate(data: bytes, want: int) -> bytes:
     d = zlib.decompressobj()
     try:
@@ -1380,7 +1834,7 @@ def _decode_tiff_fields(blob: bytes, e: str, fields) -> Decoded:
         raise ValueError("TIFF: compression 6 (old-style JPEG) is not supported")
     if compression not in _TIFF_COMPRESSIONS:
         raise ValueError(f"TIFF: compression {compression} is not supported (none, CCITT, LZW, "
-                         "JPEG, Deflate, PackBits and LZMA only)")
+                         "JPEG, Deflate, PackBits, LZMA and ZSTD only)")
     if fill not in (1, 2):
         raise ValueError(f"TIFF: fill order {fill} is not supported")
     if planar not in (1, 2):
@@ -1512,6 +1966,8 @@ def _decode_tiff_fields(blob: bytes, e: str, fields) -> Decoded:
                         data = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src, coded)
                     except lzma.LZMAError:
                         raise ValueError("TIFF: corrupt LZMA data") from None
+                elif compression == 50000:
+                    data = _unzstd(src, coded)
                 elif ccitt:
                     px = more.decode_ccitt(src, cw, rows, compression, t4)
                     bits = np.zeros((rows, rowbytes * 8), np.uint8)

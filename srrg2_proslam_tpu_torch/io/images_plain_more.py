@@ -20,8 +20,8 @@ MAX_PIXELS = 178956970   # PIL raises DecompressionBombError above twice MAX_IMA
 # ---- identification -------------------------------------------------------------
 
 # what the port reads of the formats PIL identifies
-_READ = ("JPEG", "PNG", "BMP", "CUR", "PCX", "DDS", "ICO", "IM", "TIFF", "GIF", "MSP", "PPM",
-         "PSD", "QOI", "SGI", "SPIDER", "SUN", "TGA", "WebP", "XBM", "XPM")
+_READ = ("JPEG", "PNG", "BMP", "CUR", "PCX", "DDS", "ICO", "IM", "TIFF", "GIF", "JPEG 2000",
+         "MSP", "PPM", "PSD", "QOI", "SGI", "SPIDER", "SUN", "TGA", "WebP", "XBM", "XPM")
 
 def identify(blob: bytes) -> str:
     """The format PIL's Image.open gives ``blob``, for the formats the port

@@ -32,7 +32,7 @@ from ..kernels._build import BUILD_DIR
 
 SOURCES = [Path(__file__).resolve().parents[2] / "native" / "src" / name
            for name in ("image_decode.cpp", "prefetcher.cpp")]
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 LIBS = ["-lz", "-pthread"]
 
 _lib = None

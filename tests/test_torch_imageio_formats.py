@@ -1045,8 +1045,15 @@ def test_lossy_webp_written_by_pil_reads_as_jax(tmp_path, shape, quality, method
 
 # ---- identification and decompression bombs -------------------------------------------
 
+def _fits_bytes() -> bytes:
+    """A 4 x 3 8-bit FITS file, which PIL's FITS plugin opens and loads."""
+    cards = ["SIMPLE  = T", "BITPIX  = 8", "NAXIS   = 2", "NAXIS1  = 4", "NAXIS2  = 3", "END"]
+    return (b"".join(c.ljust(80).encode() for c in cards).ljust(2880)
+            + bytes(range(12)).ljust(2880, b"\0"))
+
+
 IDENTIFIED = {   # files of formats PIL reads and the port does not: refused naming them
-    "JPEG 2000": lambda: _pil_bytes(_pil_image("RGB", 6), "JPEG2000"),
+    "FITS": _fits_bytes,
     "AVIF": lambda: _pil_bytes(_pil_image("RGB", 7), "AVIF"),
     "BUFR": lambda: b"BUFR" + bytes(60),      # PIL's stub: opens, cannot load
 }
@@ -1061,10 +1068,24 @@ def test_formats_pil_identifies_and_the_port_does_not_read_raise(tmp_path, fmt):
         assert path in str(err.value)
 
 
-@pytest.mark.parametrize("kind", ["tga", "tiff", "bigtiff"])
+def _j2k_bomb(kind: str) -> bytes:
+    """A 200000 x 200000 gray codestream (its SIZ; PIL reads the size there),
+    or a JP2 whose ihdr says so around a small codestream."""
+    small = _pil_bytes(_pil_image("L", 8), "JPEG2000", no_jp2=True)
+    if kind == "j2k":
+        return small[:8] + struct.pack(">II", 200000, 200000) + small[16:]
+    return tf.jp2_bytes(small, 1, 7)[:48] + struct.pack(">II", 200000, 200000) + tf.jp2_bytes(
+        small, 1, 7)[56:]
+
+
+@pytest.mark.parametrize("kind", ["tga", "tiff", "bigtiff", "j2k", "jp2"])
 def test_decompression_bombs_are_refused(tmp_path, kind):
     if kind == "tga":
         blob = _tga(3, 8, 65535, 65535, 0, bytes(64))
+    elif kind in ("j2k", "jp2"):
+        blob = _j2k_bomb(kind)
+        with pytest.raises(Image.DecompressionBombError):
+            Image.open(io.BytesIO(blob))
     else:
         blob = tf.tiff_chunks_bytes(200000, 200000, [bytes(64)], [(258, 3, [8]), (259, 3, [1]),
                                                                  (262, 3, [1])],

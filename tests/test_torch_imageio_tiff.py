@@ -2,15 +2,16 @@
 through PIL (libtiff for compressed files), on the CPU.
 
 Files are written at test time from seeded arrays: by PIL where PIL writes
-the variant (LZW / Deflate / PackBits strips, horizontal differencing
-through ``tiffinfo``), by ``tests/torch_imagefiles.py::tiff_bytes``
+the variant (LZW / Deflate / PackBits / Zstandard strips, horizontal
+differencing through ``tiffinfo``), by ``tests/torch_imagefiles.py::tiff_bytes``
 elsewhere (tiles, big-endian files, planar configuration 2, the float
-predictor, the layouts PIL does not save).  Bounds, every case: the port's
+predictor, the layouts PIL does not save, Zstandard frames of libzstd's
+levels -5 to 22 with and without the content checksum).  Bounds, every case: the port's
 ``load_gray`` and ``load_depth`` equal the JAX package's to the bit, the
 library's samples, mode and palette equal its plain twin's, the mode is
 PIL's; refused variants raise a ``ValueError`` naming the file and the
 feature.  The KITTI- and TUM-layout TIFF folders of ``test_data/torch_io``
-read frame for frame as the JAX package reads them, and as the PNG / PGM
+(and the KITTI-layout Zstandard one) read frame for frame as the JAX package reads them, and as the PNG / PGM
 frames they were made from, and VO and RGB-D over them run alike in both
 packages: ``adapt_stereo -> track_step`` over ``kitti_tiff/`` and
 ``adapt_rgbd -> track_step(model="rgbd")`` over ``tum_tiff/``, each
@@ -21,6 +22,7 @@ bound of ``tests/test_torch_rgbd.py``): the path ``chip_smoke.py`` phase
 8g drives on the card.
 """
 import os
+import struct
 import subprocess
 import sys
 
@@ -39,7 +41,7 @@ from srrg2_proslam_tpu.models import frontend as jfe, tracker as jtr  # noqa: E4
 from srrg2_proslam_tpu_torch.io import datasets as tds  # noqa: E402
 from srrg2_proslam_tpu_torch.io import images, images_plain  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend, tracker  # noqa: E402
-from torch_imagefiles import tiff_bytes  # noqa: E402
+from torch_imagefiles import tiff_bytes, zstd_frame  # noqa: E402
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FIXTURES = os.path.join(REPO, "test_data", "torch_io")
@@ -147,7 +149,12 @@ def test_tiff_predictor_and_planar_read_as_jax(tmp_path, name, predictor, compre
 PIL_CASES = [("L", "raw", {}), ("L", "tiff_lzw", {317: 2}), ("L", "tiff_adobe_deflate", {}),
              ("L", "packbits", {278: 5}), ("I;16", "tiff_lzw", {317: 2}), ("F", "raw", {}),
              ("RGB", "tiff_deflate", {317: 2}), ("RGBA", "tiff_lzw", {}), ("1", "raw", {}),
-             ("P", "tiff_lzw", {}), ("CMYK", "packbits", {}), ("I;16B", "raw", {})]
+             ("P", "tiff_lzw", {}), ("CMYK", "packbits", {}), ("I;16B", "raw", {}),
+             # Zstandard (libtiff's ZSTD codec, compression 50000)
+             ("L", "zstd", {}), ("L", "zstd", {317: 2, 278: 6}), ("I;16", "zstd", {317: 2}),
+             ("F", "zstd", {317: 3}), ("F", "zstd", {}), ("RGB", "zstd", {317: 2}),
+             ("RGBA", "zstd", {278: 4}), ("1", "zstd", {}), ("P", "zstd", {}),
+             ("CMYK", "zstd", {317: 2})]
 
 
 @pytest.mark.parametrize("mode,compression,info", PIL_CASES,
@@ -173,6 +180,67 @@ def test_tiff_written_by_pil_reads_as_jax(tmp_path, mode, compression, info):
     path = str(tmp_path / "x.tiff")
     img.save(path, compression=compression, tiffinfo=info)
     assert_reads_as_jax(path)
+
+
+# Zstandard strips and tiles written by libzstd's encoder (the zstandard
+# package): levels from -5 (raw literals, few sequences) to 22 (Huffman
+# literals in four streams, FSE-compressed tables, repeat offsets), the
+# content checksum, no content size, a skippable frame after the data, an
+# incompressible strip (raw blocks), a constant one (RLE blocks)
+ZSTD_CASES = [
+    ("gray8", 2, dict(tile=(16, 16)), dict(level=19, checksum=True)),
+    ("u16", 2, dict(rows_per_strip=5), dict(level=-5)),
+    ("f32", 3, dict(tile=(32, 16)), dict(level=9, checksum=True, content_size=False)),
+    ("rgb", 1, dict(planar=2, rows_per_strip=8), dict(level=1, skippable=b"extra")),
+    ("rgb16", 2, dict(tile=(16, 32)), dict(level=12)),
+    ("i32", 2, dict(rows_per_strip=11), dict(level=22, checksum=True)),
+    ("rgba", 2, {}, dict(level=3)),
+    ("noise8", 1, {}, dict(level=3)),
+    ("flat8", 1, dict(rows_per_strip=4), dict(level=3, checksum=True)),
+]
+
+
+@pytest.mark.parametrize("name,predictor,org,zkw", ZSTD_CASES,
+                         ids=[f"{n}-pred{p}-" + "-".join(f"{k}={v}" for k, v in {**o, **z}.items())
+                              for n, p, o, z in ZSTD_CASES])
+def test_zstd_tiff_strips_and_tiles_read_as_jax(tmp_path, name, predictor, org, zkw):
+    if name == "noise8":
+        arr, bits, photo, kw = samples(30, 1, 8), 8, 1, {}
+    elif name == "flat8":
+        arr, bits, photo, kw = np.full((H, W, 1), 77), 8, 1, {}
+    else:
+        make, bits, photo, kw = LAYOUTS[name]
+        arr = make()
+    path = str(tmp_path / "x.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(arr, bits, photo, compression=50000, predictor=predictor,
+                           codec=zstd_frame(**zkw), **org, **kw))
+    assert_reads_as_jax(path)
+
+
+def _zstd_refused(first_skippable: bool) -> bytes:
+    def codec(data):
+        frame = zstd_frame(checksum=True)(data)
+        if first_skippable:
+            return struct.pack("<II", 0x184D2A50, 3) + b"abc" + frame
+        return frame[:-4] + bytes(b ^ 0xFF for b in frame[-4:])
+    return tiff_bytes(samples(31, 1, 8), 8, 1, compression=50000, codec=codec)
+
+
+@pytest.mark.parametrize("variant,reason", [
+    ("skippable-first", "not enough ZSTD data"), ("bad-checksum", "ZSTD checksum mismatch")])
+def test_zstd_tiff_libtiff_refuses_is_refused(tmp_path, variant, reason):
+    """libtiff stops at the end of the first frame (a skippable frame first
+    leaves the strip short) and checks the content checksum."""
+    path = str(tmp_path / "x.tif")
+    with open(path, "wb") as f:
+        f.write(_zstd_refused(variant == "skippable-first"))
+    with pytest.raises(OSError):
+        Image.open(path).load()
+    for read in (tds.load_gray, tds.load_depth, images.decode, images_plain.decode):
+        with pytest.raises(ValueError, match=reason) as err:
+            read(path)
+        assert path in str(err.value)
 
 
 def _patched(blob: bytes, tag: int, value: int) -> bytes:
@@ -234,6 +302,20 @@ def test_refused_tiff_raises_naming_the_file(tmp_path, variant):
 
 def test_kitti_tiff_folder_reads_as_jax_and_as_the_png_frames():
     seq = os.path.join(FIXTURES, "kitti_tiff")
+    got_t = list(tds.iter_kitti_odometry(seq))
+    got_j = list(jds.iter_kitti_odometry(seq))
+    assert len(got_t) == len(got_j) == 2
+    kitti = os.path.join(REPO, "test_data", "kitti", "city")
+    for i, (a, b) in enumerate(zip(got_t, got_j)):
+        assert a.timestamp == b.timestamp
+        for side in ("left", "right"):
+            np.testing.assert_array_equal(getattr(a, side), getattr(b, side))
+            png = jds.load_gray(os.path.join(kitti, f"image_{side}_{i}.png"))[:, 300:940]
+            np.testing.assert_array_equal(getattr(a, side), png)
+
+
+def test_kitti_zstd_folder_reads_as_jax_and_as_the_png_frames():
+    seq = os.path.join(FIXTURES, "kitti_zstd")
     got_t = list(tds.iter_kitti_odometry(seq))
     got_j = list(jds.iter_kitti_odometry(seq))
     assert len(got_t) == len(got_j) == 2
@@ -335,7 +417,8 @@ for name in ("jax", "jaxlib", "srrg2_proslam_tpu", "PIL"):
     sys.modules[name] = None
 from srrg2_proslam_tpu_torch.io import datasets
 manifest = json.load(open("test_data/torch_io/MANIFEST.json"))
-for name in ("kitti_tiff/image_0/000001.tif", "tum_tiff/depth/1.tif"):
+for name in ("kitti_tiff/image_0/000001.tif", "tum_tiff/depth/1.tif",
+             "kitti_zstd/image_0/000001.tif", "tum_jp2/rgb/1.jp2", "tum_jp2/depth/1.j2k"):
     for fn in ("load_gray", "load_depth"):
         arr = getattr(datasets, fn)("test_data/torch_io/" + name)
         assert hashlib.sha256(arr.tobytes()).hexdigest() == manifest[name][fn + "_sha256"]

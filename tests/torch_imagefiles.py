@@ -301,20 +301,40 @@ def _tiff_rows(samples: np.ndarray, bps: int, order: str, predictor: int) -> np.
     return np.packbits(bits.astype(np.uint8), axis=1)
 
 
+def zstd_frame(level: int = 3, checksum: bool = False, skippable: bytes = b"",
+               content_size: bool = True):
+    """A chunk compressor writing one Zstandard frame (the ``zstandard``
+    package, libzstd's encoder) at ``level``, with the XXH64 content
+    checksum or without, the content size or not, and a skippable frame
+    holding ``skippable`` after it when that is not empty."""
+    import zstandard
+
+    def compress(data: bytes) -> bytes:
+        frame = zstandard.ZstdCompressor(level=level, write_checksum=checksum,
+                                         write_content_size=content_size).compress(data)
+        if skippable:
+            frame += struct.pack("<II", 0x184D2A5E, len(skippable)) + skippable
+        return frame
+    return compress
+
+
 def tiff_bytes(samples: np.ndarray, bps: int, photometric: int, sample_format: int = 1,
                extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
                tile=None, rows_per_strip=None, big_endian: bool = False, colormap=None,
-               tags=()) -> bytes:
+               tags=(), codec=None) -> bytes:
     """A one-image TIFF of ``samples`` [H, W, N] (ints, or float32 for sample
     format 3): strips of ``rows_per_strip`` rows or ``tile`` = (width,
     length) tiles, planar configuration 1 or 2, compression 1 / 5 (LZW) /
-    8 or 32946 (Deflate) / 32773 (PackBits), predictor 1 / 2 / 3, either
-    byte order; ``colormap`` [3, 2**bps] for palette files; ``tags`` extra
-    (tag, type, values) entries."""
+    8 or 32946 (Deflate) / 32773 (PackBits) / 50000 (ZSTD, by ``codec`` or
+    ``zstd_frame()``), predictor 1 / 2 / 3, either byte order; ``colormap``
+    [3, 2**bps] for palette files; ``tags`` extra (tag, type, values)
+    entries; ``codec`` compresses each chunk in place of the compression's
+    own."""
     e = ">" if big_endian else "<"
     h, w, n = samples.shape
-    compress = {1: bytes, 5: lzw_tiff, 8: lambda d: zlib.compress(d, 6),
-                32946: lambda d: zlib.compress(d, 9), 32773: packbits}[compression]
+    compress = codec or {1: bytes, 5: lzw_tiff, 8: lambda d: zlib.compress(d, 6),
+                         32946: lambda d: zlib.compress(d, 9), 32773: packbits,
+                         50000: zstd_frame()}[compression]
     planes = [samples[:, :, k:k + 1] for k in range(n)] if planar == 2 else [samples]
     chunks = []
     if tile:
@@ -1037,3 +1057,170 @@ def split_jpeg_tables(jpeg: bytes):
         (tables if marker in (0xDB, 0xC4) else rest).extend(seg)
         pos += 2 + length
     return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+# ---- JPEG 2000: PIL's codestreams rewritten, JP2 boxes ------------------------------
+
+def j2k_segments(cs: bytes):
+    """A codestream -> (main header [(marker, body)], tile-parts [[SOT body,
+    [(marker, body)], data]]); SOC and EOC are implied."""
+    def header(pos, stop):
+        segs = []
+        while int.from_bytes(cs[pos:pos + 2], "big") != stop:
+            marker, length = struct.unpack(">HH", cs[pos:pos + 4])
+            segs.append((marker, cs[pos + 4:pos + 2 + length]))
+            pos += 2 + length
+        return segs, pos
+
+    main, pos = header(2, 0xFF90)
+    parts = []
+    while int.from_bytes(cs[pos:pos + 2], "big") == 0xFF90:
+        sot = cs[pos + 4:pos + 12]
+        psot = int.from_bytes(sot[2:6], "big")
+        end = pos + psot if psot else len(cs) - 2
+        head, body = header(pos + 12, 0xFF93)
+        parts.append([sot, head, cs[body + 2:end]])
+        pos = end
+    return main, parts
+
+
+def j2k_join(main, parts) -> bytes:
+    """``j2k_segments``' parts -> a codestream, each Psot recomputed."""
+    def segs(items):
+        return b"".join(struct.pack(">HH", m, len(body) + 2) + body for m, body in items)
+
+    out = b"\xff\x4f" + segs(main)
+    for sot, head, data in parts:
+        rest = segs(head) + b"\xff\x93" + data
+        out += (b"\xff\x90\x00\x0a" + sot[:2] + struct.pack(">I", 12 + len(rest)) + sot[6:8]
+                + rest)
+    return out + b"\xff\xd9"
+
+
+def j2k_with_sop(cs: bytes) -> bytes:
+    """A codestream written with PLT markers -> the same packets, each behind
+    an SOP marker (COD's Scod bit 1 set, the PLT segments dropped)."""
+    main, parts = j2k_segments(cs)
+    main = [(m, bytes([body[0] | 2]) + body[1:]) if m == 0xFF52 else (m, body)
+            for m, body in main]
+    count = {}
+    for part in parts:
+        lengths = []
+        for m, body in part[1]:
+            if m == 0xFF58:
+                value = 0
+                for byte in body[1:]:
+                    value = (value << 7) | (byte & 0x7F)
+                    if not byte & 0x80:
+                        lengths.append(value)
+                        value = 0
+        data, pos, out = part[2], 0, b""
+        tile = part[0][:2]
+        for n in lengths:
+            seq = count.get(tile, 0)
+            count[tile] = seq + 1
+            out += b"\xff\x91\x00\x04" + struct.pack(">H", seq & 0xFFFF) + data[pos:pos + n]
+            pos += n
+        part[1] = [(m, body) for m, body in part[1] if m != 0xFF58]
+        part[2] = out + data[pos:]
+    return j2k_join(main, parts)
+
+
+def jp2_bytes(cs: bytes, nc: int, bpc: int, enumcs: int = 17, boxes=(), header_boxes=(),
+              colr: bytes = None, long_codestream_box: bool = False,
+              codestream_to_end: bool = False) -> bytes:
+    """A JP2 file around codestream ``cs``: signature, ftyp, jp2h (ihdr from
+    the SIZ, ``nc`` components of ``bpc`` (precision - 1, bit 7 signed),
+    colr with ``enumcs`` or the raw ``colr`` body, then ``header_boxes``),
+    ``boxes`` [(type, body)] and jp2c (with an XLBox, or of length 0 up to
+    the file's end)."""
+    def box(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", 8 + len(body)) + kind + body
+
+    xsiz, ysiz, xo, yo = struct.unpack(">IIII", cs[8:24])
+    ihdr = struct.pack(">IIHBBBB", ysiz - yo, xsiz - xo, nc, bpc, 7, 0, 0)
+    colr = colr if colr is not None else struct.pack(">BBBI", 1, 0, 0, enumcs)
+    head = box(b"ihdr", ihdr) + box(b"colr", colr) + b"".join(box(k, b) for k, b in header_boxes)
+    if long_codestream_box:
+        jp2c = struct.pack(">I", 1) + b"jp2c" + struct.pack(">Q", 16 + len(cs)) + cs
+    elif codestream_to_end:
+        jp2c = struct.pack(">I", 0) + b"jp2c" + cs
+    else:
+        jp2c = box(b"jp2c", cs)
+    return (box(b"jP  ", b"\r\n\x87\n") + box(b"ftyp", b"jp2 \0\0\0\0jp2 ") + box(b"jp2h", head)
+            + b"".join(box(k, b) for k, b in boxes) + jp2c)
+
+
+def j2k_with_eph(cs: bytes, spans) -> bytes:
+    """A codestream of one tile-part per tile -> the same with an EPH marker
+    after every packet header (COD's Scod bit 2 set); ``spans[t]`` lists
+    tile t's packets as (header start, header end, body end) in its data."""
+    main, parts = j2k_segments(cs)
+    main = [(m, bytes([body[0] | 4]) + body[1:]) if m == 0xFF52 else (m, body)
+            for m, body in main]
+    for part in parts:
+        data, out, pos = part[2], b"", 0
+        for start, head_end, end in spans[int.from_bytes(part[0][:2], "big")]:
+            out += data[pos:head_end] + b"\xff\x92"
+            pos = head_end
+        part[2] = out + data[pos:]
+    return j2k_join(main, parts)
+
+
+def j2k_with_packed_headers(cs: bytes, spans, where: str) -> bytes:
+    """A codestream of one tile-part per tile -> the same with the packet
+    headers moved out of the tile data into PPT segments of each tile-part
+    header (``where="ppt"``) or PPM segments of the main header ("ppm"),
+    split into segments of at most 1000 bytes; ``spans`` as for
+    ``j2k_with_eph``."""
+    main, parts = j2k_segments(cs)
+    ppm = b""
+    for part in parts:
+        data = part[2]
+        spans_t = spans[int.from_bytes(part[0][:2], "big")]
+        heads = b"".join(data[start:head_end] for start, head_end, _ in spans_t)
+        ends = [0] + [end for _, _, end in spans_t]     # an SOP marker stays with its body
+        part[2] = b"".join(data[before:start] + data[head_end:end]
+                           for before, (start, head_end, end) in zip(ends, spans_t))
+        if where == "ppt":
+            part[1] += [(0xFF61, bytes([z]) + heads[k:k + 1000])
+                        for z, k in enumerate(range(0, len(heads), 1000))]
+        else:
+            ppm += struct.pack(">I", len(heads)) + heads
+    if where == "ppm":
+        main += [(0xFF60, bytes([z]) + ppm[k:k + 1000])
+                 for z, k in enumerate(range(0, len(ppm), 1000))]
+    return j2k_join(main, parts)
+
+
+def j2k_merged(parts, factors) -> bytes:
+    """One codestream of the single-component codestreams ``parts`` (each
+    written with PLT markers, one tile, one layer, one precinct per
+    resolution, LRCP and the same number of resolutions), component c
+    subsampled by ``factors[c]`` = (XRsiz, YRsiz) on the reference grid of
+    the first part: the SIZ rewritten, the COD of the first part (no colour
+    transform), its QCD and a QCC per later component, the packets
+    interleaved resolution by resolution as LRCP orders them."""
+    streams = []
+    for cs in parts:
+        main, (part,) = j2k_segments(cs)
+        lengths = []
+        for m, body in part[1]:
+            if m == 0xFF58:
+                value = 0
+                for byte in body[1:]:
+                    value = (value << 7) | (byte & 0x7F)
+                    if not byte & 0x80:
+                        lengths.append(value)
+                        value = 0
+        offsets = np.cumsum([0] + lengths)
+        streams.append((dict(main), [part[2][a:b] for a, b in zip(offsets[:-1], offsets[1:])]))
+    first = streams[0][0]
+    siz = first[0xFF51]
+    comps = b"".join(bytes([siz[36], dx, dy]) for dx, dy in factors)
+    main = [(0xFF51, siz[:34] + struct.pack(">H", len(parts)) + comps),
+            (0xFF52, first[0xFF52][:4] + b"\0" + first[0xFF52][5:]), (0xFF5C, first[0xFF5C])]
+    main += [(0xFF5D, bytes([c]) + streams[c][0][0xFF5C]) for c in range(1, len(parts))]
+    packets = b"".join(streams[c][1][r] for r in range(len(streams[0][1]))
+                       for c in range(len(parts)))
+    return j2k_join(main, [[struct.pack(">HIBB", 0, 0, 0, 1), [], packets]])
