@@ -1386,9 +1386,12 @@ def host_images(dev, smi, report) -> dict:
     against the CPU's); the KITTI TGA folder (RLE) as the TIFF one; the
     later fixtures (CCITT, JPEG and YCbCr TIFF, orientation 6, BigTIFF with
     fill order 2, a block-smoothed progressive JPEG, TGA, DDS, SGI, PCX,
-    ICO, QOI, IM, XBM, MSP, lossless and lossy WebP) to the manifest;
-    save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx, .dds and .im writes
-    PIL's files; ms per decode.  Returns the runs' launches by path."""
+    ICO, QOI, IM, XBM, MSP, lossless and lossy WebP, JPEG 2000 and ZSTD
+    TIFF) to the manifest; the KITTI ZSTD folder as the TIFF one and the
+    TUM JPEG 2000 folder as the TUM TIFF one, both through the library
+    only (LIBRARY_ONLY); save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx,
+    .dds and .im writes PIL's files; ms per decode.  Returns the runs'
+    launches by path."""
     import hashlib
     import shutil
 

@@ -1386,7 +1386,10 @@ Image decode_j2k(const std::vector<uint8_t>& file) {
   img.data.assign(size_t(wid) * hgt * img.channels * size_t(bits / 8), 0);
   const int used = std::min(nc, img.channels);
   std::vector<int> csiz(nc);
-  for (int c = 0; c < nc; ++c) csiz[c] = ((code.prec[c] + 7) >> 3) == 3 ? 4 : (code.prec[c] + 7) >> 3;
+  for (int c = 0; c < nc; ++c) {
+    const int bytes = (code.prec[c] + 7) >> 3;
+    csiz[c] = bytes == 3 ? 4 : bytes;
+  }
   std::vector<uint8_t> buf;
   for (int64_t t = 0; t < code.tiles_x * code.tiles_y; ++t) {
     int64_t r[4];

@@ -21,9 +21,10 @@
 // subsampling block), and uncompressed ones as PIL's raw decoder reads them
 // (four bytes a pixel, "RGBX").  CCITT RLE / Group 3 / Group 4 bilevel data
 // decodes in image_ccitt.cpp, LZMA (34925, libtiff's xz streams) in
-// image_lzma.cpp, ZSTD (50000, Zstandard frames) in image_zstd.cpp.  Little-endian BigTIFF files (magic 43) are read too.  Fill
-// order 2 reverses the bits of every stored byte first (for the layouts PIL
-// has a fill-order-2 mode for); the orientation tag is applied last, as
+// image_lzma.cpp, ZSTD (50000, Zstandard frames) in image_zstd.cpp.
+// Little-endian BigTIFF files (magic 43) are read too.  Fill order 2
+// reverses the bits of every stored byte first (for the layouts PIL has a
+// fill-order-2 mode for); the orientation tag is applied last, as
 // PIL's exif_transpose does.  Planar configuration 2 at 16 bits keeps each
 // sample's high byte when compressed, and takes the plane's bytes one per
 // pixel when uncompressed (PIL's per-band 8-bit unpacker).  Refused with a

@@ -21,8 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from .images import Decoded
-
-MAX_PIXELS = 178956970   # PIL raises DecompressionBombError above twice MAX_IMAGE_PIXELS
+from .images_plain_more import MAX_PIXELS
 
 # ---- the MQ decoder (ITU-T T.800 Annex C, OpenJPEG's mqc.c) ------------------------
 

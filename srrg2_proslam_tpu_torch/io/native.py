@@ -32,6 +32,8 @@ from ..kernels._build import BUILD_DIR
 
 SOURCES = [Path(__file__).resolve().parents[2] / "native" / "src" / name
            for name in ("image_decode.cpp", "prefetcher.cpp")]
+# no floating-point contraction: the float decoders (JPEG 2000's 9/7 wavelet)
+# round each operation as their numpy twins and PIL's libraries do
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 LIBS = ["-lz", "-pthread"]
 

@@ -208,7 +208,7 @@ def _spans(cs: bytes):
     return cs, spans
 
 
-def _PACKETS(**kw) -> bytes:   # noqa: N802
+def _many_packets(**kw) -> bytes:
     """Four tiles, three layers, RPCL over 16 x 16 precincts: 300 packets."""
     return pil_bytes(image("RGB", 25), no_jp2=True, mct=1, tile_size=(32, 24),
                      quality_layers=[20, 8, 2], precinct_size=(16, 16), num_resolutions=3,
@@ -264,10 +264,11 @@ REWRITES = {
                                               b"\x01\x00\x0b"),
     # EPH markers after the packet headers, the headers packed into PPT / PPM
     # (the packets located by the twin's parse; PIL's array is the judge)
-    "eph": lambda: j2k_with_eph(*_spans(_PACKETS())),
-    "ppt": lambda: j2k_with_packed_headers(*_spans(_PACKETS()), "ppt"),
-    "ppm": lambda: j2k_with_packed_headers(*_spans(_PACKETS(irreversible=True)), "ppm"),
-    "ppt-sop": lambda: j2k_with_packed_headers(*_spans(j2k_with_sop(_PACKETS(plt=True))), "ppt"),
+    "eph": lambda: j2k_with_eph(*_spans(_many_packets())),
+    "ppt": lambda: j2k_with_packed_headers(*_spans(_many_packets()), "ppt"),
+    "ppm": lambda: j2k_with_packed_headers(*_spans(_many_packets(irreversible=True)), "ppm"),
+    "ppt-sop": lambda: j2k_with_packed_headers(
+        *_spans(j2k_with_sop(_many_packets(plt=True))), "ppt"),
     # POC: RLCP split at resolution 2; the same packets as RLCP after a COD
     # saying LRCP; a PCRL entry and an RLCP one
     "poc-split": lambda: _with_segment(

@@ -11,8 +11,9 @@ levels -5 to 22 with and without the content checksum).  Bounds, every case: the
 library's samples, mode and palette equal its plain twin's, the mode is
 PIL's; refused variants raise a ``ValueError`` naming the file and the
 feature.  The KITTI- and TUM-layout TIFF folders of ``test_data/torch_io``
-(and the KITTI-layout Zstandard one) read frame for frame as the JAX package reads them, and as the PNG / PGM
-frames they were made from, and VO and RGB-D over them run alike in both
+(and the KITTI-layout Zstandard one) read frame for frame as the JAX
+package reads them, and as the PNG / PGM frames they were made from, and
+VO and RGB-D over them run alike in both
 packages: ``adapt_stereo -> track_step`` over ``kitti_tiff/`` and
 ``adapt_rgbd -> track_step(model="rgbd")`` over ``tum_tiff/``, each
 package reading the folder through its own reader, with the adaptor's
