@@ -32,14 +32,14 @@ ICO, a QOI, an IM, a lossless and a lossy (RGBA) WebP and the bilevel crop
 as XBM and MSP; two more folders: ``tum_jp2/`` in the TUM RGB-D layout
 (ICL frames 0 and 1 at 640 x 480: the RGB as an irreversible 9/7 JP2 with
 the ICT and quality layers 40 / 20 / 10 by rate, the depth as a reversible
-5/3 16-bit J2K codestream in 256 x 256 tiles, RPCL, 128 x 128 precincts;
-PIL's writer misplaces the samples of an I;16 image's tiles right of the
-first tile column, so only that column is the PGM's depth)
+5/3 16-bit J2K codestream in two rows of 640 x 256 tiles, RPCL, 128 x 128
+precincts: one tile column, because PIL's writer misplaces the samples of an
+I;16 image's tiles right of the first column)
 and ``kitti_zstd/`` in the KITTI odometry layout (the cut pairs 0 and 1,
 pair 0 as 8-bit Zstandard TIFF with predictor 2, pair 1 as 16-bit samples
 256 x the gray), written by PIL; and small JPEG 2000 and Zstandard files
 from the 128 x 96 crop: an RGB JP2 (9/7, ICT, three layers by dB), a 16-bit
-depth J2K (5/3, 32 x 32 tiles, PCRL, precincts), a Zstandard RGB TIFF
+depth J2K (5/3, three rows of 128 x 32 tiles, PCRL, precincts), a Zstandard RGB TIFF
 written by PIL and a gray one in tiles with the content checksum (written
 by ``tests/torch_imagefiles.py``).
 ``MANIFEST.json`` holds, for each file, the SHA-256 of
@@ -203,7 +203,7 @@ def jp2_zstd_folders():
                                 quality_mode="rates", quality_layers=[40, 20, 10])
         depth = jds.load_depth(os.path.join(ROOT, "test_data", "icl", f"image_depth_{i}.pgm"))
         Image.fromarray(depth.astype(np.uint16)).save(
-            os.path.join(tum, "depth", f"{i}.j2k"), tile_size=(256, 256), progression="RPCL",
+            os.path.join(tum, "depth", f"{i}.j2k"), tile_size=(640, 256), progression="RPCL",
             precinct_size=(128, 128))
     with open(os.path.join(tum, "rgb.txt"), "w") as f:
         f.write("# timestamp filename\n0.000000 rgb/0.jp2\n0.033333 rgb/1.jp2\n")
@@ -230,7 +230,7 @@ def jp2_zstd_families(rgb: Image.Image):
               quality_mode="dB", quality_layers=[30, 40, 50])
     depth = jds.load_depth(os.path.join(ROOT, "test_data", "icl", "image_depth_0.pgm"))
     Image.fromarray(depth[200:296, 240:368].astype(np.uint16)).save(
-        os.path.join(OUT, "icl_depth16_tiles.j2k"), tile_size=(32, 32), progression="PCRL",
+        os.path.join(OUT, "icl_depth16_tiles.j2k"), tile_size=(128, 32), progression="PCRL",
         precinct_size=(16, 16), codeblock_size=(8, 8), num_resolutions=3)
     crop.save(os.path.join(OUT, "icl_rgb_zstd.tif"), compression="zstd")
     gray = np.asarray(crop.convert("L")).astype(np.int64)[:, :, None]

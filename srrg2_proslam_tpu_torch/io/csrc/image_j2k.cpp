@@ -484,6 +484,9 @@ class Codestream {
     if (too_many_pixels(uint64_t(xsiz - xosiz), uint64_t(ysiz - yosiz))) bad("bad image size");
     tiles_x = ceildiv(xsiz - xtosiz, xtsiz);
     tiles_y = ceildiv(ysiz - ytosiz, ytsiz);
+    if (tiles_x > 65535 / tiles_y)  // OpenJPEG's limit (opj_j2k_read_siz); Isot has 16 bits
+      bad("a tile size giving " + std::to_string(tiles_x) + " x " + std::to_string(tiles_y) +
+          " tiles, above 65535");
     pos += lsiz;
     pos = header(pos, false, main_);
     tile_head_.resize(size_t(tiles_x * tiles_y));
@@ -1351,9 +1354,9 @@ Image decode_j2k(const std::vector<uint8_t>& file) {
   bool subsampled = false, chroma = false;
   for (int c = 0; c < nc; ++c) {
     subsampled |= code.dx[c] != 1 || code.dy[c] != 1;
-    chroma |= c > 0 && (code.dx[c] != 1 || code.dy[c] != 1);
+    chroma |= (c == 1 || c == 2) && (code.dx[c] != 1 || code.dy[c] != 1);
   }
-  if (space == SPACE_UNKNOWN)  // PIL's guess: sYCC for subsampled chroma, else by count
+  if (space == SPACE_UNKNOWN)  // PIL's guess: sYCC for subsampled chroma (components 1, 2)
     space = (nc == 3 || nc == 4) && chroma && code.dx[0] == 1 && code.dy[0] == 1 ? SPACE_SYCC
             : nc <= 2                                                        ? SPACE_GRAY
                                                                              : SPACE_SRGB;
@@ -1386,9 +1389,11 @@ Image decode_j2k(const std::vector<uint8_t>& file) {
   img.data.assign(size_t(wid) * hgt * img.channels * size_t(bits / 8), 0);
   const int used = std::min(nc, img.channels);
   std::vector<int> csiz(nc);
+  int csiz_sum = 0;
   for (int c = 0; c < nc; ++c) {
     const int bytes = (code.prec[c] + 7) >> 3;
     csiz[c] = bytes == 3 ? 4 : bytes;
+    csiz_sum += csiz[c];
   }
   std::vector<uint8_t> buf;
   for (int64_t t = 0; t < code.tiles_x * code.tiles_y; ++t) {
@@ -1398,16 +1403,23 @@ Image decode_j2k(const std::vector<uint8_t>& file) {
     const int64_t tw = r[2] - r[0], th = r[3] - r[1];
     if (tw <= 0 || th <= 0 || x0 + tw > wid || y0 + th > hgt) bad("a tile outside the image");
     const std::vector<std::vector<int32_t>> planes = code.decode_tile(t);
-    // OpenJPEG's tile buffer: each component's samples in csiz bytes; PIL
-    // finds component n at the sum of the earlier ones' csiz * (w / dx) *
-    // (h / dy) and sample (x, y) of it at (y / dy) * (w / dx) + x / dx, in
-    // integer division (Jpeg2KDecode.c).  Without subsampling that is the
-    // component's own sample (x, y), truncated to csiz bytes.
-    buf.clear();
-    if (subsampled)
+    // PIL's tile buffer: OpenJPEG's tile data (each component's samples in
+    // csiz bytes), then zeros up to w * h * (the sum of csiz) bytes
+    // (Jpeg2KDecode.c zeroes that much for each tile).  PIL finds component
+    // n at the sum of the earlier ones' csiz * (w / dx) * (h / dy) and
+    // sample (x, y) of it at (y / dy) * (w / dx) + x / dx, in integer
+    // division, which can reach past the data but not past the buffer.
+    // Without subsampling that is the component's own sample (x, y),
+    // truncated to csiz bytes.
+    if (subsampled) {
+      size_t data_n = 0;
+      for (int c = 0; c < nc; ++c) data_n += planes[c].size() * size_t(csiz[c]);
+      buf.assign(std::max(data_n, size_t(tw * th) * size_t(csiz_sum)), 0);
+      size_t at = 0;
       for (int c = 0; c < nc; ++c)
         for (int32_t v : planes[c])
-          for (int b = 0; b < csiz[c]; ++b) buf.push_back(uint8_t(uint32_t(v) >> (8 * b)));
+          for (int b = 0; b < csiz[c]; ++b) buf[at++] = uint8_t(uint32_t(v) >> (8 * b));
+    }
     size_t start = 0;
     for (int k = 0; k < used; ++k) {
       const int prec = code.prec[k], width = csiz[k];

@@ -360,8 +360,12 @@ size_t read_table(int mode, const uint8_t* d, size_t n, const int* defaults, int
   return 0;
 }
 
-void compressed_block(const uint8_t* d, size_t n, FrameState& st, std::vector<uint8_t>& out) {
+// One compressed block appended to ``out``; it may regenerate at most
+// ``block_max`` bytes, as libzstd's blockSizeMax (the window, at most 128 KiB).
+void compressed_block(const uint8_t* d, size_t n, size_t block_max, FrameState& st,
+                      std::vector<uint8_t>& out) {
   if (n < 1) corrupt("an empty compressed block");
+  const size_t block_start = out.size();
   // literals
   const int ltype = d[0] & 3, fmt = (d[0] >> 2) & 3;
   size_t regen, csize = 0, head;
@@ -424,6 +428,7 @@ void compressed_block(const uint8_t* d, size_t n, FrameState& st, std::vector<ui
     }
     head += csize;
   }
+  if (lit.size() > block_max) corrupt("more literals than a block holds");
   // sequences
   size_t pos = head;
   if (pos >= n) corrupt("no sequences section");
@@ -483,6 +488,7 @@ void compressed_block(const uint8_t* d, size_t n, FrameState& st, std::vector<ui
         sof = st.of.base[sof] + br.read(st.of.bits[sof]);
       }
       if (lit_pos + ll > lit.size()) corrupt("a sequence past the literals");
+      if (out.size() - block_start + ll + ml > block_max) corrupt("a block above its maximum");
       out.insert(out.end(), lit.begin() + lit_pos, lit.begin() + lit_pos + ll);
       lit_pos += ll;
       if (offset == 0 || offset > out.size()) corrupt("an offset before the frame");
@@ -491,6 +497,8 @@ void compressed_block(const uint8_t* d, size_t n, FrameState& st, std::vector<ui
     }
     if (br.left != 0) corrupt("a sequence bitstream of the wrong length");
   }
+  if (out.size() - block_start + lit.size() - lit_pos > block_max)
+    corrupt("a block above its maximum");
   out.insert(out.end(), lit.begin() + lit_pos, lit.end());
 }
 
@@ -509,7 +517,13 @@ std::vector<uint8_t> decode_zstd(const uint8_t* d, size_t n, size_t want) {
     const int fcs_flag = desc >> 6, single = (desc >> 5) & 1, checksum = (desc >> 2) & 1;
     const int dict_flag = desc & 3;
     if (desc & 8) corrupt("a reserved frame header bit");
-    if (!single) ++pos;  // window descriptor
+    uint64_t window = 0;
+    if (!single) {
+      if (pos >= n) corrupt("a truncated frame header");
+      window = uint64_t(1) << (10 + (d[pos] >> 3));
+      window += (window >> 3) * (d[pos] & 7);
+      ++pos;
+    }
     static const int kDictBytes[4] = {0, 1, 2, 4};
     uint32_t dict = 0;
     for (int i = 0; i < kDictBytes[dict_flag]; ++i)
@@ -517,8 +531,18 @@ std::vector<uint8_t> decode_zstd(const uint8_t* d, size_t n, size_t want) {
     if (dict) throw Error("TIFF: a ZSTD frame with a dictionary is not supported");
     pos += size_t(kDictBytes[dict_flag]);
     static const int kFcsBytes[4] = {0, 2, 4, 8};
-    pos += size_t(fcs_flag == 0 && single ? 1 : kFcsBytes[fcs_flag]);
-    if (pos > n) corrupt("a truncated frame header");
+    const int fcs_bytes = fcs_flag == 0 && single ? 1 : kFcsBytes[fcs_flag];
+    if (pos + size_t(fcs_bytes) > n) corrupt("a truncated frame header");
+    uint64_t content = 0;  // the content size, when the frame gives it
+    for (int i = 0; i < fcs_bytes; ++i) content |= uint64_t(d[pos + i]) << (8 * i);
+    if (fcs_bytes == 2) content += 256;
+    pos += size_t(fcs_bytes);
+    // libzstd's limits: a window of at most 128 MiB + 1 (its default), the
+    // content size in a single segment; a block regenerates at most the
+    // window and at most 128 KiB; the frame exactly its content size
+    if (single) window = content;
+    if (window > (uint64_t(1) << 27) + 1) corrupt("a window above 128 MiB");
+    const size_t block_max = size_t(std::min<uint64_t>(window, uint64_t(1) << 17));
     FrameState st;
     const size_t start = out.size();
     bool last = false;
@@ -531,7 +555,7 @@ std::vector<uint8_t> decode_zstd(const uint8_t* d, size_t n, size_t want) {
       const int type = (bh >> 1) & 3;
       const size_t size = bh >> 3;
       if (type == 3) corrupt("a reserved block type");
-      if (size > (size_t(1) << 17)) corrupt("a block above 128 KiB");
+      if (size > block_max) corrupt("a block above its maximum");
       if (type == 1) {
         if (pos + 1 > n) corrupt("a truncated RLE block");
         out.insert(out.end(), size, d[pos]);
@@ -539,11 +563,13 @@ std::vector<uint8_t> decode_zstd(const uint8_t* d, size_t n, size_t want) {
       } else {
         if (size > n - pos) corrupt("a truncated block");
         if (type == 0) out.insert(out.end(), d + pos, d + pos + size);
-        else compressed_block(d + pos, size, st, out);
+        else compressed_block(d + pos, size, block_max, st, out);
         pos += size;
       }
       if (out.size() > want + (size_t(1) << 17) * 2) corrupt("more data than the strip holds");
+      if (fcs_bytes && out.size() - start > content) corrupt("more data than the content size");
     }
+    if (fcs_bytes && out.size() - start != content) corrupt("less data than the content size");
     if (checksum) {
       if (pos + 4 > n) corrupt("a truncated checksum");
       const uint32_t sum = uint32_t(xxh64(out.data() + start, out.size() - start));

@@ -1552,7 +1552,7 @@ def _zstd_table(mode, data, defaults, default_log, max_log, max_symbol, previous
         return _fse_build(defaults, default_log), 0
     if mode == 1:
         if not data or data[0] > max_symbol:
-            _zstd_error("a bad RLE table")
+            _zstd_error("a bad RLE symbol")
         return (0, [data[0]], [0], [0]), 1
     if mode == 2:
         return _fse_read(data, max_log, max_symbol)
@@ -1561,10 +1561,12 @@ def _zstd_table(mode, data, defaults, default_log, max_log, max_symbol, previous
     return previous, 0
 
 
-def _zstd_block(d: bytes, st: dict, out: bytearray):
-    """One compressed block appended to ``out``."""
+def _zstd_block(d: bytes, block_max: int, st: dict, out: bytearray):
+    """One compressed block appended to ``out``; it may regenerate at most
+    ``block_max`` bytes (libzstd's blockSizeMax)."""
     if not d:
         _zstd_error("an empty compressed block")
+    block_start = len(out)
     ltype, fmt = d[0] & 3, (d[0] >> 2) & 3
     if ltype <= 1:
         if fmt in (0, 2):
@@ -1614,6 +1616,8 @@ def _zstd_block(d: bytes, st: dict, out: bytearray):
             lit = b"".join(_huffman_stream(st["huf"], body[cuts[k]:cuts[k + 1]],
                                            seg if k < 3 else regen - 3 * seg) for k in range(4))
         head += csize
+    if len(lit) > block_max:
+        _zstd_error("more literals than a block holds")
     pos = head
     if pos >= len(d):
         _zstd_error("no sequences section")
@@ -1667,6 +1671,8 @@ def _zstd_block(d: bytes, st: dict, out: bytearray):
                 sof = of_t[2][sof] + br.read(of_t[3][sof])
             if lit_pos + ll > len(lit):
                 _zstd_error("a sequence past the literals")
+            if len(out) - block_start + ll + ml > block_max:
+                _zstd_error("a block above its maximum")
             out += lit[lit_pos:lit_pos + ll]
             lit_pos += ll
             if offset == 0 or offset > len(out):
@@ -1679,6 +1685,8 @@ def _zstd_block(d: bytes, st: dict, out: bytearray):
                     out.append(out[start + k])
         if br.left != 0:
             _zstd_error("a sequence bitstream of the wrong length")
+    if len(out) - block_start + len(lit) - lit_pos > block_max:
+        _zstd_error("a block above its maximum")
     out += lit[lit_pos:]
 
 
@@ -1742,13 +1750,30 @@ def _unzstd(d: bytes, want: int) -> bytes:
         fcs, single, checksum, dict_flag = desc >> 6, (desc >> 5) & 1, (desc >> 2) & 1, desc & 3
         if desc & 8:
             _zstd_error("a reserved frame header bit")
-        pos += 0 if single else 1
+        window = 0
+        if not single:
+            if pos >= len(d):
+                _zstd_error("a truncated frame header")
+            window = 1 << (10 + (d[pos] >> 3))
+            window += (window >> 3) * (d[pos] & 7)
+            pos += 1
         nd = (0, 1, 2, 4)[dict_flag]
         if int.from_bytes(d[pos:pos + nd], "little"):
             raise ValueError("TIFF: a ZSTD frame with a dictionary is not supported")
-        pos += nd + (1 if fcs == 0 and single else (0, 2, 4, 8)[fcs])
-        if pos > len(d):
+        pos += nd
+        fcs_bytes = 1 if fcs == 0 and single else (0, 2, 4, 8)[fcs]
+        if pos + fcs_bytes > len(d):
             _zstd_error("a truncated frame header")
+        content = int.from_bytes(d[pos:pos + fcs_bytes], "little") + (256 if fcs_bytes == 2 else 0)
+        pos += fcs_bytes
+        # libzstd's limits: a window of at most 128 MiB + 1 (its default),
+        # the content size in a single segment; a block regenerates at most
+        # the window and at most 128 KiB; the frame exactly its content size
+        if single:
+            window = content
+        if window > (1 << 27) + 1:
+            _zstd_error("a window above 128 MiB")
+        block_max = min(window, 1 << 17)
         st = {"huf": None, "ll": None, "of": None, "ml": None, "rep": [1, 4, 8]}
         start = len(out)
         last = False
@@ -1760,8 +1785,8 @@ def _unzstd(d: bytes, want: int) -> bytes:
             last, kind, size = bh & 1, (bh >> 1) & 3, bh >> 3
             if kind == 3:
                 _zstd_error("a reserved block type")
-            if size > 1 << 17:
-                _zstd_error("a block above 128 KiB")
+            if size > block_max:
+                _zstd_error("a block above its maximum")
             if kind == 1:
                 if pos + 1 > len(d):
                     _zstd_error("a truncated RLE block")
@@ -1773,10 +1798,14 @@ def _unzstd(d: bytes, want: int) -> bytes:
                 if kind == 0:
                     out += d[pos:pos + size]
                 else:
-                    _zstd_block(d[pos:pos + size], st, out)
+                    _zstd_block(d[pos:pos + size], block_max, st, out)
                 pos += size
             if len(out) > want + (1 << 18):
                 _zstd_error("more data than the strip holds")
+            if fcs_bytes and len(out) - start > content:
+                _zstd_error("more data than the content size")
+        if fcs_bytes and len(out) - start != content:
+            _zstd_error("less data than the content size")
         if checksum:
             if pos + 4 > len(d):
                 _zstd_error("a truncated checksum")

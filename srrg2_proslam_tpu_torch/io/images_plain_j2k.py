@@ -422,6 +422,9 @@ class _Codestream:
             raise ValueError("JPEG 2000: bad image size")
         self.tiles_x = _ceildiv(self.xsiz - self.xtosiz, self.xtsiz)
         self.tiles_y = _ceildiv(self.ysiz - self.ytosiz, self.ytsiz)
+        if self.tiles_x * self.tiles_y > 65535:     # OpenJPEG's limit; Isot has 16 bits
+            raise ValueError(f"JPEG 2000: a tile size giving {self.tiles_x} x {self.tiles_y} "
+                             "tiles, above 65535")
         pos += lsiz
         self.main = self._header(pos, None)
         pos = self.main.pop("end")
@@ -786,14 +789,11 @@ class _Codestream:
 
     def _tier2(self, t, comps, scod, prog, layers, pocs, rect):
         """Packet headers (from the tile's data, or from its PPT / PPM
-        packed headers) and the code-blocks' bytes; ``self.spans`` gets
-        each packet's (header start, header end, body end) in the data
-        when the headers are in it."""
+        packed headers) and the code-blocks' bytes."""
         data = bytes(self.tile_data.get(t, b""))
         packed = self.packed.get(t)
         hdr = data if packed is None else bytes(packed)
         pos, hpos, end = 0, 0, len(data)
-        self.spans = []
         for l, r, c, p in self._packets(comps, prog, layers, pocs, rect):
             if pos >= end if packed is None else hpos >= len(hdr):
                 break
@@ -801,7 +801,6 @@ class _Codestream:
                 pos += 6
             if packed is None:
                 hpos = pos
-            start = hpos
             res = comps[c][r]
             bits = _Bits(hdr, hpos, len(hdr))
             included = []
@@ -829,7 +828,7 @@ class _Codestream:
                             blk.lenbits += 1
                         length = bits.bits(blk.lenbits + (n.bit_length() - 1))
                         included.append((blk, n, length))
-            hpos = head_end = bits.align()
+            hpos = bits.align()
             if scod & 4 and hdr[hpos:hpos + 2] == b"\xff\x92":
                 hpos += 2
             if packed is None:
@@ -840,7 +839,6 @@ class _Codestream:
                 blk.data += data[pos:pos + length]
                 blk.passes += n
                 pos += length
-            self.spans.append((start, head_end, pos))
 
     @staticmethod
     def _numpasses(bits: _Bits) -> int:
@@ -1104,8 +1102,8 @@ def decode(blob: bytes) -> Decoded:
         if size[0] > MAX_PIXELS or size[1] > MAX_PIXELS or size[0] * size[1] > MAX_PIXELS:
             raise ValueError("JPEG 2000: bad image size")
         cs = _Codestream(codestream)
-    if space == _UNKNOWN:       # PIL's guess: sYCC for subsampled chroma, else by count
-        chroma = cs.dx[0] == cs.dy[0] == 1 and any(d != 1 for d in cs.dx[1:] + cs.dy[1:])
+    if space == _UNKNOWN:       # PIL's guess: sYCC for subsampled chroma (components 1, 2)
+        chroma = cs.dx[0] == cs.dy[0] == 1 and any(d != 1 for d in cs.dx[1:3] + cs.dy[1:3])
         space = _SYCC if cs.ncomp in (3, 4) and chroma else _GRAY if cs.ncomp <= 2 else _SRGB
     if space == _EYCC:
         _refuse("the e-sYCC colour space")
@@ -1126,13 +1124,17 @@ def decode(blob: bytes) -> Decoded:
         if tx0 >= tx1 or ty0 >= ty1 or x0 + w > wid or y0 + h > hgt:
             raise ValueError("JPEG 2000: a tile outside the image")
         planes = cs.decode_tile(t)
-        # OpenJPEG's tile buffer: each component's samples in csiz bytes;
-        # PIL finds component n at the sum of the earlier ones' csiz *
-        # (w / dx) * (h / dy) and sample (x, y) of it at (y / dy) * (w / dx)
-        # + x / dx, in integer division (Jpeg2KDecode.c)
-        buf = np.frombuffer(b"".join(
+        # PIL's tile buffer: OpenJPEG's tile data (each component's samples
+        # in csiz bytes), then zeros up to w * h * (the sum of csiz) bytes
+        # (Jpeg2KDecode.c zeroes that much for each tile).  PIL finds
+        # component n at the sum of the earlier ones' csiz * (w / dx) *
+        # (h / dy) and sample (x, y) of it at (y / dy) * (w / dx) + x / dx,
+        # in integer division, which can reach past the data
+        data = np.frombuffer(b"".join(
             (plane & ((1 << (8 * n)) - 1)).astype(f"<u{n}").tobytes()
-            for plane, n in zip(planes, csiz)), np.uint8).astype(np.int64)
+            for plane, n in zip(planes, csiz)), np.uint8)
+        buf = np.zeros(max(len(data), w * h * sum(csiz)), np.int64)
+        buf[:len(data)] = data
         start = 0
         for k in range(used):
             dx, dy, n = cs.dx[k], cs.dy[k], csiz[k]

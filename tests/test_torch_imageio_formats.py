@@ -1070,18 +1070,25 @@ def test_formats_pil_identifies_and_the_port_does_not_read_raise(tmp_path, fmt):
 
 def _j2k_bomb(kind: str) -> bytes:
     """A 200000 x 200000 gray codestream (its SIZ; PIL reads the size there),
-    or a JP2 whose ihdr says so around a small codestream."""
+    a 300 x 300 one in 1 x 1 tiles (OpenJPEG refuses more than 65535 tiles),
+    or a JP2 whose ihdr says 200000 x 200000 around a small codestream."""
     small = _pil_bytes(_pil_image("L", 8), "JPEG2000", no_jp2=True)
     if kind == "j2k":
         return small[:8] + struct.pack(">II", 200000, 200000) + small[16:]
+    if kind == "j2k-tiles":
+        return small[:8] + struct.pack(">6I", 300, 300, 0, 0, 1, 1) + small[32:]
     return tf.jp2_bytes(small, 1, 7)[:48] + struct.pack(">II", 200000, 200000) + tf.jp2_bytes(
         small, 1, 7)[56:]
 
 
-@pytest.mark.parametrize("kind", ["tga", "tiff", "bigtiff", "j2k", "jp2"])
+@pytest.mark.parametrize("kind", ["tga", "tiff", "bigtiff", "j2k", "j2k-tiles", "jp2"])
 def test_decompression_bombs_are_refused(tmp_path, kind):
     if kind == "tga":
         blob = _tga(3, 8, 65535, 65535, 0, bytes(64))
+    elif kind == "j2k-tiles":
+        blob = _j2k_bomb(kind)
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(blob)).load()
     elif kind in ("j2k", "jp2"):
         blob = _j2k_bomb(kind)
         with pytest.raises(Image.DecompressionBombError):

@@ -11,8 +11,8 @@ writes no such file: SOP markers ahead of the packets, EPH markers after
 their headers, the headers packed into PPT or PPM segments, POC markers, an
 ROI max-shift (RGN), a scalar-derived quantisation, other precisions and signedness in the SIZ
 (and the JP2 ihdr), subsampled components (single-component codestreams
-merged), JP2 files of other box layouts, palettes, CMYK, sYCC and colour
-spaces PIL guesses.
+merged per tile, tiles and images starting on odd rows), JP2 files of other
+box layouts, palettes, CMYK, sYCC and colour spaces PIL guesses.
 Bounds, every case: the port's ``load_gray`` and ``load_depth`` equal the
 JAX package's to the bit, the library's samples and mode equal its plain
 twin's (on files of at most 64 x 64, the twin's tier-1 being Python; the
@@ -37,11 +37,11 @@ from srrg2_proslam_tpu.io import datasets as jds  # noqa: E402
 from srrg2_proslam_tpu.models import frontend as jfe  # noqa: E402
 
 from srrg2_proslam_tpu_torch.io import datasets as tds  # noqa: E402
-from srrg2_proslam_tpu_torch.io import images, images_plain, images_plain_j2k  # noqa: E402
+from srrg2_proslam_tpu_torch.io import images, images_plain  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend  # noqa: E402
 from test_torch_imageio_tiff import _assert_runs_equal, _jax_run, _port_run  # noqa: E402
-from torch_imagefiles import (j2k_join, j2k_merged, j2k_segments, j2k_with_eph,  # noqa: E402
-                              j2k_with_packed_headers, j2k_with_sop, jp2_bytes)
+from torch_imagefiles import (j2k_join, j2k_merged, j2k_packet_spans, j2k_segments,  # noqa: E402
+                              j2k_with_eph, j2k_with_packed_headers, j2k_with_sop, jp2_bytes)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FIXTURES = os.path.join(REPO, "test_data", "torch_io")
@@ -198,31 +198,38 @@ def _pclr(ne: int, npc: int, depth_byte: int = 7, seed: int = 0) -> bytes:
 _CMAP = struct.pack(">HBBHBBHBB", 0, 1, 0, 0, 1, 1, 0, 1, 2)
 
 
-def _spans(cs: bytes):
-    """(cs, each tile's packets as (header start, header end, body end))."""
-    code = images_plain_j2k._Codestream(cs)
-    spans = {}
-    for t in range(code.tiles_x * code.tiles_y):
-        code.decode_tile(t)
-        spans[t] = code.spans
-    return cs, spans
+def _located(cs: bytes):
+    return cs, j2k_packet_spans(cs)
 
 
 def _many_packets(**kw) -> bytes:
-    """Four tiles, three layers, RPCL over 16 x 16 precincts: 300 packets."""
+    """Four tiles, three layers, LRCP over 16 x 16 precincts, PLT markers:
+    432 packets."""
     return pil_bytes(image("RGB", 25), no_jp2=True, mct=1, tile_size=(32, 24),
                      quality_layers=[20, 8, 2], precinct_size=(16, 16), num_resolutions=3,
-                     progression="RPCL", **kw)
+                     plt=True, **kw)
 
 
-def _subsampled(factors, shape=(33, 41), seed=0, **kw) -> bytes:
+def _subsampled(factors, shape=(33, 41), seed=0, offset=(0, 0), tile=None, **kw) -> bytes:
     """A codestream of noise components, component c subsampled by
-    ``factors[c]`` (one PIL codestream per component, merged)."""
+    ``factors[c]``, the image at ``offset`` on the reference grid, in tiles
+    of ``tile`` = (width, height) from the grid's origin (one PIL codestream
+    per tile-component, merged)."""
     rng = np.random.default_rng(seed)
-    h, w = shape
-    return j2k_merged([pil_bytes(Image.fromarray(rng.integers(
-        0, 256, (-(-h // dy), -(-w // dx)), dtype=np.uint8)), no_jp2=True, plt=True,
-        num_resolutions=3, **kw) for dx, dy in factors], factors)
+    (h, w), (ox, oy) = shape, offset
+    tw, th = tile or (w + ox, h + oy)
+    pieces = []
+    for ty in range(0, h + oy, th):
+        for tx in range(0, w + ox, tw):
+            x0, y0, x1, y1 = max(tx, ox), max(ty, oy), min(tx + tw, w + ox), min(ty + th, h + oy)
+            pieces.append([])
+            for dx, dy in factors:
+                cx0, cy0, cx1, cy1 = -(-x0 // dx), -(-y0 // dy), -(-x1 // dx), -(-y1 // dy)
+                noise = rng.integers(0, 256, (cy1 - cy0, cx1 - cx0), np.uint8)
+                pieces[-1].append(pil_bytes(Image.fromarray(noise), no_jp2=True, plt=True,
+                                            num_resolutions=3, offset=(cx0, cy0),
+                                            tile_size=(cx1, cy1), tile_offset=(0, 0), **kw))
+    return j2k_merged(pieces, factors, (w + ox, h + oy, ox, oy, tw, th, 0, 0))
 
 
 def _poc(*entries) -> bytes:
@@ -263,12 +270,11 @@ REWRITES = {
     "rgn-irreversible": lambda: _with_segment(_CS(27, irreversible=True), 0xFF5E,
                                               b"\x01\x00\x0b"),
     # EPH markers after the packet headers, the headers packed into PPT / PPM
-    # (the packets located by the twin's parse; PIL's array is the judge)
-    "eph": lambda: j2k_with_eph(*_spans(_many_packets())),
-    "ppt": lambda: j2k_with_packed_headers(*_spans(_many_packets()), "ppt"),
-    "ppm": lambda: j2k_with_packed_headers(*_spans(_many_packets(irreversible=True)), "ppm"),
-    "ppt-sop": lambda: j2k_with_packed_headers(
-        *_spans(j2k_with_sop(_many_packets(plt=True))), "ppt"),
+    # (the packets located by reading their headers, checked against PLT)
+    "eph": lambda: j2k_with_eph(*_located(_many_packets())),
+    "ppt": lambda: j2k_with_packed_headers(*_located(_many_packets()), "ppt"),
+    "ppm": lambda: j2k_with_packed_headers(*_located(_many_packets(irreversible=True)), "ppm"),
+    "ppt-sop": lambda: j2k_with_packed_headers(*_located(j2k_with_sop(_many_packets())), "ppt"),
     # POC: RLCP split at resolution 2; the same packets as RLCP after a COD
     # saying LRCP; a PCRL entry and an RLCP one
     "poc-split": lambda: _with_segment(
@@ -304,13 +310,23 @@ REWRITES = {
     "jp2-enumcs-20-gray": lambda: jp2_bytes(pil_bytes(image("L", 33), no_jp2=True), 1, 7, 20),
     # subsampled components at PIL's indices (odd sizes: its integer
     # divisions misplace the later components' rows); sYCC guessed for
-    # subsampled chroma in a codestream or a JP2 without an enumerated
-    # colour space, not for an sRGB JP2 or a subsampled first component
+    # subsampled chroma (components 1 or 2) in a codestream or a JP2 without
+    # an enumerated colour space, not for an sRGB JP2, a subsampled first
+    # component or a subsampled alpha alone
     "subsampled-420": lambda: _subsampled([(1, 1), (2, 2), (2, 2)], (32, 40)),
     "subsampled-odd-irreversible": lambda: _subsampled([(1, 1), (2, 1), (1, 3)], seed=1,
                                                        irreversible=True),
     "subsampled-all": lambda: _subsampled([(2, 2), (2, 2), (3, 2)], seed=2),
     "subsampled-rgba": lambda: _subsampled([(1, 1), (2, 2), (2, 2), (1, 1)], seed=3),
+    "subsampled-alpha-only": lambda: _subsampled([(1, 1), (1, 1), (1, 1), (2, 3)], seed=9),
+    # a tile or an image starting on an odd row: PIL reads a row of the last
+    # component past OpenJPEG's data, in the zeros of its tile buffer
+    "subsampled-420-tiles": lambda: _subsampled([(1, 1), (2, 2), (2, 2)], (66, 48), seed=6,
+                                                tile=(32, 33)),
+    "subsampled-420-offset": lambda: _subsampled([(1, 1), (2, 2), (2, 2)], (33, 40), seed=7,
+                                                 offset=(0, 1)),
+    "subsampled-rgba-tiles-offset": lambda: _subsampled(
+        [(1, 1), (2, 3), (3, 2), (1, 1)], (49, 45), seed=8, tile=(30, 25), offset=(3, 1)),
     "jp2-subsampled-srgb": lambda: jp2_bytes(_subsampled([(1, 1), (2, 2), (2, 2)], seed=4),
                                              3, 7, 16),
     "jp2-subsampled-guess": lambda: jp2_bytes(_subsampled([(1, 1), (3, 1), (1, 3)], seed=5),
@@ -377,10 +393,10 @@ def test_tum_jp2_folder_reads_as_jax():
         assert a.timestamp == b.timestamp
         np.testing.assert_array_equal(a.intensity, b.intensity)
         np.testing.assert_array_equal(a.depth, b.depth)
-        # the first tile column is the PGM's depth (PIL's writer misplaces
-        # the samples of an I;16 image's later tile columns)
+        # lossless: the PGM's depth (in one tile column, which PIL's writer
+        # keeps in place for I;16)
         pgm = jds.load_depth(os.path.join(icl, f"image_depth_{i}.pgm"))
-        np.testing.assert_array_equal(a.depth[:, :256], pgm[:, :256])
+        np.testing.assert_array_equal(a.depth, pgm)
 
 
 def test_rgbd_over_the_tum_jp2_folder_matches_jax():

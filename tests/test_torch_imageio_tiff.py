@@ -42,7 +42,7 @@ from srrg2_proslam_tpu.models import frontend as jfe, tracker as jtr  # noqa: E4
 from srrg2_proslam_tpu_torch.io import datasets as tds  # noqa: E402
 from srrg2_proslam_tpu_torch.io import images, images_plain  # noqa: E402
 from srrg2_proslam_tpu_torch.models import frontend, tracker  # noqa: E402
-from torch_imagefiles import tiff_bytes, zstd_frame  # noqa: E402
+from torch_imagefiles import tiff_bytes, zstd_frame, zstd_match_frame  # noqa: E402
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FIXTURES = os.path.join(REPO, "test_data", "torch_io")
@@ -219,23 +219,36 @@ def test_zstd_tiff_strips_and_tiles_read_as_jax(tmp_path, name, predictor, org, 
     assert_reads_as_jax(path)
 
 
-def _zstd_refused(first_skippable: bool) -> bytes:
-    def codec(data):
-        frame = zstd_frame(checksum=True)(data)
-        if first_skippable:
-            return struct.pack("<II", 0x184D2A50, 3) + b"abc" + frame
-        return frame[:-4] + bytes(b ^ 0xFF for b in frame[-4:])
-    return tiff_bytes(samples(31, 1, 8), 8, 1, compression=50000, codec=codec)
+def _zstd_refused(variant: str) -> bytes:
+    if variant in ("skippable-first", "bad-checksum"):
+        def codec(data):
+            frame = zstd_frame(checksum=True)(data)
+            if variant == "skippable-first":
+                return struct.pack("<II", 0x184D2A50, 3) + b"abc" + frame
+            return frame[:-4] + bytes(b ^ 0xFF for b in frame[-4:])
+        return tiff_bytes(samples(31, 1, 8), 8, 1, compression=50000, codec=codec)
+    frame = {"block-above-128k": lambda: zstd_match_frame(20, 100),
+             "block-above-window": lambda: zstd_match_frame(10, 1, 0),
+             "window-above-128mib": lambda: zstd_match_frame(28, 1, 0),
+             "short-of-content-size": lambda: zstd_match_frame(20, 1, 0, 65541)}[variant]()
+    return tiff_bytes(np.zeros((128, 512, 1)), 8, 1, compression=50000, codec=lambda _: frame)
 
 
 @pytest.mark.parametrize("variant,reason", [
-    ("skippable-first", "not enough ZSTD data"), ("bad-checksum", "ZSTD checksum mismatch")])
+    ("skippable-first", "not enough ZSTD data"), ("bad-checksum", "ZSTD checksum mismatch"),
+    ("block-above-128k", "a block above its maximum"),
+    ("block-above-window", "a block above its maximum"),
+    ("window-above-128mib", "a window above 128 MiB"),
+    ("short-of-content-size", "less data than the content size")])
 def test_zstd_tiff_libtiff_refuses_is_refused(tmp_path, variant, reason):
     """libtiff stops at the end of the first frame (a skippable frame first
-    leaves the strip short) and checks the content checksum."""
+    leaves the strip short) and checks the content checksum; libzstd refuses
+    a block regenerating more than 128 KiB or its window (the first one
+    here would make 13 MB), a window above 128 MiB and a frame short of its
+    content size."""
     path = str(tmp_path / "x.tif")
     with open(path, "wb") as f:
-        f.write(_zstd_refused(variant == "skippable-first"))
+        f.write(_zstd_refused(variant))
     with pytest.raises(OSError):
         Image.open(path).load()
     for read in (tds.load_gray, tds.load_depth, images.decode, images_plain.decode):

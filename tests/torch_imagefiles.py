@@ -318,6 +318,26 @@ def zstd_frame(level: int = 3, checksum: bool = False, skippable: bytes = b"",
     return compress
 
 
+def zstd_match_frame(window_log: int, matches: int, extra: int = 65535,
+                     content_size: int = None) -> bytes:
+    """A Zstandard frame of one compressed block: ``matches`` sequences of
+    one raw literal and a match of 65539 + ``extra`` bytes at offset 1 (the
+    literal repeated; RLE tables, so the bitstream is the extra bits), in a
+    window of 2**``window_log`` bytes, with a 4-byte content size or none."""
+    assert matches < 128
+    block = (bytes([(matches & 15) << 4 | 4, matches >> 4]) + bytes(range(1, matches + 1))
+             + bytes([matches, 0x54, 1, 0, 52]))
+    bits = 1 << 16 * matches
+    for i in range(matches):
+        bits |= extra << 16 * (matches - 1 - i)
+    block += bits.to_bytes(2 * matches + 1, "little")
+    head = bytes([0x28, 0xB5, 0x2F, 0xFD, 0 if content_size is None else 0x80,
+                  (window_log - 10) << 3])
+    if content_size is not None:
+        head += struct.pack("<I", content_size)
+    return head + ((len(block) << 3) | 5).to_bytes(3, "little") + block
+
+
 def tiff_bytes(samples: np.ndarray, bps: int, photometric: int, sample_format: int = 1,
                extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
                tile=None, rows_per_strip=None, big_endian: bool = False, colormap=None,
@@ -1097,6 +1117,160 @@ def j2k_join(main, parts) -> bytes:
     return out + b"\xff\xd9"
 
 
+def _plt_lengths(head) -> list:
+    """The packet lengths in a tile-part header's PLT segments."""
+    lengths = []
+    for m, body in head:
+        if m == 0xFF58:
+            value = 0
+            for byte in body[1:]:
+                value = (value << 7) | (byte & 0x7F)
+                if not byte & 0x80:
+                    lengths.append(value)
+                    value = 0
+    return lengths
+
+
+class _HeaderBits:
+    """Packet-header bits (T.800 B.10.1): a byte after 0xFF gives seven."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos, self.byte, self.left = data, pos, 0, 0
+
+    def bit(self) -> int:
+        if not self.left:
+            self.left = 7 if self.byte == 0xFF else 8
+            self.byte = self.data[self.pos]
+            self.pos += 1
+        self.left -= 1
+        return (self.byte >> self.left) & 1
+
+    def bits(self, n: int) -> int:
+        return sum(self.bit() << k for k in range(n - 1, -1, -1))
+
+    def passes(self) -> int:
+        if not self.bit():
+            return 1
+        if not self.bit():
+            return 2
+        n = self.bits(2)
+        if n < 3:
+            return 3 + n
+        n = self.bits(5)
+        return 6 + n if n < 31 else 37 + self.bits(7)
+
+    def end(self) -> int:
+        """Where the header ends: past a stuffed byte after a last 0xFF."""
+        return self.pos + (self.byte == 0xFF)
+
+
+class _TagTreeReader:
+    """A tag tree over w x h leaves (T.800 B.10.2)."""
+
+    def __init__(self, w: int, h: int):
+        self.widths = [w]
+        while w * h > 1:
+            w, h = (w + 1) // 2, (h + 1) // 2
+            self.widths.append(w)
+        self.value = [{} for _ in self.widths]
+        self.low = [{} for _ in self.widths]
+
+    def below(self, bits: _HeaderBits, leaf: int, t: int) -> bool:
+        """Whether the leaf's value is below ``t``, reading the bits that says."""
+        x, y = leaf % self.widths[0], leaf // self.widths[0]
+        low = 0
+        for k in range(len(self.widths) - 1, -1, -1):
+            node = (y >> k) * self.widths[k] + (x >> k)
+            low = max(low, self.low[k].get(node, 0))
+            while low < t and low < self.value[k].get(node, t):
+                if bits.bit():
+                    self.value[k][node] = low
+                else:
+                    low += 1
+            self.low[k][node] = low
+        return self.value[0].get(leaf, t) < t
+
+
+def j2k_packet_spans(cs: bytes) -> dict:
+    """A codestream of one tile-part per tile, LRCP, no POC, no subsampling
+    -> {tile: its packets as (header start, header end, body end) in its
+    data}.  Each header is read (T.800 B.10: inclusion and zero bit-planes
+    from tag trees, pass counts, lengths) to its end, the body is the
+    code-blocks' lengths after it, and an SOP marker ahead of a packet is
+    skipped.  Where PIL wrote PLT markers, each packet's length is checked
+    against them."""
+    main, parts = j2k_segments(cs)
+    seg = dict(main)
+    xsiz, ysiz, xo, yo, xt, yt, xto, yto = struct.unpack(">8I", seg[0xFF51][2:34])
+    ncomp, cod = int.from_bytes(seg[0xFF51][34:36], "big"), seg[0xFF52]
+    assert cod[1] == 0 and 0xFF5F not in seg and all(
+        seg[0xFF51][37 + 3 * c:39 + 3 * c] == b"\1\1" for c in range(ncomp))
+    layers, levels, xcb, ycb = int.from_bytes(cod[2:4], "big"), cod[5], cod[6] + 2, cod[7] + 2
+    exps = [(b & 15, b >> 4) for b in cod[10:]] if cod[0] & 1 else [(15, 15)] * (levels + 1)
+
+    def precincts(rect, r):
+        """Resolution r's precincts: each one's (code-blocks across, down)
+        in each non-empty band."""
+        lev, (ex, ey) = levels - r, exps[r]
+        rx0, ry0, rx1, ry1 = (-(-v // (1 << lev)) for v in rect)
+        if rx0 == rx1 or ry0 == ry1:
+            return []
+        pw, ph = -(-rx1 // (1 << ex)) - (rx0 >> ex), -(-ry1 // (1 << ey)) - (ry0 >> ey)
+        gx, gy = (rx0 >> ex) << ex, (ry0 >> ey) << ey
+        bands = [((rx0, ry0, rx1, ry1), gx, gy, ex, ey)] if r == 0 else [
+            (tuple(-(-(v - (o << lev)) // (2 << lev)) for v, o in zip(rect, (b & 1, b >> 1) * 2)),
+             gx >> 1, gy >> 1, ex - 1, ey - 1) for b in (1, 2, 3)]
+        out = []
+        for k in range(pw * ph):
+            grids = []
+            for (bx0, by0, bx1, by1), ox, oy, bex, bey in bands:
+                if bx0 >= bx1 or by0 >= by1:
+                    continue
+                px0, px1 = max(ox + (k % pw << bex), bx0), min(ox + (k % pw + 1 << bex), bx1)
+                py0, py1 = max(oy + (k // pw << bey), by0), min(oy + (k // pw + 1 << bey), by1)
+                cx, cy = min(xcb, bex), min(ycb, bey)
+                empty = px0 >= px1 or py0 >= py1
+                grids.append((0, 0) if empty else (-(-px1 // (1 << cx)) - (px0 >> cx),
+                                                   -(-py1 // (1 << cy)) - (py0 >> cy)))
+            out.append(grids)
+        return out
+
+    spans = {}
+    for sot, head, data in parts:
+        t = int.from_bytes(sot[:2], "big")
+        p, q = t % -(-(xsiz - xto) // xt), t // -(-(xsiz - xto) // xt)
+        rect = (max(xto + p * xt, xo), max(yto + q * yt, yo),
+                min(xto + (p + 1) * xt, xsiz), min(yto + (q + 1) * yt, ysiz))
+        grid = [precincts(rect, r) for r in range(levels + 1)]
+        state, pos, spans[t] = {}, 0, []
+        for layer, r in ((layer, r) for layer in range(layers) for r in range(levels + 1)):
+            for c, (k, bands) in ((c, kb) for c in range(ncomp) for kb in enumerate(grid[r])):
+                start = pos + 6 if data[pos:pos + 2] == b"\xff\x91" else pos
+                bits, body = _HeaderBits(data, start), 0
+                if bits.bit():
+                    for b, (cw, ch) in enumerate(bands):
+                        incl, zero, lblock = state.setdefault(
+                            (r, c, k, b), (_TagTreeReader(cw, ch), _TagTreeReader(cw, ch), {}))
+                        for n in range(cw * ch):
+                            if not (bits.bit() if n in lblock else incl.below(bits, n, layer + 1)):
+                                continue
+                            if n not in lblock:
+                                i = 1
+                                while not zero.below(bits, n, i):
+                                    i += 1
+                                lblock[n] = 3
+                            passes = bits.passes()
+                            while bits.bit():
+                                lblock[n] += 1
+                            body += bits.bits(lblock[n] + passes.bit_length() - 1)
+                spans[t].append((start, bits.end(), bits.end() + body))
+                pos = bits.end() + body
+        lengths = _plt_lengths(head)
+        assert not lengths or lengths == [e - s for s, e in zip([0] + [e for *_, e in spans[t]],
+                                                                [e for *_, e in spans[t]])]
+    return spans
+
+
 def j2k_with_sop(cs: bytes) -> bytes:
     """A codestream written with PLT markers -> the same packets, each behind
     an SOP marker (COD's Scod bit 1 set, the PLT segments dropped)."""
@@ -1105,15 +1279,7 @@ def j2k_with_sop(cs: bytes) -> bytes:
             for m, body in main]
     count = {}
     for part in parts:
-        lengths = []
-        for m, body in part[1]:
-            if m == 0xFF58:
-                value = 0
-                for byte in body[1:]:
-                    value = (value << 7) | (byte & 0x7F)
-                    if not byte & 0x80:
-                        lengths.append(value)
-                        value = 0
+        lengths = _plt_lengths(part[1])
         data, pos, out = part[2], 0, b""
         tile = part[0][:2]
         for n in lengths:
@@ -1153,12 +1319,13 @@ def jp2_bytes(cs: bytes, nc: int, bpc: int, enumcs: int = 17, boxes=(), header_b
 
 def j2k_with_eph(cs: bytes, spans) -> bytes:
     """A codestream of one tile-part per tile -> the same with an EPH marker
-    after every packet header (COD's Scod bit 2 set); ``spans[t]`` lists
-    tile t's packets as (header start, header end, body end) in its data."""
+    after every packet header (COD's Scod bit 2 set, the PLT segments
+    dropped); ``spans`` as ``j2k_packet_spans`` gives them."""
     main, parts = j2k_segments(cs)
     main = [(m, bytes([body[0] | 4]) + body[1:]) if m == 0xFF52 else (m, body)
             for m, body in main]
     for part in parts:
+        part[1] = [(m, body) for m, body in part[1] if m != 0xFF58]
         data, out, pos = part[2], b"", 0
         for start, head_end, end in spans[int.from_bytes(part[0][:2], "big")]:
             out += data[pos:head_end] + b"\xff\x92"
@@ -1171,8 +1338,8 @@ def j2k_with_packed_headers(cs: bytes, spans, where: str) -> bytes:
     """A codestream of one tile-part per tile -> the same with the packet
     headers moved out of the tile data into PPT segments of each tile-part
     header (``where="ppt"``) or PPM segments of the main header ("ppm"),
-    split into segments of at most 1000 bytes; ``spans`` as for
-    ``j2k_with_eph``."""
+    split into segments of at most 1000 bytes (the PLT segments dropped);
+    ``spans`` as ``j2k_packet_spans`` gives them."""
     main, parts = j2k_segments(cs)
     ppm = b""
     for part in parts:
@@ -1182,6 +1349,7 @@ def j2k_with_packed_headers(cs: bytes, spans, where: str) -> bytes:
         ends = [0] + [end for _, _, end in spans_t]     # an SOP marker stays with its body
         part[2] = b"".join(data[before:start] + data[head_end:end]
                            for before, (start, head_end, end) in zip(ends, spans_t))
+        part[1] = [(m, body) for m, body in part[1] if m != 0xFF58]
         if where == "ppt":
             part[1] += [(0xFF61, bytes([z]) + heads[k:k + 1000])
                         for z, k in enumerate(range(0, len(heads), 1000))]
@@ -1193,34 +1361,29 @@ def j2k_with_packed_headers(cs: bytes, spans, where: str) -> bytes:
     return j2k_join(main, parts)
 
 
-def j2k_merged(parts, factors) -> bytes:
-    """One codestream of the single-component codestreams ``parts`` (each
-    written with PLT markers, one tile, one layer, one precinct per
-    resolution, LRCP and the same number of resolutions), component c
-    subsampled by ``factors[c]`` = (XRsiz, YRsiz) on the reference grid of
-    the first part: the SIZ rewritten, the COD of the first part (no colour
-    transform), its QCD and a QCC per later component, the packets
-    interleaved resolution by resolution as LRCP orders them."""
-    streams = []
-    for cs in parts:
+def j2k_merged(pieces, factors, geometry) -> bytes:
+    """One codestream of single-component codestreams: ``pieces[t][c]`` is
+    component c of tile t, written with PLT markers, one tile, one layer,
+    one precinct per resolution, LRCP and the same number of resolutions,
+    at the tile-component's own offset on its grid.  Component c is
+    subsampled by ``factors[c]`` = (XRsiz, YRsiz); ``geometry`` is the
+    SIZ's (Xsiz, Ysiz, XOsiz, YOsiz, XTsiz, YTsiz, XTOsiz, YTOsiz).  The COD
+    is the first piece's (no colour transform), its QCD and a QCC per later
+    component; each tile's packets are interleaved resolution by resolution
+    as LRCP orders them."""
+    def packets(cs):
         main, (part,) = j2k_segments(cs)
-        lengths = []
-        for m, body in part[1]:
-            if m == 0xFF58:
-                value = 0
-                for byte in body[1:]:
-                    value = (value << 7) | (byte & 0x7F)
-                    if not byte & 0x80:
-                        lengths.append(value)
-                        value = 0
-        offsets = np.cumsum([0] + lengths)
-        streams.append((dict(main), [part[2][a:b] for a, b in zip(offsets[:-1], offsets[1:])]))
-    first = streams[0][0]
+        offsets = np.cumsum([0] + _plt_lengths(part[1]))
+        return dict(main), [part[2][a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+
+    tiles = [[packets(cs) for cs in tile] for tile in pieces]
+    first = tiles[0][0][0]
     siz = first[0xFF51]
     comps = b"".join(bytes([siz[36], dx, dy]) for dx, dy in factors)
-    main = [(0xFF51, siz[:34] + struct.pack(">H", len(parts)) + comps),
+    main = [(0xFF51, siz[:2] + struct.pack(">8IH", *geometry, len(factors)) + comps),
             (0xFF52, first[0xFF52][:4] + b"\0" + first[0xFF52][5:]), (0xFF5C, first[0xFF5C])]
-    main += [(0xFF5D, bytes([c]) + streams[c][0][0xFF5C]) for c in range(1, len(parts))]
-    packets = b"".join(streams[c][1][r] for r in range(len(streams[0][1]))
-                       for c in range(len(parts)))
-    return j2k_join(main, [[struct.pack(">HIBB", 0, 0, 0, 1), [], packets]])
+    main += [(0xFF5D, bytes([c]) + tiles[0][c][0][0xFF5C]) for c in range(1, len(factors))]
+    parts = [[struct.pack(">HIBB", t, 0, 0, 1), [],
+              b"".join(tile[c][1][r] for r in range(len(tile[0][1])) for c in range(len(tile)))]
+             for t, tile in enumerate(tiles)]
+    return j2k_join(main, parts)
