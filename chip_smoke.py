@@ -1814,7 +1814,7 @@ def measurement_stream(name: str):
     nothing measured), "closure" (out and back), "relocalize" (a longer
     out-and-back with relocalisations), "eviction" (closure with a two-slot
     ring, as tests/test_torch_sequence.py builds it) and "rollback"
-    (relocalize with frames 16 and 17 blanked, tests/test_torch_chunk_rollback.py).
+    (relocalize with frames 16 and 17 blanked, tests/test_torch_chunk_reloc.py).
     Returns (camera, frames [(points, desc, valid, timestamp)], config)."""
     import numpy as np
 

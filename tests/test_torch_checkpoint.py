@@ -20,8 +20,6 @@ the continued run exactly equal to the uninterrupted port run; against
 JAX's uninterrupted run the maps, counters and events equal and every pose
 within 1e-5 (tests/test_torch_sequence.py's bound).  The saved arrays use
 the JAX checkpoint's keys and shapes where the state has the same fields.
-This file runs the closure and eviction streams;
-tests/test_torch_checkpoint_modes.py the RGB-D and speculation ones.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -40,7 +38,7 @@ from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # no
 from tests.test_torch_slam import CAM, COUNTERS, _config, _scenario  # noqa: E402
 
 JAX_ATOL = 1e-5
-SCENARIOS = ("closure", "eviction")
+SCENARIOS = ("closure", "eviction", "rgbd_smoother_ba", "speculation")
 SPLIT_AT = {"closure": 8, "rgbd_smoother_ba": 8, "speculation": 8, "eviction": 17}
 
 

@@ -11,9 +11,9 @@ counterparts of tests/test_chunked.py's runs of the JAX chunk program:
 * ``closure`` in chunks of 4 at ``chunk_group`` 2 (two chunks per
   dispatch and packet read), equal to the ungrouped run;
 * ``eviction`` (a two-slot database ring) in chunks of 4;
-* the relocalisation streams in tests/test_torch_chunk_reloc.py and
-  tests/test_torch_chunk_rollback.py (files of their own, so that they
-  run side by side).
+* the relocalisation streams (``relocalize``, ``rollback``) in
+  tests/test_torch_chunk_reloc.py (a file of its own, so that the two run
+  side by side).
 
 Bounds: against the port's synchronous loop the per-frame status and local
 map, the counters, the closure events and every pose are equal, bit for

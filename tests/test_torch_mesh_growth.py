@@ -19,7 +19,8 @@ counters equal and the trajectory within 1e-4.  ``checkpoint.save`` of
 the meshed growth session (gathered, written by rank 0) equals the
 unmeshed session's save: every integer and boolean array and the session
 metadata equal, every float array within 1e-5; it loads back into a
-meshed GraphSLAM with the same graph, ring and tracker state.
+meshed GraphSLAM with the same graph, ring and tracker state.  Each rank's
+report is a case of its own.
 """
 import json
 import threading
@@ -115,26 +116,32 @@ def _jax_meshed(case):
                 trajectory=np.stack(slam.trajectory()))
 
 
-@pytest.mark.parametrize("case,chunk", RUNS, ids=[f"{c}-chunk{k}" for c, k in RUNS])
-def test_meshed_growth_and_eviction_equal_unmeshed(meshed, ckpt_dir, case, chunk):
+RANK_RUNS = [(case, chunk, rank) for case, chunk in RUNS for rank in range(2)]
+
+
+@pytest.mark.parametrize("case,chunk,rank", RANK_RUNS,
+                         ids=[f"{c}-chunk{k}-rank{r}" for c, k, r in RANK_RUNS])
+def test_meshed_growth_and_eviction_equal_unmeshed(meshed, ckpt_dir, case, chunk, rank):
     ref = _unmeshed(case, chunk, _saves(case, chunk, ckpt_dir / "plain.npz"))
     if case == "growth":
         assert ref["counters"]["num_maps"] > 2 and ref["counters"]["num_relocalizations"] >= 1
     else:
         assert ref["counters"]["num_db_evictions"] >= 1
-    for rank in meshed[(case, chunk)]:
-        diff = checks.compare_slam(rank, ref, POSE_TOL, replays=True)
-        print(f"{case} chunk {chunk} rank {rank['rank']}: largest pose difference {diff:.3e} m")
+    got = meshed[(case, chunk)][rank]
+    assert got["rank"] == rank
+    diff = checks.compare_slam(got, ref, POSE_TOL, replays=True)
+    print(f"{case} chunk {chunk} rank {rank}: largest pose difference {diff:.3e} m")
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_meshed_growth_and_eviction_agree_with_jax_mesh(meshed, case):
+@pytest.mark.parametrize("case,rank", [(c, r) for c in CASES for r in range(2)],
+                         ids=[f"{c}-rank{r}" for c in CASES for r in range(2)])
+def test_meshed_growth_and_eviction_agree_with_jax_mesh(meshed, case, rank):
     ref = _jax_meshed(case)
-    got = meshed[(case, 0)][0]
+    got = meshed[(case, 0)][rank]
     assert got["counters"] == ref["counters"]
     diff = float(np.abs(got["trajectory"] - ref["trajectory"]).max())
-    print(f"{case}: port meshed vs JAX meshed trajectory max |diff| {diff:.3e}, JAX graph "
-          f"capacities {ref['capacities']}")
+    print(f"{case} rank {rank}: port meshed vs JAX meshed trajectory max |diff| {diff:.3e}, "
+          f"JAX graph capacities {ref['capacities']}")
     assert diff <= POSE_TOL
 
 

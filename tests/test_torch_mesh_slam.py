@@ -21,6 +21,9 @@ same ranks.  Every rank is held to:
   the trajectory within 1e-4 (tests/test_mesh_orchestrator.py:73; the
   largest difference seen is printed).
 
+Each rank's report is a case of its own (the ranks run once per world
+size, cached).
+
 A ring budget or an edge capacity that the mesh size does not divide
 raises the JAX package's ValueError.
 """
@@ -53,7 +56,6 @@ KW = dict(splitting=dict(maximum_translation_m=1.2), loop=dict(minimum_age_diffe
           arena_capacity=512, database_capacity=2048, max_db_descriptors_per_map=256,
           max_local_maps=64, max_edges=256, enable_loop_closing=True)
 CHUNKS = (0, 4)
-CASES = [(2, c) for c in CHUNKS]
 POSE_TOL = 1e-4
 
 
@@ -119,41 +121,50 @@ def _jax_meshed(world, chunk):
                 trajectory=np.stack(slam.trajectory()))
 
 
+def rank_cases(worlds):
+    """(world, chunk, rank) for every rank: each rank's report is a case."""
+    return [(w, c, r) for w in worlds for c in CHUNKS for r in range(w)]
+
+
 def ids(cases):
-    return [f"world{w}-chunk{c}" for w, c in cases]
+    return [f"world{w}-chunk{c}-rank{r}" for w, c, r in cases]
 
 
-def check_unmeshed(world, chunk):
+def check_unmeshed(world, chunk, rank):
     ref = _unmeshed(chunk)
     assert ref["counters"]["num_closures"] >= 1 and ref["counters"]["num_relocalizations"] >= 1
-    for rank in _meshed(world)[chunk]:
-        diff = checks.compare_slam(rank, ref, POSE_TOL, replays=True)
-        print(f"world {world} chunk {chunk} rank {rank['rank']}: largest pose difference "
-              f"to the unmeshed run {diff:.3e} m")
-        assert rank["size"] == world and rank["collectives"]["ring"][0] > 0
-        assert rank["collectives"]["pgo"][0] > 0
+    got = _meshed(world)[chunk][rank]
+    assert got["rank"] == rank
+    diff = checks.compare_slam(got, ref, POSE_TOL, replays=True)
+    print(f"world {world} chunk {chunk} rank {rank}: largest pose difference "
+          f"to the unmeshed run {diff:.3e} m")
+    assert got["size"] == world and got["collectives"]["ring"][0] > 0
+    assert got["collectives"]["pgo"][0] > 0
 
 
-def check_jax_mesh(world, chunk):
+def check_jax_mesh(world, chunk, rank):
     ref = _jax_meshed(world, chunk)
-    got = _meshed(world)[chunk][0]
+    got = _meshed(world)[chunk][rank]
     c = got["counters"]
     assert (c["num_maps"], c["num_closures"], c["num_relocalizations"]) + got["recovery"] \
         == ref["counts"]
     diff = float(np.abs(got["trajectory"] - ref["trajectory"]).max())
-    print(f"world {world} chunk {chunk}: port meshed vs JAX meshed trajectory max |diff| "
-          f"{diff:.3e}")
+    print(f"world {world} chunk {chunk} rank {rank}: port meshed vs JAX meshed trajectory max "
+          f"|diff| {diff:.3e}")
     assert diff <= POSE_TOL
 
 
-@pytest.mark.parametrize("world,chunk", CASES, ids=ids(CASES))
-def test_meshed_slam_equals_unmeshed(world, chunk):
-    check_unmeshed(world, chunk)
+CASES = rank_cases((2,))
 
 
-@pytest.mark.parametrize("world,chunk", CASES, ids=ids(CASES))
-def test_meshed_slam_agrees_with_jax_mesh(world, chunk):
-    check_jax_mesh(world, chunk)
+@pytest.mark.parametrize("world,chunk,rank", CASES, ids=ids(CASES))
+def test_meshed_slam_equals_unmeshed(world, chunk, rank):
+    check_unmeshed(world, chunk, rank)
+
+
+@pytest.mark.parametrize("world,chunk,rank", CASES, ids=ids(CASES))
+def test_meshed_slam_agrees_with_jax_mesh(world, chunk, rank):
+    check_jax_mesh(world, chunk, rank)
 
 
 @pytest.mark.parametrize("field,value", [("max_db_descriptors_per_map", 67),

@@ -22,8 +22,7 @@ JAX the per-frame status and local map, the counters and closure events
 are equal and every pose within 1e-5 (tests/test_speculation.py:83,
 tests/test_chunked.py:83); on the RGB-D image path within 1e-4 (the
 depth GN's float differences, pinned in tests/test_torch_rgbd.py, add up
-to 2.7e-5 over the walk).  The lost and relocalisation streams run in
-tests/test_torch_speculation.py, the shipped configurations in
+to 2.7e-5 over the walk).  The shipped configurations run in
 tests/test_torch_config.py, the chunk program's other streams and sizes
 in tests/test_torch_chunk.py.
 """
@@ -173,8 +172,7 @@ def check_jax(r, name):
         assert r["jax"]["counters"]["num_closures"] >= 1
 
 
-# the lost and relocalisation streams run in tests/test_torch_speculation.py
-SCENARIOS = ("closure", "eviction")
+SCENARIOS = ("closure", "eviction", "lost", "relocalize")
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +197,14 @@ def test_flush_is_idempotent(runs):
         for _ in range(2):
             slam.flush()
         assert len(slam.frames) == n and slam.num_maps == maps and not slam._queue
+
+
+def test_flush_is_idempotent_after_a_relocalisation(runs):
+    slam = runs["relocalize"]["speculative_slam"]
+    n, maps = len(slam.frames), slam.num_maps
+    for _ in range(2):
+        slam.flush()
+    assert len(slam.frames) == n and slam.num_maps == maps and not slam._queue
 
 
 def test_finalize_keeps_the_depth():
