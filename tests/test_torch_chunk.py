@@ -43,7 +43,7 @@ from srrg2_proslam_tpu_torch.models.loop_closure import LoopDetectorConfig  # no
 from srrg2_proslam_tpu_torch.models.tracker import initial_state, track_step  # noqa: E402
 from srrg2_proslam_tpu_torch.ops import pgo  # noqa: E402
 from tests.test_torch_sequence import (_assert_exact, _assert_jax, _kw, _run_jax,  # noqa: E402
-                                       _run_port)
+                                       _run_port, _run_port_sync)
 from tests.test_torch_slam import CAM, _config  # noqa: E402
 
 # (stream, chunk_size, chunk_group)
@@ -67,11 +67,10 @@ def _stream(name):
 
 @lru_cache(maxsize=None)
 def _references(name):
-    """(JAX per-frame summary, the port's synchronous (slam, summary))."""
+    """(JAX per-frame summary, the port's synchronous (counters, summary))."""
     frames, kw = _stream(name)
     jax_ref = _run_jax(CAM, _config(js, JLoopCfg, kw), frames)
-    sync = _run_port(CAM, _config(ts, LoopDetectorConfig, kw), frames, "sync")
-    return jax_ref, sync
+    return jax_ref, _run_port_sync(CAM, _config(ts, LoopDetectorConfig, kw), frames)
 
 
 @lru_cache(maxsize=None)

@@ -26,6 +26,8 @@ to 2.7e-5 over the walk).  The shipped configurations run in
 tests/test_torch_config.py, the chunk program's other streams and sizes
 in tests/test_torch_chunk.py.
 """
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -124,6 +126,20 @@ def _run_port(cam, config, frames, mode, model="stereo"):
     return t, _summary(t, statuses)
 
 
+def _run_port_sync(cam, config, frames):
+    """The port's synchronous per-frame run: (the counters the tests read
+    off its GraphSLAM, its summary), shared by every file that runs the
+    same frames and config (tests/torch_shared.py)."""
+    def run():
+        slam, summary = _run_port(cam, config, frames, "sync")
+        return types.SimpleNamespace(
+            num_replayed_frames=slam.num_replayed_frames,
+            num_reloc_rollbacks=slam.num_reloc_rollbacks, num_losses=slam.num_losses,
+            _db_maps=list(slam._db_maps)), summary
+    return shared(digest("run_port_sync", repr(cam), repr(config), [list(f) for f in frames]),
+                  run)
+
+
 def scenario_runs(names):
     """Each named stream through JAX (per frame) and the port: synchronous,
     speculative at depth 8, and ``process_meas_sequence`` in chunks of 4."""
@@ -131,7 +147,9 @@ def scenario_runs(names):
     for name in names:
         frames, kw = _kw(name)
         res = {"jax": _run_jax(CAM, _config(js, JLoopCfg, kw), frames)}
-        for mode, extra in (("sync", {}), ("speculative", dict(speculation_depth=DEPTH)),
+        res["sync_slam"], res["sync"] = _run_port_sync(
+            CAM, _config(ts, LoopDetectorConfig, kw), frames)
+        for mode, extra in (("speculative", dict(speculation_depth=DEPTH)),
                             ("sequence", dict(chunk_size=CHUNK, speculation_depth=DEPTH))):
             slam, res[mode] = _run_port(CAM, _config(ts, LoopDetectorConfig, dict(kw, **extra)),
                                         frames, mode)
