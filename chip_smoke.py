@@ -126,10 +126,15 @@ Phases, any failure exits non-zero:
      the TIFF one (launches_zstd_vo, max_abs_err_zstd) and the TUM JPEG
      2000 folder (JP2 RGB, 16-bit J2K depth) as the TUM TIFF one
      (launches_jp2_rgbd, max_abs_err_jp2_rgbd), each read through the
-     library and the folder readers;
+     library and the folder readers; the KITTI folder of lossless
+     animated WebP (each file's first frame) as the TIFF one, through the
+     library and the folder readers (launches_webp_anim_vo,
+     max_abs_err_webp), and the BC6H DDS files (DXGI 95 and 96) to the
+     manifest through the library and its twin;
      ms per decode of the 376x1241 JPEG, the 480x640 progressive one, four
      TIFF files, a KITTI TGA, a DDS, three of the later fixtures, the
-     480x640 JP2 RGB, the 16-bit J2K depth and a KITTI Zstandard TIFF;
+     480x640 JP2 RGB, the 16-bit J2K depth, a KITTI Zstandard TIFF, a
+     KITTI animated WebP and the two BC6H files;
   9. the chunk program (models/chunk.py; scripts/chunk_graphs_torch.py
      runs this phase alone): 9a the rendered loop through
      GraphSLAM.process_sequence at chunk_size 16, chunk_lag 2 (one CUDA
@@ -1121,7 +1126,7 @@ IMAGE_FIXTURES = os.path.join(ROOT, "test_data", "torch_io")   # 8g: files and M
 DECODE_REPS = 20             # 8g: decodes per timed file
 # 8g: the full-size folders read through the library and the folder readers
 # only (the twin's tier-1 in Python takes minutes on a 480 x 640 JPEG 2000)
-LIBRARY_ONLY = ("tum_jp2/", "kitti_zstd/")
+LIBRARY_ONLY = ("tum_jp2/", "kitti_zstd/", "kitti_webp_anim/")
 TIFF_GN_ATOL = 2e-6          # 8g: K2 against its plain version at the TIFF pair
 
 
@@ -1389,7 +1394,9 @@ def host_images(dev, smi, report) -> dict:
     ICO, QOI, IM, XBM, MSP, lossless and lossy WebP, JPEG 2000 and ZSTD
     TIFF) to the manifest; the KITTI ZSTD folder as the TIFF one and the
     TUM JPEG 2000 folder as the TUM TIFF one, both through the library
-    only (LIBRARY_ONLY); save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx,
+    only (LIBRARY_ONLY); the KITTI animated WebP folder as the TIFF one
+    (library only) and the BC6H DDS files (unsigned and signed) to the
+    manifest; save_gray to .jpg, .tif, .gif, .tga, .sgi, .pcx,
     .dds and .im writes PIL's files; ms per decode.  Returns the runs'
     launches by path."""
     import hashlib
@@ -1499,6 +1506,8 @@ def host_images(dev, smi, report) -> dict:
                                      "pair 0 8-bit Zstandard + predictor 2, pair 1 16-bit")
     counts_jp2_rgbd = tum_folder_rgbd(dev, smi, report, manifest, "tum_jp2", "jp2",
                                       "RGB 9/7 JP2 in three layers, depth 16-bit 5/3 J2K")
+    counts_webp_vo = kitti_folder_vo(dev, smi, report, manifest, "kitti_webp_anim", "webp",
+                                     "lossless animated WebP, the first of two frames")
 
     # ms per decode on this machine's host
     for name in ("kitti_left_0.jpg", "icl_rgb_0_progressive_420.jpg",
@@ -1506,7 +1515,9 @@ def host_images(dev, smi, report) -> dict:
                  "tum_tiff/depth/0.tif", "tum_tiff/depth/1.tif",
                  "kitti_tga/image_0/000000.tga", "icl_dxt1.dds", "kitti_ccitt_g4.tif",
                  "icl_jpeg_ycbcr_420.tif", "icl_progressive_3_scans.jpg",
-                 "tum_jp2/rgb/0.jp2", "tum_jp2/depth/0.j2k", "kitti_zstd/image_0/000000.tif"):
+                 "tum_jp2/rgb/0.jp2", "tum_jp2/depth/0.j2k", "kitti_zstd/image_0/000000.tif",
+                 "kitti_webp_anim/image_0/000000.webp", "bc6h_unsigned.dds",
+                 "bc6h_signed.dds"):
         path = os.path.join(IMAGE_FIXTURES, name)
         shape = images.decode(path).samples.shape
         t0 = time.perf_counter()
@@ -1528,13 +1539,14 @@ def host_images(dev, smi, report) -> dict:
               f"[{smi}]", flush=True)
     return {"jpeg_vo": counts, "tiff_vo": counts_tiff_vo, "tga_vo": counts_tga_vo,
             "tiff_rgbd": counts_tiff_rgbd, "zstd_vo": counts_zstd_vo,
-            "jp2_rgbd": counts_jp2_rgbd}
+            "jp2_rgbd": counts_jp2_rgbd, "webp_anim_vo": counts_webp_vo}
 
 
 def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: str) -> dict:
     """8g: a KITTI-layout fixture folder (``kitti_tiff``: pair 0 8-bit LZW
     with predictor 2, pair 1 16-bit; ``kitti_zstd``: the same as Zstandard;
-    ``kitti_tga``: RLE TGA) through
+    ``kitti_tga``: RLE TGA; ``kitti_webp_anim``: lossless animated WebP,
+    read as its first frame) through
     iter_kitti_odometry, then adapt_stereo -> track_step on the card and on
     the CPU; K3 and K1 bit-exact and K2 within TIFF_GN_ATOL at these frames
     (``max_abs_err_<label>`` in the kernels line).  Returns the card run's
@@ -1548,7 +1560,7 @@ def kitti_folder_vo(dev, smi, report, manifest, folder: str, label: str, what: s
     from srrg2_proslam_tpu_torch.ops import se3
 
     seq = os.path.join(IMAGE_FIXTURES, folder)
-    ext = {"tiff": "tif", "zstd": "tif", "tga": "tga"}[label]
+    ext = {"tiff": "tif", "zstd": "tif", "tga": "tga", "webp": "webp"}[label]
     name = label.upper()
     frames = list(datasets.iter_kitti_odometry(seq))
     same = len(frames) == 2 and all(

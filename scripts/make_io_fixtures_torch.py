@@ -67,8 +67,9 @@ import numpy as np  # noqa: E402
 from PIL import Image  # noqa: E402
 
 from srrg2_proslam_tpu.io import datasets as jds  # noqa: E402
-from torch_imagefiles import (lzw_tiff, png_bytes, split_jpeg_tables,  # noqa: E402
-                              tiff_bytes, tiff_chunks_bytes, ycbcr_units, zstd_frame)
+from torch_imagefiles import (bc6h_blocks, dds_dx10_bytes, lzw_tiff,  # noqa: E402
+                              png_bytes, split_jpeg_tables, tiff_bytes, tiff_chunks_bytes,
+                              ycbcr_units, zstd_frame)
 
 OUT = os.path.join(ROOT, "test_data", "torch_io")
 KITTI = os.path.join(ROOT, "test_data", "kitti", "city")
@@ -239,6 +240,26 @@ def jp2_zstd_families(rgb: Image.Image):
                            codec=zstd_frame(level=19, checksum=True)))
 
 
+def webp_anim_bc6h():
+    """kitti_webp_anim/ and the two BC6H files (see the module docstring)."""
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(OUT, "kitti_webp_anim", sub), exist_ok=True)
+    for i in (0, 1):
+        for sub, side in (("image_0", "left"), ("image_1", "right")):
+            gray = np.asarray(Image.open(os.path.join(KITTI, f"image_{side}_{i}.png")))
+            cut = np.ascontiguousarray(gray[:, KITTI_COLS])
+            later = cut.copy()
+            later[100:164, 200:264] = 255 - later[100:164, 200:264]
+            Image.fromarray(cut).convert("RGB").save(
+                os.path.join(OUT, "kitti_webp_anim", sub, f"{i:06d}.webp"), save_all=True,
+                append_images=[Image.fromarray(later).convert("RGB")], lossless=True)
+    with open(os.path.join(OUT, "kitti_webp_anim", "times.txt"), "w") as f:
+        f.write("0.000000e+00\n1.036300e-01\n")
+    for dxgi, name in ((95, "bc6h_unsigned.dds"), (96, "bc6h_signed.dds")):
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(dds_dx10_bytes(30, 22, dxgi, bc6h_blocks(8 * 6, dxgi)))
+
+
 def fixture_files():
     """Every image file under OUT, as paths relative to it."""
     out = []
@@ -292,6 +313,7 @@ def main():
     raster_families(rgb, kitti)
     jp2_zstd_folders()
     jp2_zstd_families(rgb)
+    webp_anim_bc6h()
 
     manifest = {}
     for name in fixture_files():

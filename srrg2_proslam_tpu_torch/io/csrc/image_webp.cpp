@@ -15,7 +15,10 @@
 // cross-colour, subtract-green and colour-indexing transforms (with pixel
 // bundling), the colour cache, meta prefix codes, canonical prefix codes
 // (simple or from code-length codes), LZ77 references through libwebp's
-// 120-entry distance map.  Refused: animated files.
+// 120-entry distance map.  An animated file (VP8X's animation flag) gives
+// its first frame as WebPAnimDecoder composites it: the chunks checked as
+// libwebp's demuxer checks every frame, then the frame decoded into a
+// transparent black canvas at its offset (a key frame: never blended).
 
 #include <algorithm>
 #include <cstdint>
@@ -1401,42 +1404,10 @@ Image decode_vp8_image(const uint8_t* data, size_t size, const uint8_t* alph, si
   return img;
 }
 
-}  // namespace
-
-Image decode_webp(const std::vector<uint8_t>& f) {
-  if (f.size() < 20 || std::memcmp(f.data(), "RIFF", 4) || std::memcmp(&f[8], "WEBP", 4))
-    throw Error("not a WebP file");
-  size_t pos = 12;
-  int alpha = -1;
-  const uint8_t *body = nullptr, *alph = nullptr;
-  size_t body_size = 0, alph_size = 0;
-  bool lossy = false;
-  while (pos + 8 <= f.size()) {
-    const size_t size = le32(&f[pos + 4]);
-    const size_t avail = std::min(size, f.size() - pos - 8);
-    if (!std::memcmp(&f[pos], "VP8X", 4)) {
-      if (avail < 10 || (f[pos + 8] & 0x02))
-        throw Error("WebP: an animated WebP is not supported");
-      alpha = (f[pos + 8] & 0x10) ? 1 : 0;
-    } else if (!std::memcmp(&f[pos], "ALPH", 4)) {
-      alph = &f[pos + 8];
-      alph_size = avail;
-    } else if (!std::memcmp(&f[pos], "VP8 ", 4) || !std::memcmp(&f[pos], "VP8L", 4)) {
-      lossy = f[pos + 3] == ' ';
-      body = &f[pos + 8];
-      body_size = avail;
-      break;
-    }
-    if (size > f.size()) break;
-    pos += 8 + size + (size & 1);
-  }
-  if (!body) throw Error("WebP: no image chunk");
-  if (lossy) return decode_vp8_image(body, body_size, alph, alph_size, alpha == 1);
-  if (body_size < 5 || body[0] != 0x2F) throw Error("WebP: bad lossless signature");
+// a VP8L bitstream -> RGBA (``alpha``), else RGB
+Image decode_vp8l_image(const uint8_t* body, size_t body_size, bool alpha) {
   const uint32_t head = le32(body + 1);
   const int w = int(head & 0x3FFF) + 1, h = int((head >> 14) & 0x3FFF) + 1;
-  if (head >> 29) throw Error("WebP: unknown lossless version");
-  if (alpha < 0) alpha = int((head >> 28) & 1);
   if (too_many_pixels(uint64_t(w), uint64_t(h))) throw Error("WebP: bad image size");
   LsbBits br(body + 5, body_size - 5);
   std::vector<Transform> transforms;
@@ -1457,6 +1428,209 @@ Image decode_webp(const std::vector<uint8_t>& f) {
     if (alpha) d[3] = uint8_t(px[i] >> 24);
   }
   return img;
+}
+
+void check_lossless_header(const uint8_t* body, size_t body_size) {
+  if (body_size < 5 || body[0] != 0x2F) throw Error("WebP: bad lossless signature");
+  if (le32(body + 1) >> 29) throw Error("WebP: unknown lossless version");
+}
+
+uint32_t le24(const uint8_t* p) {
+  return uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16;
+}
+
+// One ANMF frame as libwebp's demuxer stores it.
+struct AnimFrame {
+  uint32_t x = 0, y = 0, w = 0, h = 0;
+  const uint8_t *alph = nullptr, *image = nullptr;
+  size_t alph_size = 0, image_size = 0;
+  bool lossy = false, alph_last = false;  // alph_last: ALPH after the image chunk
+};
+
+// WebPGetFeatures on a frame's image chunk (VP8GetInfo / VP8LGetInfo in
+// libwebp's dec/webp_dec.c, vp8_dec.c, vp8l_dec.c): its size, or a refusal.
+// ``avail`` is the padded payload, ``size`` the chunk's own.
+void frame_features(AnimFrame& fr, const uint8_t* d, size_t avail, size_t size) {
+  if (fr.lossy) {
+    if (avail < 10 || d[3] != 0x9D || d[4] != 0x01 || d[5] != 0x2A)
+      throw Error("WebP: bad frame bitstream header");
+    const uint32_t bits = le24(d);
+    fr.w = le16(d + 6) & 0x3FFF;
+    fr.h = le16(d + 8) & 0x3FFF;
+    if ((bits & 1) || ((bits >> 1) & 7) > 3 || !((bits >> 4) & 1) || (bits >> 5) >= size ||
+        !fr.w || !fr.h)
+      throw Error("WebP: bad frame bitstream header");
+  } else {
+    if (avail < 5 || d[0] != 0x2F || (d[4] >> 5)) throw Error("WebP: bad frame bitstream header");
+    const uint32_t head = le32(d + 1);
+    fr.w = (head & 0x3FFF) + 1;
+    fr.h = ((head >> 14) & 0x3FFF) + 1;
+  }
+}
+
+// An animated WebP's first frame as PIL reads it through WebPAnimDecoder
+// (libwebp src/demux/demux.c parses and validates, src/demux/anim_decode.c
+// composites).  ``vp8x`` is the VP8X chunk's offset.
+Image decode_webp_anim(const std::vector<uint8_t>& f, size_t vp8x) {
+  // demux.c ReadHeader: the RIFF size bounds the data; a shorter file is
+  // partial, which WebPDemux refuses
+  const uint64_t riff_size = le32(&f[4]);
+  if (riff_size < 8 || riff_size > 0xFFFFFFF6u || f.size() < riff_size + 8)
+    throw Error("WebP: the RIFF size does not match the file");
+  const size_t end = size_t(riff_size) + 8;
+  // ParseVP8X: the flags, the canvas (width and height less one, so never
+  // 0) below MAX_IMAGE_AREA
+  if (end < vp8x + 8) throw Error("WebP: a chunk runs past the end of the RIFF data");
+  const size_t vp8x_size = le32(&f[vp8x + 4]) + (le32(&f[vp8x + 4]) & 1);
+  if (vp8x_size > end - vp8x - 8) throw Error("WebP: a chunk runs past the end of the RIFF data");
+  const int flags = f[vp8x + 8];
+  const uint64_t cw = 1 + uint64_t(le24(&f[vp8x + 12])), ch = 1 + uint64_t(le24(&f[vp8x + 15]));
+  if (cw * ch >= (uint64_t(1) << 32)) throw Error("WebP: bad canvas size");
+  size_t pos = vp8x + 8 + vp8x_size;
+  // ParseVP8XChunks / ParseAnimationFrame / StoreFrame
+  bool anim = false;
+  std::vector<AnimFrame> frames;
+  bool last_complete = true;
+  auto header = [&](size_t at, uint32_t* fourcc_size) {  // a chunk's header, size-checked
+    if (end - at < 8) throw Error("WebP: truncated chunk data");
+    *fourcc_size = le32(&f[at + 4]);
+    if (*fourcc_size > 0xFFFFFFF6u) throw Error("WebP: a chunk runs past the end of the RIFF data");
+    const size_t padded = size_t(*fourcc_size) + (*fourcc_size & 1);
+    if (padded > end - at - 8) throw Error("WebP: a chunk runs past the end of the RIFF data");
+    return padded;
+  };
+  do {
+    uint32_t size;
+    const size_t padded = header(pos, &size);
+    const uint8_t* tag = &f[pos];
+    if (!std::memcmp(tag, "VP8X", 4)) throw Error("WebP: a second VP8X chunk");
+    if (!std::memcmp(tag, "ALPH", 4) || !std::memcmp(tag, "VP8 ", 4) ||
+        !std::memcmp(tag, "VP8L", 4))
+      throw Error("WebP: an image chunk outside ANMF in an animated WebP");
+    if (!std::memcmp(tag, "ANIM", 4)) {
+      if (padded < 6) throw Error("WebP: short ANIM chunk");
+      anim = true;  // the background colour and loop count: PIL's pixels ignore them
+      pos += 8 + padded;
+    } else if (!std::memcmp(tag, "ANMF", 4)) {
+      if (!anim) throw Error("WebP: ANMF before ANIM");
+      if (padded < 16) throw Error("WebP: short ANMF chunk");
+      const uint8_t* d = &f[pos + 8];
+      AnimFrame fr;
+      fr.x = 2 * le24(d);
+      fr.y = 2 * le24(d + 3);
+      // the frame's size fields only bound its area: its bitstream's size counts
+      if ((1 + uint64_t(le24(d + 6))) * (1 + uint64_t(le24(d + 9))) >= (uint64_t(1) << 32))
+        throw Error("WebP: bad frame size");
+      const size_t payload = padded - 16, start = pos + 8 + 16;
+      if (end - start < 8 || end - start < payload) throw Error("WebP: truncated chunk data");
+      size_t cur = start;
+      bool has_frame = false, complete = false, done = false;
+      while (!done) {
+        uint32_t sub_size;
+        const size_t sub_padded = header(cur, &sub_size);
+        const uint8_t* sub = &f[cur];
+        if (!std::memcmp(sub, "ALPH", 4) && !fr.alph) {
+          fr.alph = sub + 8;
+          fr.alph_size = sub_size;
+          fr.alph_last = fr.image != nullptr;
+          has_frame = true;
+          cur += 8 + sub_padded;
+        } else if ((!std::memcmp(sub, "VP8 ", 4) || !std::memcmp(sub, "VP8L", 4)) && !fr.image) {
+          fr.lossy = sub[3] == ' ';
+          if (!fr.lossy && fr.alph) throw Error("WebP: ALPH before VP8L in a frame");
+          frame_features(fr, sub + 8, sub_padded, sub_size);
+          fr.image = sub + 8;
+          fr.image_size = sub_size;
+          has_frame = complete = true;
+          cur += 8 + sub_padded;
+        } else {
+          done = true;  // any other chunk ends the frame
+        }
+        if (cur == end) done = true;
+        else if (end - cur < 8) throw Error("WebP: truncated chunk data");
+      }
+      if (cur - start > payload) throw Error("WebP: a frame's chunks run past its ANMF chunk");
+      // AddFrame: a frame only when it has a chunk, none after an incomplete one
+      if (has_frame) {
+        if (!last_complete) throw Error("WebP: an ANMF with no image chunk");
+        frames.push_back(fr);
+        last_complete = complete;
+      }
+      pos = cur;  // the parse goes on after the frame's chunks
+    } else {
+      pos += 8 + padded;
+    }
+  } while (pos != end);
+  // IsValidExtendedFormat
+  if (frames.empty()) throw Error("WebP: an animated WebP with no frame");
+  if (flags & ~0x3E) throw Error("WebP: reserved VP8X flags are set");
+  for (const AnimFrame& fr : frames) {
+    if (fr.alph_last) throw Error("WebP: ALPH after the image chunk of a frame");
+    if (!fr.image) throw Error("WebP: an ANMF with no image chunk");
+    if (fr.x + uint64_t(fr.w) > cw || fr.y + uint64_t(fr.h) > ch)
+      throw Error("WebP: a frame lies outside the canvas");
+  }
+  if (too_many_pixels(cw, ch)) throw Error("WebP: bad image size");
+  // WebPAnimDecoderGetNext, first frame: a key frame, so the canvas is
+  // zeroed (transparent black) and the frame decoded into its rectangle
+  const AnimFrame& fr = frames[0];
+  Image frame;
+  if (fr.lossy) {
+    frame = decode_vp8_image(fr.image, fr.image_size, fr.alph, fr.alph_size, true);
+  } else {
+    check_lossless_header(fr.image, fr.image_size);
+    frame = decode_vp8l_image(fr.image, fr.image_size, true);
+  }
+  const bool alpha = flags & 0x10;  // PIL: RGBA where VP8X has alpha, else RGBX -> RGB
+  Image img;
+  img.w = int(cw);
+  img.h = int(ch);
+  img.mode = alpha ? MODE_RGBA : MODE_RGB;
+  img.channels = alpha ? 4 : 3;
+  img.data.assign(size_t(cw) * size_t(ch) * size_t(img.channels), 0);
+  for (int y = 0; y < frame.h; ++y)
+    for (int x = 0; x < frame.w; ++x) {
+      const uint8_t* s = &frame.data[(size_t(y) * frame.w + x) * 4];
+      uint8_t* d = &img.data[((fr.y + y) * size_t(cw) + fr.x + x) * img.channels];
+      for (int c = 0; c < img.channels; ++c) d[c] = s[c];
+    }
+  return img;
+}
+
+}  // namespace
+
+Image decode_webp(const std::vector<uint8_t>& f) {
+  if (f.size() < 20 || std::memcmp(f.data(), "RIFF", 4) || std::memcmp(&f[8], "WEBP", 4))
+    throw Error("not a WebP file");
+  size_t pos = 12;
+  int alpha = -1;
+  const uint8_t *body = nullptr, *alph = nullptr;
+  size_t body_size = 0, alph_size = 0;
+  bool lossy = false;
+  while (pos + 8 <= f.size()) {
+    const size_t size = le32(&f[pos + 4]);
+    const size_t avail = std::min(size, f.size() - pos - 8);
+    if (!std::memcmp(&f[pos], "VP8X", 4)) {
+      if (avail < 10) throw Error("WebP: bad VP8X chunk");
+      if (f[pos + 8] & 0x02) return decode_webp_anim(f, pos);
+      alpha = (f[pos + 8] & 0x10) ? 1 : 0;
+    } else if (!std::memcmp(&f[pos], "ALPH", 4)) {
+      alph = &f[pos + 8];
+      alph_size = avail;
+    } else if (!std::memcmp(&f[pos], "VP8 ", 4) || !std::memcmp(&f[pos], "VP8L", 4)) {
+      lossy = f[pos + 3] == ' ';
+      body = &f[pos + 8];
+      body_size = avail;
+      break;
+    }
+    if (size > f.size()) break;
+    pos += 8 + size + (size & 1);
+  }
+  if (!body) throw Error("WebP: no image chunk");
+  if (lossy) return decode_vp8_image(body, body_size, alph, alph_size, alpha == 1);
+  check_lossless_header(body, body_size);
+  if (alpha < 0) alpha = int((le32(body + 1) >> 28) & 1);
+  return decode_vp8l_image(body, body_size, alpha == 1);
 }
 
 }  // namespace pslx

@@ -566,8 +566,8 @@ _DDS_FOURCC = {b"DXT1": (1, "RGBA"), b"DXT3": (2, "RGBA"), b"DXT5": (3, "RGBA"),
                b"ATI2": (5, "RGB")}
 _DXGI = {70: (1, "RGBA"), 71: (1, "RGBA"), 73: (2, "RGBA"), 74: (2, "RGBA"), 76: (3, "RGBA"),
          77: (3, "RGBA"), 79: (4, "L"), 80: (4, "L"), 82: (5, "RGB"), 83: (5, "RGB"),
-         84: (-5, "RGB"), 97: (7, "RGBA"), 98: (7, "RGBA"), 99: (7, "RGBA"), 27: (0, "RGBA"),
-         28: (0, "RGBA"), 29: (0, "RGBA")}
+         84: (-5, "RGB"), 95: (6, "RGB"), 96: (-6, "RGB"), 97: (7, "RGBA"), 98: (7, "RGBA"),
+         99: (7, "RGBA"), 27: (0, "RGBA"), 28: (0, "RGBA"), 29: (0, "RGBA")}
 
 
 def _bc1_colours(blocks: np.ndarray, four: bool) -> np.ndarray:
@@ -619,12 +619,15 @@ def _bc3_alpha(blocks: np.ndarray, signed: bool = False) -> np.ndarray:
 def _bcn(data: bytes, n: int, w: int, h: int) -> np.ndarray:
     """BcnDecode.c: blocks of 4 x 4 in rows -> [h, w, channels] uint8."""
     size = 8 if abs(n) in (1, 4) else 16
-    if n == 7:
+    if abs(n) in (6, 7):
         bw, bh = -(-w // 4), -(-h // 4)
         if len(data) < bw * bh * 16:
             raise ValueError("DDS: truncated image data")
-        px = np.stack([_bc7_block(data[16 * i:16 * i + 16]) for i in range(bw * bh)])
-        px = px.reshape(bh, bw, 4, 4, 4).transpose(0, 2, 1, 3, 4).reshape(bh * 4, bw * 4, 4)
+        blocks = [data[16 * i:16 * i + 16] for i in range(bw * bh)]
+        px = np.stack([_bc7_block(b) for b in blocks] if n == 7
+                      else [_bc6_block(b, n < 0) for b in blocks])
+        c = px.shape[-1]
+        px = px.reshape(bh, bw, 4, 4, c).transpose(0, 2, 1, 3, 4).reshape(bh * 4, bw * 4, c)
         return px[:h, :w].astype(np.uint8)
     bw, bh = -(-w // 4), -(-h // 4)
     if len(data) < bw * bh * size:
@@ -1429,6 +1432,135 @@ def _bc7_block(block: bytes) -> np.ndarray:
     return out
 
 
+# ---- BC6H (BcnDecode.c decode_bc6_block) ------------------------------------------
+# Each rule was found by random blocks of every mode against PIL 12.1.
+
+_BC6_MODES = (   # subsets, transformed, partition bits, endpoint bits, delta bits r, g, b
+    (2, 1, 5, 10, 5, 5, 5), (2, 1, 5, 7, 6, 6, 6), (2, 1, 5, 11, 5, 4, 4),
+    (2, 1, 5, 11, 4, 5, 4), (2, 1, 5, 11, 4, 4, 5), (2, 1, 5, 9, 5, 5, 5),
+    (2, 1, 5, 8, 6, 5, 5), (2, 1, 5, 8, 5, 6, 5), (2, 1, 5, 8, 5, 5, 6),
+    (2, 0, 5, 6, 6, 6, 6), (1, 0, 0, 10, 10, 10, 10), (1, 1, 0, 11, 9, 9, 9),
+    (1, 1, 0, 12, 8, 8, 8), (1, 1, 0, 16, 4, 4, 4))
+# the endpoint bits of each mode as the BC6H format document lays them out,
+# from the block's low bits up, after the mode bits; "r0[10:15]" stores the
+# bits reversed (r0[15] first); endpoints r0 g0 b0 r1 g1 b1 (subset 0) and
+# r2 g2 b2 r3 g3 b3 (subset 1); csrc/image_dds.cpp kBc6Layouts is the same
+_BC6_LAYOUTS = (
+    "g2[4] b2[4] b3[4] r0[9:0] g0[9:0] b0[9:0] r1[4:0] g3[4] g2[3:0] g1[4:0] b3[0] g3[3:0] "
+    "b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "g2[5] g3[4] g3[5] r0[6:0] b3[0] b3[1] b2[4] g0[6:0] b2[5] b3[2] g2[4] b0[6:0] b3[3] b3[5] "
+    "b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[4:0] r0[10] g2[3:0] g1[3:0] g0[10] b3[0] g3[3:0] b1[3:0] "
+    "b0[10] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] g3[4] g2[3:0] g1[4:0] g0[10] g3[3:0] b1[3:0] "
+    "b0[10] b3[1] b2[3:0] r2[3:0] b3[0] b3[2] r3[3:0] g2[4] b3[3]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] b2[4] g2[3:0] g1[3:0] g0[10] b3[0] g3[3:0] "
+    "b1[4:0] b0[10] b2[3:0] r2[3:0] b3[1] b3[2] r3[3:0] b3[4] b3[3]",
+    "r0[8:0] b2[4] g0[8:0] g2[4] b0[8:0] b3[4] r1[4:0] g3[4] g2[3:0] g1[4:0] b3[0] g3[3:0] "
+    "b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[7:0] g3[4] b2[4] g0[7:0] b3[2] g2[4] b0[7:0] b3[3] b3[4] r1[5:0] g2[3:0] g1[4:0] "
+    "b3[0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[7:0] b3[0] b2[4] g0[7:0] g2[5] g2[4] b0[7:0] g3[5] b3[4] r1[4:0] g3[4] g2[3:0] "
+    "g1[5:0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[7:0] b3[1] b2[4] g0[7:0] b2[5] g2[4] b0[7:0] b3[5] b3[4] r1[4:0] g3[4] g2[3:0] "
+    "g1[4:0] b3[0] g3[3:0] b1[5:0] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[5:0] g3[4] b3[0] b3[1] b2[4] g0[5:0] g2[5] b2[5] b3[2] g2[4] b0[5:0] g3[5] b3[3] "
+    "b3[5] b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[9:0] g1[9:0] b1[9:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[8:0] r0[10] g1[8:0] g0[10] b1[8:0] b0[10]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[7:0] r0[10:11] g1[7:0] g0[10:11] b1[7:0] b0[10:11]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10:15] g1[3:0] g0[10:15] b1[3:0] b0[10:15]")
+
+
+def _bc6_packing(layout: str) -> tuple:
+    """A layout -> (endpoint, bit) per stored bit."""
+    out = []
+    for tok in layout.split():
+        e = 3 * int(tok[1]) + "rgb".index(tok[0])
+        a, _, b = tok[3:-1].partition(":")
+        a, b = int(a), int(b or a)
+        out += [(e, k) for k in (range(b, a + 1) if a >= b else range(b, a - 1, -1))]
+    return tuple(out)
+
+
+_BC6_PACKINGS = tuple(_bc6_packing(layout) for layout in _BC6_LAYOUTS)
+
+
+def _bc6_sign_extend(v: int, prec: int) -> int:
+    return (v | (-1 << prec)) & 0xFFFF if v & (1 << (prec - 1)) else v
+
+
+def _bc6_unquantize(v: int, prec: int, sign: bool) -> int:
+    if not sign:
+        if prec >= 15 or v == 0:
+            return v
+        return 0xFFFF if v == (1 << prec) - 1 else ((v << 15) + 0x4000) >> (prec - 1)
+    x = v - 0x10000 if v & 0x8000 else v                  # (INT16)
+    if prec >= 16:
+        return x
+    mag = abs(x)
+    if mag:
+        mag = 0x7FFF if mag >= (1 << (prec - 1)) - 1 else ((mag << 15) + 0x4000) >> (prec - 1)
+    return -mag if x < 0 else mag
+
+
+def _bc6_channels(v: np.ndarray, sign: bool) -> np.ndarray:
+    """bc6_finalize and bc6_clamp: [n] interpolated values -> [n] uint8, in
+    float32 as BcnDecode.c (half_to_float rebases the exponent by a float
+    multiply; x 255 truncated)."""
+    if sign:
+        half = np.where(v < 0, 0x8000 | ((-v) * 31) // 32, (v * 31) // 32)
+    else:
+        half = (v * 31) // 64
+    f = ((half & 0x7FFF) << 13).astype(np.uint32).view(np.float32)
+    f = f * np.uint32(0x77800000).view(np.float32)
+    bits = f.view(np.uint32) | np.where(f >= np.uint32(0x47800000).view(np.float32),
+                                        np.uint32(255 << 23), np.uint32(0))
+    f = (bits | ((half & 0x8000) << 16).astype(np.uint32)).view(np.float32)
+    scaled = np.clip(f * np.float32(255.0), 0, 255)       # the clip only guards the cast
+    return np.where(f < 0, 0, np.where(f > 1, 255, scaled.astype(np.int64)))
+
+
+def _bc6_block(block: bytes, sign: bool) -> np.ndarray:
+    """One BC6H block -> [16, 3] RGB (black for the reserved modes)."""
+    v = int.from_bytes(block, "little")
+    mode, pos, ib = v & 0x1F, 5, 3
+    if mode & 3 < 2:
+        mode, pos = mode & 3, 2
+    elif mode & 3 == 2:
+        mode = 2 + (mode >> 2)
+    else:
+        mode, ib = 10 + (mode >> 2), 4
+    if mode >= 14:
+        return np.zeros((16, 3), np.int64)
+    ns, tr, pb, epb, rb, gb, bb = _BC6_MODES[mode]
+    numep, mask = 6 * ns, (1 << epb) - 1
+    ep = [0] * 12
+    for e, k in _BC6_PACKINGS[mode]:
+        ep[e] |= ((v >> pos) & 1) << k
+        pos += 1
+    partition = (v >> pos) & ((1 << pb) - 1)
+    pos += pb
+    if sign:
+        ep[:3] = [_bc6_sign_extend(x, epb) for x in ep[:3]]
+    if sign or tr:
+        ep[3:numep] = [_bc6_sign_extend(x, (rb, gb, bb)[i % 3])
+                       for i, x in enumerate(ep[3:numep])]
+    if tr:   # masked to the endpoint bits, and (unlike the format document) not re-extended
+        ep[3:numep] = [(x + ep[i % 3]) & mask for i, x in enumerate(ep[3:numep])]
+    u = np.array([_bc6_unquantize(x, epb, sign) for x in ep[:numep]], np.int64)
+    weights = _BC7_WEIGHTS[ib]
+    lerp = np.zeros((16, 3), np.int64)
+    for i in range(16):
+        subset = (_BC7_P2[partition] >> i) & 1 if ns == 2 else 0
+        bits = ib - (i == 0 or (ns == 2 and i == _BC7_ANCHOR2[partition]))
+        w = weights[(v >> pos) & ((1 << bits) - 1)]
+        pos += bits
+        e0, e1 = u[6 * subset:6 * subset + 3], u[6 * subset + 3:6 * subset + 6]
+        lerp[i] = (e0 * (64 - w) + e1 * w) >> 6
+    return _bc6_channels(lerp.reshape(-1), sign).reshape(16, 3)
+
+
 # ---- WebP lossless (VP8L) --------------------------------------------------------
 
 _CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
@@ -1714,10 +1846,180 @@ def _predict(img: np.ndarray, sub: np.ndarray, bits: int):
             img[y, x] = join([a + b for a, b in zip(ch(v), ch(pred))])
 
 
+def _vp8l_decode(body: bytes, alpha: bool) -> np.ndarray:
+    """A VP8L bitstream -> [h, w, 4] RGBA (``alpha``), else [h, w, 3] RGB."""
+    head = int.from_bytes(body[1:5], "little")
+    w, h = (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
+    if w * h > MAX_PIXELS:
+        raise ValueError("WebP: bad image size")
+    br = _LsbBits(body[5:])
+    px, transforms, _ = _vp8l_image(br, w, h, True)
+    argb = _vp8l_inverse(px, transforms, h)
+    rgba = np.stack([(argb >> 16) & 255, (argb >> 8) & 255, argb & 255, argb >> 24], -1)
+    rgba = rgba.astype(np.uint8)
+    return np.ascontiguousarray(rgba if alpha else rgba[:, :, :3])
+
+
+def _check_lossless_header(body: bytes):
+    if len(body) < 5 or body[0] != 0x2F:
+        raise ValueError("WebP: bad lossless signature")
+    if int.from_bytes(body[1:5], "little") >> 29:
+        raise ValueError("WebP: unknown lossless version")
+
+
+def _vp8_decode_rgba(body: bytes, alph) -> np.ndarray:
+    """A VP8 key frame and its ALPH chunk (or None: opaque) -> [h, w, 4]."""
+    Y, U, V = _vp8_decode_vp8(body)
+    h, w = Y.shape
+    a = _vp8_decode_alpha(alph, w, h) if alph is not None else np.full((h, w), 255, np.uint8)
+    return np.ascontiguousarray(np.concatenate([_vp8_to_rgb(Y, U, V), a[:, :, None]], -1))
+
+
+def _frame_features(lossy: bool, d: bytes, avail: int, size: int):
+    """WebPGetFeatures on a frame's image chunk (VP8GetInfo / VP8LGetInfo in
+    libwebp's dec/webp_dec.c, vp8_dec.c, vp8l_dec.c): its (w, h), or a
+    refusal.  ``avail`` is the padded payload, ``size`` the chunk's own."""
+    if lossy:
+        if avail < 10 or d[3:6] != b"\x9d\x01\x2a":
+            raise ValueError("WebP: bad frame bitstream header")
+        bits = int.from_bytes(d[:3], "little")
+        w = int.from_bytes(d[6:8], "little") & 0x3FFF
+        h = int.from_bytes(d[8:10], "little") & 0x3FFF
+        if bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 or bits >> 5 >= size \
+                or not w or not h:
+            raise ValueError("WebP: bad frame bitstream header")
+        return w, h
+    if avail < 5 or d[0] != 0x2F or d[4] >> 5:
+        raise ValueError("WebP: bad frame bitstream header")
+    head = int.from_bytes(d[1:5], "little")
+    return (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
+
+
+def _webp_anim(blob: bytes, vp8x: int) -> Decoded:
+    """An animated WebP's first frame as PIL reads it through WebPAnimDecoder
+    (libwebp src/demux/demux.c parses and validates, anim_decode.c
+    composites; see ``csrc/image_webp.cpp`` decode_webp_anim)."""
+    le = lambda at, n: int.from_bytes(blob[at:at + n], "little")   # noqa: E731
+    # demux.c ReadHeader: the RIFF size bounds the data; a shorter file is partial
+    riff_size = le(4, 4)
+    if riff_size < 8 or riff_size > 0xFFFFFFF6 or len(blob) < riff_size + 8:
+        raise ValueError("WebP: the RIFF size does not match the file")
+    end = riff_size + 8
+    # ParseVP8X: the flags, the canvas (sizes less one: never 0) below MAX_IMAGE_AREA
+    vp8x_size = le(vp8x + 4, 4) + (le(vp8x + 4, 4) & 1)
+    if end < vp8x + 8 or vp8x_size > end - vp8x - 8:
+        raise ValueError("WebP: a chunk runs past the end of the RIFF data")
+    flags = blob[vp8x + 8]
+    cw, ch = 1 + le(vp8x + 12, 3), 1 + le(vp8x + 15, 3)
+    if cw * ch >= 1 << 32:
+        raise ValueError("WebP: bad canvas size")
+    pos = vp8x + 8 + vp8x_size
+
+    def header(at):   # a chunk's tag, size and padded size, size-checked
+        if end - at < 8:
+            raise ValueError("WebP: truncated chunk data")
+        size = le(at + 4, 4)
+        padded = size + (size & 1)
+        if size > 0xFFFFFFF6 or padded > end - at - 8:
+            raise ValueError("WebP: a chunk runs past the end of the RIFF data")
+        return blob[at:at + 4], size, padded
+
+    # ParseVP8XChunks / ParseAnimationFrame / StoreFrame
+    anim, frames, last_complete = False, [], True
+    while True:
+        tag, size, padded = header(pos)
+        if tag == b"VP8X":
+            raise ValueError("WebP: a second VP8X chunk")
+        if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+            raise ValueError("WebP: an image chunk outside ANMF in an animated WebP")
+        if tag == b"ANIM":
+            if padded < 6:
+                raise ValueError("WebP: short ANIM chunk")
+            anim = True   # the background colour and loop count: PIL's pixels ignore them
+            pos += 8 + padded
+        elif tag == b"ANMF":
+            if not anim:
+                raise ValueError("WebP: ANMF before ANIM")
+            if padded < 16:
+                raise ValueError("WebP: short ANMF chunk")
+            d = pos + 8
+            # the size fields only bound the frame's area: its bitstream's size counts
+            if (1 + le(d + 6, 3)) * (1 + le(d + 9, 3)) >= 1 << 32:
+                raise ValueError("WebP: bad frame size")
+            fr = {"x": 2 * le(d, 3), "y": 2 * le(d + 3, 3), "alph": None, "image": None,
+                  "alph_last": False}
+            payload, start = padded - 16, pos + 8 + 16
+            if end - start < 8 or end - start < payload:
+                raise ValueError("WebP: truncated chunk data")
+            cur, has_frame, complete, done = start, False, False, False
+            while not done:
+                sub, sub_size, sub_padded = header(cur)
+                body = blob[cur + 8:cur + 8 + sub_size]
+                if sub == b"ALPH" and fr["alph"] is None:
+                    fr["alph"], fr["alph_last"] = body, fr["image"] is not None
+                    has_frame = True
+                    cur += 8 + sub_padded
+                elif sub in (b"VP8 ", b"VP8L") and fr["image"] is None:
+                    fr["lossy"] = sub == b"VP8 "
+                    if not fr["lossy"] and fr["alph"] is not None:
+                        raise ValueError("WebP: ALPH before VP8L in a frame")
+                    fr["w"], fr["h"] = _frame_features(
+                        fr["lossy"], blob[cur + 8:cur + 8 + sub_padded], sub_padded, sub_size)
+                    fr["image"] = body
+                    has_frame = complete = True
+                    cur += 8 + sub_padded
+                else:
+                    done = True   # any other chunk ends the frame
+                if cur == end:
+                    done = True
+                elif end - cur < 8:
+                    raise ValueError("WebP: truncated chunk data")
+            if cur - start > payload:
+                raise ValueError("WebP: a frame's chunks run past its ANMF chunk")
+            if has_frame:   # AddFrame: only with a chunk, none after an incomplete frame
+                if not last_complete:
+                    raise ValueError("WebP: an ANMF with no image chunk")
+                frames.append(fr)
+                last_complete = complete
+            pos = cur   # the parse goes on after the frame's chunks
+        else:
+            pos += 8 + padded
+        if pos == end:
+            break
+    # IsValidExtendedFormat
+    if not frames:
+        raise ValueError("WebP: an animated WebP with no frame")
+    if flags & ~0x3E:
+        raise ValueError("WebP: reserved VP8X flags are set")
+    for fr in frames:
+        if fr["alph_last"]:
+            raise ValueError("WebP: ALPH after the image chunk of a frame")
+        if fr["image"] is None:
+            raise ValueError("WebP: an ANMF with no image chunk")
+        if fr["x"] + fr["w"] > cw or fr["y"] + fr["h"] > ch:
+            raise ValueError("WebP: a frame lies outside the canvas")
+    if cw * ch > MAX_PIXELS:
+        raise ValueError("WebP: bad image size")
+    # WebPAnimDecoderGetNext, first frame: a key frame, so the canvas is zeroed
+    # (transparent black) and the frame decoded into its rectangle
+    fr = frames[0]
+    if fr["lossy"]:
+        px = _vp8_decode_rgba(fr["image"], fr["alph"])
+    else:
+        _check_lossless_header(fr["image"])
+        px = _vp8l_decode(fr["image"], True)
+    alpha = bool(flags & 0x10)   # PIL: RGBA where VP8X has alpha, else RGBX -> RGB
+    canvas = np.zeros((ch, cw, 4), np.uint8)
+    canvas[fr["y"]:fr["y"] + px.shape[0], fr["x"]:fr["x"] + px.shape[1]] = px
+    return Decoded(np.ascontiguousarray(canvas if alpha else canvas[:, :, :3]),
+                   "RGBA" if alpha else "RGB")
+
+
 def decode_webp(blob: bytes) -> Decoded:
-    """A still WebP (VP8L or VP8, alone or in a VP8X file) as PIL reads it
-    through libwebp's animation decoder: RGBA where the file says it has
-    alpha, else RGB (see ``csrc/image_webp.cpp``)."""
+    """A WebP as PIL reads it through libwebp's animation decoder: a still
+    image (VP8L or VP8, alone or in a VP8X file), RGBA where the file says it
+    has alpha, else RGB; an animated one's first frame (see
+    ``csrc/image_webp.cpp``)."""
     if len(blob) < 20 or blob[:4] != b"RIFF" or blob[8:12] != b"WEBP":
         raise ValueError("not a WebP file")
     pos, alpha, chunk, alph = 12, None, None, None
@@ -1725,8 +2027,10 @@ def decode_webp(blob: bytes) -> Decoded:
         name, size = blob[pos:pos + 4], int.from_bytes(blob[pos + 4:pos + 8], "little")
         body = blob[pos + 8:pos + 8 + size]
         if name == b"VP8X":
-            if len(body) < 10 or body[0] & 0x02:
-                raise ValueError("WebP: an animated WebP is not supported")
+            if len(body) < 10:
+                raise ValueError("WebP: bad VP8X chunk")
+            if body[0] & 0x02:
+                return _webp_anim(blob, pos)
             alpha = bool(body[0] & 0x10)
         elif name == b"ALPH":
             alph = body
@@ -1737,31 +2041,15 @@ def decode_webp(blob: bytes) -> Decoded:
     if chunk is None:
         raise ValueError("WebP: no image chunk")
     if chunk[0] == b"VP8 ":
-        Y, U, V = _vp8_decode_vp8(chunk[1])
-        h, w = Y.shape
-        rgb = _vp8_to_rgb(Y, U, V)
         if not alpha:
-            return Decoded(rgb, "RGB")
-        a = _vp8_decode_alpha(alph, w, h) if alph is not None else np.full((h, w), 255, np.uint8)
-        return Decoded(np.ascontiguousarray(np.concatenate([rgb, a[:, :, None]], -1)), "RGBA")
+            Y, U, V = _vp8_decode_vp8(chunk[1])
+            return Decoded(_vp8_to_rgb(Y, U, V), "RGB")
+        return Decoded(_vp8_decode_rgba(chunk[1], alph), "RGBA")
     body = chunk[1]
-    if len(body) < 5 or body[0] != 0x2F:
-        raise ValueError("WebP: bad lossless signature")
-    head = int.from_bytes(body[1:5], "little")
-    w, h = (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
-    if head >> 29:
-        raise ValueError("WebP: unknown lossless version")
+    _check_lossless_header(body)
     if alpha is None:
-        alpha = bool(head >> 28 & 1)
-    if w * h > MAX_PIXELS:
-        raise ValueError("WebP: bad image size")
-    br = _LsbBits(body[5:])
-    px, transforms, _ = _vp8l_image(br, w, h, True)
-    argb = _vp8l_inverse(px, transforms, h)
-    rgba = np.stack([(argb >> 16) & 255, (argb >> 8) & 255, argb & 255, argb >> 24], -1)
-    rgba = rgba.astype(np.uint8)
-    return Decoded(np.ascontiguousarray(rgba if alpha else rgba[:, :, :3]),
-                   "RGBA" if alpha else "RGB")
+        alpha = bool(int.from_bytes(body[1:5], "little") >> 28 & 1)
+    return Decoded(_vp8l_decode(body, alpha), "RGBA" if alpha else "RGB")
 
 
 # ---- WebP lossy (VP8 key frame, as libwebp decodes it) ------------------------------

@@ -4,7 +4,8 @@ TIFF (orientation 2-8, fill order 2, BigTIFF, CCITT RLE / Group 3 / Group
 4, JPEG-compressed strips and tiles, LZMA, YCbCr through libtiff's conversion,
 old-style LZW, 12-bit, 16-bit planar configuration 2, LAB), progressive
 JPEG that libjpeg block-smooths, TGA, SGI, PCX, PIL's identification
-order, DDS (uncompressed, BC1-BC5 and BC7), PSD, ICO and CUR, QOI, IM, Sun
+order, DDS (uncompressed, BC1-BC5 and BC7; BC6H in
+tests/test_torch_imageio_anim.py), PSD, ICO and CUR, QOI, IM, Sun
 raster, MSP, XBM, XPM, SPIDER and WebP (lossless, and lossy with its
 alpha), and ``save_gray`` to TGA, SGI, PCX, DDS and IM.
 
@@ -719,10 +720,14 @@ def test_dds_bc7_reads_as_jax(tmp_path, dxgi):
                                                         dx10=dxgi)))
 
 
-@pytest.mark.parametrize("dxgi,reason", [(95, "DXGI format 95"), (96, "DXGI format 96")],
-                         ids=["BC6H-unsigned", "BC6H-signed"])
+@pytest.mark.parametrize("dxgi,reason", [(94, "DXGI format 94"), (10, "DXGI format 10")],
+                         ids=["BC6H-typeless", "RGBA16-float"])
 def test_dds_formats_not_read_yet_raise_naming_the_file(tmp_path, dxgi, reason):
+    """DXGI formats PIL refuses too (NotImplementedError); BC6H (95, 96) is
+    read, in tests/test_torch_imageio_anim.py."""
     path = _write(tmp_path, "n.dds", _dds(8, 8, 4, b"DX10", data=bytes(64), dx10=dxgi))
+    with pytest.raises(NotImplementedError):
+        Image.open(path)
     for read in (tds.load_gray, tds.load_depth, images.decode, images_plain.decode):
         with pytest.raises(ValueError, match=reason) as err:
             read(path)

@@ -1387,3 +1387,47 @@ def j2k_merged(pieces, factors, geometry) -> bytes:
               b"".join(tile[c][1][r] for r in range(len(tile[0][1])) for c in range(len(tile)))]
              for t, tile in enumerate(tiles)]
     return j2k_join(main, parts)
+
+
+# ---- DDS (DX10) and WebP chunks ------------------------------------------------------
+
+# BC6H's mode field: the two-bit modes 00 and 01, then the five-bit ones (the
+# last four of them reserved)
+BC6H_MODE_BITS = [0b00, 0b01] + [0b00010 | k << 2 for k in range(8)] + [
+    0b00011 | k << 2 for k in range(8)]
+
+
+def dds_dx10_bytes(w: int, h: int, dxgi: int, data: bytes) -> bytes:
+    """A DDS file with a DX10 header of format ``dxgi`` around ``data``."""
+    return (b"DDS " + struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 0) + bytes(44)
+            + struct.pack("<4I", 32, 4, int.from_bytes(b"DX10", "little"), 0) + bytes(16)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0) + struct.pack("<5I", dxgi, 3, 0, 0, 1)
+            + data)
+
+
+def bc6h_blocks(count: int, seed: int) -> bytes:
+    """``count`` random BC6H blocks, block i of mode BC6H_MODE_BITS[i % 18]."""
+    blocks = bytearray(np.random.default_rng(seed).integers(0, 256, 16 * count)
+                       .astype(np.uint8).tobytes())
+    for i in range(count):
+        bits = BC6H_MODE_BITS[i % len(BC6H_MODE_BITS)]
+        keep = ~3 if bits < 2 else ~31
+        blocks[16 * i] = (blocks[16 * i] & keep & 0xFF) | bits
+    return bytes(blocks)
+
+
+def webp_chunks(blob: bytes) -> list:
+    """A RIFF WebP file -> [[fourcc, payload], ...] (top-level chunks)."""
+    pos, out = 12, []
+    while pos + 8 <= len(blob):
+        size = int.from_bytes(blob[pos + 4:pos + 8], "little")
+        out.append([blob[pos:pos + 4], blob[pos + 8:pos + 8 + size]])
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_bytes(chunks) -> bytes:
+    """[[fourcc, payload], ...] -> a RIFF WebP file (each chunk padded)."""
+    body = b"WEBP" + b"".join(name + struct.pack("<I", len(data)) + data + bytes(len(data) & 1)
+                              for name, data in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
