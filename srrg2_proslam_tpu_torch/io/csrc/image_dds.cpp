@@ -12,6 +12,7 @@
 // truncated data.
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstring>
 #include <sstream>
@@ -326,8 +327,8 @@ uint8_t bc6_channel(int v, bool sign) {
 }
 
 void bc6_block(const uint8_t* s, bool sign, Rgba* out) {
-  static const std::vector<uint8_t>* packings = [] {
-    auto* p = new std::vector<uint8_t>[14];
+  static const std::array<std::vector<uint8_t>, 14> packings = [] {
+    std::array<std::vector<uint8_t>, 14> p;
     for (int m = 0; m < 14; ++m) p[m] = bc6_packing(kBc6Layouts[m]);
     return p;
   }();

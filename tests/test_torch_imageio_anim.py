@@ -156,6 +156,7 @@ def test_dds_bc6h_reads_as_jax(tmp_path, dxgi):
     assert images.decode(path).mode == "RGB" and 0 < samples.mean() < 255
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = ["kitti_webp_anim/image_0/000000.webp", "bc6h_unsigned.dds", "bc6h_signed.dds"]
 
 
@@ -163,6 +164,21 @@ FIXTURES = ["kitti_webp_anim/image_0/000000.webp", "bc6h_unsigned.dds", "bc6h_si
 def test_fixtures_read_as_jax(name):
     """The committed files (the KITTI WebP through the library only, as
     chip_smoke.py reads it)."""
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "test_data", "torch_io", name)
-    _reads_as_pil_and_jax(path, twin=not name.endswith(".webp"))
+    _reads_as_pil_and_jax(os.path.join(REPO, "test_data", "torch_io", name),
+                          twin=not name.endswith(".webp"))
+
+
+def test_kitti_webp_anim_folder_reads_as_jax_and_as_the_png_frames():
+    """Each file's first frame is the cut KITTI image (its second frame
+    differs), so the folder reads as the PNG frames' gray."""
+    seq = os.path.join(REPO, "test_data", "torch_io", "kitti_webp_anim")
+    got_t = list(tds.iter_kitti_odometry(seq))
+    got_j = list(jds.iter_kitti_odometry(seq))
+    assert len(got_t) == len(got_j) == 2
+    kitti = os.path.join(REPO, "test_data", "kitti", "city")
+    for i, (a, b) in enumerate(zip(got_t, got_j)):
+        assert a.timestamp == b.timestamp
+        for side in ("left", "right"):
+            np.testing.assert_array_equal(getattr(a, side), getattr(b, side))
+            png = jds.load_gray(os.path.join(kitti, f"image_{side}_{i}.png"))[:, 300:940]
+            np.testing.assert_array_equal(getattr(a, side), png)
